@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive cuba_tpu_torch's main path once on one NVIDIA GPU and check it.
+"""Drive cuba_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--num-poses 4096]
 
@@ -21,9 +21,32 @@ Phases (any failure exits non-zero, before the result line):
    plan routes through must have launched.
 4. The same ``optimize(10)`` with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
+5. The band path through the public API: ``bench.py``'s kitti00-scale loop
+   graph (1322 poses, 133,383 landmarks, ``mean_obs`` 5.5, 25% stereo, seed
+   0, ``loop_closure=True``), Huber kernels, ``BAConfig(dtype=float32,
+   device="cuda")`` with ``solver="auto"``: ``initialize()`` +
+   ``optimize(10)`` once to warm up and once timed from a fresh graph.  The
+   engine must resolve to ``band_cr`` with 22 CR blocks, chi² must be
+   finite and fall, the final chi² must lie within ``bench.CHI2_REL_BAND``
+   of the recorded fp64 value ``bench.CHI2_FP64_FINAL``, and every kernel
+   of the path must have launched.
+6. Every kernel of the band path against its plain version on that run's
+   plan and first-attempt tensors: kernels 1-6 at phase 2's call sites,
+   ``tiled_segsum`` also at the combine of ``rows.schur_compact``, and
+   kernels 7-8 (``schur_fused``, ``compact_to_band``).  Gathers and
+   ``compact_to_band`` equal bit for bit, sums within 1e-5 of each
+   output's sum of |terms|; median CUDA-event times of 25 launches; and
+   the cyclic-reduction factor + solve of that band with each
+   diagonal-block inverse (``_inv_spd_rs``, ``_inv_spd_chol``).
+7. Phase 5's run with the plain versions on the card: the chi²
+   trajectories must agree to rtol 5e-3 per iteration.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel and
+path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6;
+``"site"`` names a second call site of one kernel).  ``launches`` is the
+kernel's count in that path's counted run, over all its call sites; the
+other numbers are that path's comparisons.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -43,6 +66,9 @@ SEGSUM_RTOL = 1e-5
 TRAJ_RTOL = 5e-3
 
 KERNEL_SOURCE = "cuba_tpu_torch/csrc/segmm.cu"
+KITTI = dict(num_poses=1322, num_landmarks=133383, mean_obs_per_landmark=5.5,
+             stereo_fraction=0.25, seed=0, loop_closure=True)  # bench.py:121-137
+KITTI_BAND_M = 22
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -50,6 +76,8 @@ REPLACES = {
     "accum_segsum_windowed": "cuba_tpu/ops/segmm.py:205",
     "tiled_segsum": "cuba_tpu/ops/segmm.py:425",
     "accum_segsum": "cuba_tpu/ops/segmm.py:105",
+    "schur_fused": "cuba_tpu/ops/segmm.py:798",
+    "compact_to_band": "cuba_tpu/ops/segmm.py:1093",
 }
 
 
@@ -96,7 +124,7 @@ def check_kernels(engine, torch, segmm):
     plan, rc = engine.plan, engine.rc
     st = engine.state
     total_p = st.qs.shape[0]
-    psrc = torch.zeros((12, plan.p_res_pad), dtype=torch.float32, device="cuda")
+    psrc = torch.zeros((12, plan.p_res_pad), dtype=torch.float32, device=st.qs.device)
     psrc[:, :total_p] = torch.cat([st.qs, st.ts, engine.cams], dim=1).T
     pack_m, _pack_s, _chi = engine._residuals_and_chi(st)
     g12, err, Xc, inv_z = pack_m
@@ -104,7 +132,7 @@ def check_kernels(engine, torch, segmm):
     v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], rc.omegaT_m,
                                        engine.kernels[0], 2)
     HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(st)[:2])
-    lam = torch.ones((), dtype=torch.float32, device="cuda")
+    lam = torch.ones((), dtype=torch.float32, device=st.qs.device)
     iv9 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, plan, rc)[0]
     src12 = torch.cat([iv9, HllT[9:12]])
     if plan.rg_m is not None:
@@ -114,13 +142,13 @@ def check_kernels(engine, torch, segmm):
     paw = plan.paw_m
     cases = {
         "resident_gather": (
-            "gather", lambda f: f(psrc, rc.pose_gid_m),
+            "exact", lambda f: f(psrc, rc.pose_gid_m),
             segmm.resident_gather, segmm.resident_gather_plain),
         "windowed_gather": (
-            "gather", lambda f: f(wsrc, wids, plan.rg_m, None),
+            "exact", lambda f: f(wsrc, wids, plan.rg_m, None),
             segmm.windowed_gather, segmm.windowed_gather_plain),
         "tiled_gather": (
-            "gather", lambda f: f(src12, rc.hpl_col, plan.ivs, None),
+            "exact", lambda f: f(src12, rc.hpl_col, plan.ivs, None),
             segmm.tiled_gather, segmm.tiled_gather_plain),
         "accum_segsum_windowed": (
             (v42, rc.pose_acc_m, engine.num_p),
@@ -135,6 +163,19 @@ def check_kernels(engine, torch, segmm):
             lambda f: f(v42, rc.pose_acc_m, engine.num_p, csr=rc.csr_pose_m),
             segmm.accum_segsum, segmm.accum_segsum_plain),
     }
+    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
+
+
+def segsum_bound(segmm, vals, ids, num_out):
+    """A segment sum's bound: SEGSUM_RTOL times each output's sum of |vals|."""
+    return SEGSUM_RTOL * segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+
+
+def compare_cases(cases, torch, bound_of):
+    """Each case's kernel against its plain version: equal bit for bit
+    ("exact"), or within ``bound_of(*kind)`` elementwise.  A case's label is
+    the wrapper's name, with ``:site`` where one wrapper has two call sites.
+    Returns {label: (max_abs_err, ms, plain_ms)}."""
     out = {}
     for name, (kind, call, kern, plain) in cases.items():
         got = call(kern)
@@ -144,20 +185,81 @@ def check_kernels(engine, torch, segmm):
             fail(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}, "
                  f"plain {tuple(ref.shape)} {ref.dtype}")
         diff = (got - ref).abs()
-        if kind == "gather":
+        if kind == "exact":
             if not torch.equal(got, ref):
-                fail(f"{name}: kernel and plain gathers differ (max {float(diff.max())})")
-        else:
-            vals, ids, num_out = kind
-            bound = SEGSUM_RTOL * segmm.accum_segsum_plain(vals.abs(), ids, num_out)
-            if not bool((diff <= bound).all()):
-                fail(f"{name}: kernel and plain sums differ beyond {SEGSUM_RTOL} of sum|vals| "
-                     f"(max abs diff {float(diff.max())})")
+                fail(f"{name}: kernel and plain results differ (max {float(diff.max())})")
+        elif not bool((diff <= bound_of(*kind)).all()):
+            fail(f"{name}: kernel and plain sums differ beyond the stated bound "
+                 f"(max abs diff {float(diff.max())})")
         ms = cuda_ms(lambda: call(kern), torch)
         plain_ms = cuda_ms(lambda: call(plain), torch)
         out[name] = (float(diff.max()) if diff.numel() else 0.0, ms, plain_ms)
         log(f"kernel {name}: shape {tuple(got.shape)} max_abs_err {out[name][0]:.3e} "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    return out
+
+
+def check_band_kernels(engine, torch, segmm):
+    """Phase 6: every kernel of the band path against its plain version on
+    the band run's plan and first-attempt tensors: kernels 1-6 at the call
+    sites of phase 2, ``tiled_segsum`` at the combine of
+    ``rows.schur_compact``, and kernels 7-8; then the CR factor + solve
+    timed with each diagonal-block inverse.  Returns the kernel entries."""
+    from cuba_tpu_torch.solver import band_cr, rows
+
+    out = check_kernels(engine, torch, segmm)
+    plan, rc = engine.plan, engine.rc
+    HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
+    lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
+    _iv9, W, bscT, _g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p,
+                                               engine.num_l, plan, rc)
+    W = W.contiguous()
+    sc = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
+    PB = plan.pad_blocks
+    M = PB // 64
+    # the combine's input as rows.schur_compact makes it
+    win = segmm.schur_fused(W, HplT, *sc, csr=rc.csr_sc)
+    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
+    gT = rows.schur_compact(W, HplT, plan, rc)
+    dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
+    band_args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
+    cases = {
+        "schur_fused": (
+            ("schur",), lambda f: f(W, HplT, *sc, csr=rc.csr_sc),
+            segmm.schur_fused, segmm.schur_fused_plain),
+        "tiled_segsum:combine": (
+            (win, rc.gkey_up2, M * plan.wg),
+            lambda f: f(win, rc.gkey_up2, M * plan.wg, plan.up2, plan.up2.base_block,
+                        csr=rc.csr_up2),
+            segmm.tiled_segsum, segmm.tiled_segsum_plain),
+        "compact_to_band": (
+            "exact", lambda f: f(*band_args, table=rc.band_table),
+            segmm.compact_to_band, segmm.compact_to_band_plain),
+    }
+
+    def bound_of(*kind):
+        if kind == ("schur",):
+            return SEGSUM_RTOL * segmm.schur_fused_plain(W.abs(), HplT.abs(), *sc)
+        return segsum_bound(segmm, *kind)
+
+    out.update(compare_cases(cases, torch, bound_of))
+
+    D, U = rows.band_from_compact(gT, HppT, lam, engine.num_p, plan, rc)
+    rhs = bscT.new_zeros(6 * PB)
+    rhs[:6 * engine.num_p] = bscT.T.reshape(-1)
+    xs = {}
+    for name, inv in (("_inv_spd_rs", band_cr._inv_spd_rs),
+                      ("_inv_spd_chol", band_cr._inv_spd_chol)):
+        x, ok, _reads = band_cr.cr_solve(D, U, rhs, engine.config.refinement_steps, inv=inv)
+        if not bool(ok):
+            fail(f"cr_solve with {name} rejected the first attempt's band")
+        xs[name] = x
+        ms = cuda_ms(lambda: band_cr.cr_solve(D, U, rhs, engine.config.refinement_steps,
+                                              inv=inv), torch)
+        log(f"CR factor+solve (m {D.shape[0]}, 1 refinement sweep) with {name}: {ms:.4f} ms")
+    rel = float((xs["_inv_spd_rs"] - xs["_inv_spd_chol"]).abs().max()
+                / xs["_inv_spd_chol"].abs().max())
+    log(f"CR solutions, _inv_spd_rs vs _inv_spd_chol: max rel diff {rel:.3e}")
     return out
 
 
@@ -174,6 +276,7 @@ def run_path(prob, config, torch, label):
     t_opt = time.perf_counter() - t0
     r = ba.last_result
     chis = np.array([s.chi2 for s in ba.batch_statistics()])
+    log(f"{label}: solver {ba._engine.solver}, band_m {ba._engine.band_m}")
     log(f"{label}: initialize {t_init:.4f} s, optimize({ITERS}) {t_opt:.4f} s, "
         f"niters {r.niters}, attempts {r.nattempts}, cg_steps {r.cg_steps}, "
         f"host_reads {r.host_reads}")
@@ -184,6 +287,27 @@ def run_path(prob, config, torch, label):
     if not bool(torch.isfinite(qs).all()) or tuple(qs.shape) != (ba._engine.structure.total_p, 4):
         fail(f"{label}: pose estimates not finite or of the wrong shape")
     return ba, chis, t_init, t_opt
+
+
+def expected_kernels(plan):
+    """The kernel wrappers a structure's plan routes the LM loop through."""
+    expected = {"tiled_gather", "tiled_segsum",
+                "windowed_gather" if plan.rg_m is not None else "resident_gather"}
+    for paw in (plan.paw_m, plan.paw_s, plan.paw_b):
+        expected.add("accum_segsum_windowed" if paw.ok else "accum_segsum")
+    if plan.schur is not None:
+        expected |= {"schur_fused", "compact_to_band"}
+    return expected
+
+
+def compare_trajectories(chis, chis_plain, label):
+    n = min(len(chis), len(chis_plain))
+    if n < 2 or len(chis) != len(chis_plain):
+        fail(f"{label}: trajectories differ in length: {len(chis)} vs {len(chis_plain)}")
+    rel = np.abs(chis[:n] - chis_plain[:n]) / np.abs(chis_plain[:n])
+    log(f"{label}: kernel vs plain chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL})")
+    if not np.all(rel <= TRAJ_RTOL):
+        fail(f"{label}: kernel and plain chi2 trajectories disagree")
 
 
 def main() -> None:
@@ -241,46 +365,84 @@ def main() -> None:
     engine = ba._engine
 
     # phase 2: kernels against plain versions
-    kern = check_kernels(engine, torch, segmm)
+    kern_pcg = check_kernels(engine, torch, segmm)
     del ba, engine
 
-    # phase 3: the main path, counted and timed
+    # phase 3: the PCG path, counted and timed
     segmm.reset_launches()
-    ba, chis, t_init, t_opt = run_path(prob, config, torch, "main path")
-    launches = dict(segmm.LAUNCHES)
-    log(f"launches: {json.dumps(launches)}")
+    ba, chis, t_init, t_opt = run_path(prob, config, torch, "pcg path")
+    launches_pcg = dict(segmm.LAUNCHES)
+    log(f"launches (pcg path): {json.dumps(launches_pcg)}")
     if not chis[-1] < chis[0]:
         fail(f"chi2 did not fall: {chis[0]} -> {chis[-1]}")
-    plan = ba._engine.plan
-    expected = {"tiled_gather", "tiled_segsum",
-                "windowed_gather" if plan.rg_m is not None else "resident_gather"}
-    for paw in (plan.paw_m, plan.paw_s, plan.paw_b):
-        expected.add("accum_segsum_windowed" if paw.ok else "accum_segsum")
-    missing = sorted(n for n in expected if launches[n] == 0)
+    missing = sorted(n for n in expected_kernels(ba._engine.plan) if launches_pcg[n] == 0)
     if missing:
-        fail(f"kernels of the path never launched: {missing}")
+        fail(f"kernels of the pcg path never launched: {missing}")
     del ba
 
     # phase 4: the same run with the plain versions on the card
     with segmm.use_plain():
-        _ba, chis_plain, _ti, t_opt_plain = run_path(prob, config, torch, "plain path")
-    n = min(len(chis), len(chis_plain))
-    if n < 2 or len(chis) != len(chis_plain):
-        fail(f"trajectories differ in length: {len(chis)} vs {len(chis_plain)}")
-    rel = np.abs(chis[:n] - chis_plain[:n]) / np.abs(chis_plain[:n])
-    log(f"kernel vs plain chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL}); "
-        f"optimize kernel {t_opt:.4f} s plain {t_opt_plain:.4f} s")
-    if not np.all(rel <= TRAJ_RTOL):
-        fail("kernel and plain chi2 trajectories disagree")
-
-    log(f"walls ({card}): initialize {t_init} s, optimize({ITERS}) {t_opt} s; cold "
+        _ba, chis_plain, _ti, t_opt_plain = run_path(prob, config, torch, "pcg plain path")
+    compare_trajectories(chis, chis_plain, "pcg")
+    log(f"pcg walls ({card}): initialize {t_init} s, optimize({ITERS}) {t_opt} s; cold "
         f"initialize {t_init0} s, optimize {t_opt0} s; plain optimize {t_opt_plain} s")
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        for name, (err, ms, plain_ms) in kern.items()
-    ]}))
+    del _ba
+
+    # phase 5: the band path (solver="auto") on the kitti00-scale loop graph
+    from bench import CHI2_FP64_FINAL, CHI2_REL_BAND
+
+    kprob = synthetic.generate(**KITTI)
+    log(f"kitti00 loop: P {KITTI['num_poses']}, L {KITTI['num_landmarks']}, "
+        f"E {kprob.mono_p.size + kprob.stereo_p.size} ({kprob.stereo_p.size} stereo), "
+        "bench.py parameters, seed 0")
+    kconfig = BAConfig(dtype=torch.float32, device="cuda")
+    kba, _kchis, kt_init0, kt_opt0 = run_path(kprob, kconfig, torch, "kitti warm-up")
+    kengine = kba._engine
+    if kengine.solver != "band_cr" or kengine.band_m != KITTI_BAND_M:
+        fail(f"solver='auto' resolved to {kengine.solver!r} with band_m {kengine.band_m}, "
+             f"expected 'band_cr' with {KITTI_BAND_M}")
+
+    # phase 6: the band path's kernels against their plain versions, CR timings
+    kern_band = check_band_kernels(kengine, torch, segmm)
+    del kba, kengine
+
+    segmm.reset_launches()
+    kba, kchis, kt_init, kt_opt = run_path(kprob, kconfig, torch, "band path")
+    launches_band = dict(segmm.LAUNCHES)
+    log(f"launches (band path): {json.dumps(launches_band)}")
+    if not (kchis[-1] < kchis[0] and np.all(np.diff(kchis) <= 0)):
+        fail(f"kitti00 chi2 did not fall: {kchis.tolist()}")
+    ref = CHI2_FP64_FINAL[("kitti00_scale_loop", ITERS)]
+    rel = abs(kchis[-1] - ref) / ref
+    log(f"kitti00 final chi2 {kchis[-1]:.2f} vs fp64 record {ref:.2f}: rel {rel:.3e} "
+        f"(band {CHI2_REL_BAND})")
+    if not rel < CHI2_REL_BAND:
+        fail("kitti00 final chi2 is outside the recorded fp64 band")
+    missing = sorted(n for n in expected_kernels(kba._engine.plan) if launches_band[n] == 0)
+    if missing:
+        fail(f"kernels of the band path never launched: {missing}")
+    del kba
+
+    # phase 7: the band run with the plain versions on the card
+    with segmm.use_plain():
+        _kba, kchis_plain, kt_init_p, kt_opt_plain = run_path(kprob, kconfig, torch,
+                                                              "band plain path")
+    compare_trajectories(kchis, kchis_plain, "band")
+    log(f"band walls ({card}): initialize {kt_init} s, optimize({ITERS}) {kt_opt} s; cold "
+        f"initialize {kt_init0} s, optimize {kt_opt0} s; plain initialize {kt_init_p} s, "
+        f"plain optimize {kt_opt_plain} s")
+    del _kba
+
+    entries = []
+    for path, kern, launches in (("pcg", kern_pcg, launches_pcg),
+                                 ("band", kern_band, launches_band)):
+        for label, (err, ms, plain_ms) in kern.items():
+            name, _, site = label.partition(":")
+            entries.append({"name": name, "path": path, **({"site": site} if site else {}),
+                            "route": "cuda", "source": KERNEL_SOURCE,
+                            "replaces": REPLACES[name], "launches": launches[name],
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

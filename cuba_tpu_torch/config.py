@@ -1,9 +1,10 @@
 """Optimizer configuration (port of ``cuba_tpu/config.py``).
 
 The LM hyper-parameters keep ``cuba_tpu``'s defaults.  Dtypes are torch
-dtypes, and ``device`` names where every tensor of the engine lives.  Only
-the matrix-free PCG reduced solver is ported so far; the engine rejects any
-other ``solver`` (ROADMAP queue 1, "Band solver" and "Dense solver").
+dtypes, and ``device`` names where every tensor of the engine lives.  The
+matrix-free PCG and the band (cyclic-reduction) reduced solvers are ported;
+the engine rejects the others (ROADMAP queue 1, "Loop-closure solver" and
+"Dense solver").
 """
 
 from __future__ import annotations
@@ -30,13 +31,22 @@ class BAConfig:
       scale_eps: epsilon added to the gain-ratio denominator.
       attenuation_min/max: clamp bounds of the accepted-step damping
         attenuation 1-(2*rho-1)^3.
-      solver: reduced-system solver.  Only "pcg" (block-Jacobi
-        preconditioned conjugate gradient on the matrix-free Schur operator)
-        is ported; the default "auto" and every other value raise
-        NotImplementedError at ``initialize()``.
+      solver: reduced-system solver.  "pcg" (block-Jacobi preconditioned
+        conjugate gradient on the matrix-free Schur operator), "band_cr"
+        (block-tridiagonal cyclic reduction on a band-certified Schur
+        pattern) or "auto", which picks as cuba_tpu does: band_cr for a
+        pure band of at least 8 CR blocks, band_lr for a band with loop
+        columns, dense_cholesky up to 4096 padded pose blocks, else pcg.
+        "band_lr" and "dense_cholesky" are not ported: choosing them, or
+        "auto" resolving to them, raises NotImplementedError at
+        ``initialize()``.
       numerical_escalation: lambda factor when the solve fails (PCG did not
-        converge or gave a non-finite step).
+        converge, or the factor or the step was non-finite).
       pcg_max_iterations / pcg_tol: PCG stopping controls.
+      refinement_steps: iterative-refinement sweeps after the fp32 band
+        solve (none in fp64).
+      pose_block_pad: pad the reduced system to a multiple of this many
+        pose blocks (a positive multiple of 128).
     """
 
     dtype: torch.dtype = torch.float32
@@ -51,6 +61,8 @@ class BAConfig:
     numerical_escalation: float = 8.0
     pcg_max_iterations: int = 250
     pcg_tol: float = 1e-10
+    refinement_steps: int = 1
+    pose_block_pad: int = 128
 
     def resolve_device(self) -> torch.device:
         return torch.device(self.device) if self.device is not None else torch.device("cpu")

@@ -1,7 +1,8 @@
-// Index-driven gather and deterministic segment sum for Hopper (sm_90a).
+// Index-driven gathers, segment sums and the v2 Schur formation for Hopper
+// (sm_90a).
 //
-// These two kernels replace the six one-hot-matmul Pallas kernels of
-// cuba_tpu/ops/segmm.py that the PCG slice runs:
+// These four kernels replace the eight one-hot-matmul Pallas kernels of
+// cuba_tpu/ops/segmm.py that the PCG and band paths run:
 //
 //   gather_cols  <- resident_gather (segmm.py:1257), windowed_gather
 //                   (segmm.py:1215), tiled_gather (segmm.py:487)
@@ -9,6 +10,12 @@
 //   segsum_csr   <- accum_segsum (segmm.py:105), accum_segsum_windowed
 //                   (segmm.py:205), tiled_segsum (segmm.py:425)
 //                   out[d, s] = sum over ids[n] == s of vals[d, n]
+//   schur_fused  <- schur_fused (segmm.py:798)
+//                   out[a*6+b, lane] = sum over the lane's triplets t of
+//                   sum_m W[3a+m, slot_i(t)] * G[3b+m, slot_j(t)]
+//   compact_to_band <- compact_to_band (segmm.py:1093)
+//                   tile (k, e) of [M*384, 768] = A[k, k+e] of the damped
+//                   Schur complement, diag - (upper + mirrored blocks)
 //
 // On the TPU the one-hot matrix exists because XLA's gather/scatter ran at
 // 5-10 GB/s while the MXU was idle; the windows and tiles of the Pallas
@@ -30,6 +37,21 @@
 //    uncoalesced and divergent.  The ids come from a locality-sorted edge
 //    stream, so most segments read a narrow, cache-resident range of
 //    columns.  Warp-per-segment reduction and vector loads are later work.
+//
+//  * schur_fused: one thread per output lane (chunk c, lane l), summing the
+//    lane's triplets in the fixed order of a per-lane CSR the host built
+//    once per structure (ascending triplet position), with the 36 sums in
+//    registers.  No atomics: deterministic.  The TPU kernel builds one-hot
+//    matrices because the TPU gathers and scatters slowly; here the W and
+//    G columns are read by index.  Bound by those reads (2 x 18 floats per
+//    triplet, from a 2*SB-slot window per chunk that stays in L1/L2) and
+//    their latency; the 36 stores per lane coalesce across lanes.
+//  * compact_to_band: every 6x6 output block has at most one source (an
+//    upper block, a mirrored one, and/or the damped diagonal), so this is a
+//    placement, not a sum.  One thread per output element reads the host's
+//    [PB, 128] slot table (upper slot, or mirror slot with bit 30 set) and
+//    writes every element, zeros included, with coalesced stores.  Bound by
+//    the writes (M*384*768*4 bytes, 26 MB at M = 22).
 //
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns cudaGetLastError() so the Python wrapper can raise on
@@ -70,6 +92,80 @@ __global__ void segsum_csr_kernel(const float* __restrict__ vals,
   out[i] = acc;
 }
 
+__global__ void schur_fused_kernel(const float* __restrict__ W,
+                                   const float* __restrict__ G, int64_t S,
+                                   const int32_t* __restrict__ sb,
+                                   const int32_t* __restrict__ li,
+                                   const int32_t* __restrict__ lj,
+                                   const int32_t* __restrict__ order,
+                                   const int32_t* __restrict__ offs,
+                                   int64_t slot_block, int64_t kwin, int64_t lanes,
+                                   float* __restrict__ out) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int64_t base = static_cast<int64_t>(sb[lane / kwin]) * slot_block;
+  float acc[36];
+#pragma unroll
+  for (int r = 0; r < 36; ++r) acc[r] = 0.0f;
+  const int32_t end = offs[lane + 1];
+  for (int32_t q = offs[lane]; q < end; ++q) {
+    const int32_t t = order[q];
+    const int64_t i = base + li[t];
+    const int64_t j = base + lj[t];
+    if (li[t] < 0 || lj[t] < 0 || i >= S || j >= S) continue;
+    float w[18], g[18];
+#pragma unroll
+    for (int r = 0; r < 18; ++r) {
+      w[r] = W[r * S + i];
+      g[r] = G[r * S + j];
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+#pragma unroll
+      for (int b = 0; b < 6; ++b) {
+        acc[a * 6 + b] += w[3 * a] * g[3 * b] + w[3 * a + 1] * g[3 * b + 1] +
+                          w[3 * a + 2] * g[3 * b + 2];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 36; ++r) out[r * lanes + lane] = acc[r];
+}
+
+constexpr int kBandTile = 64;            // pose blocks per CR block
+constexpr int kBandRows = 6 * kBandTile;  // 384 scalars
+constexpr int32_t kMirror = 1 << 30;
+
+__global__ void compact_to_band_kernel(const float* __restrict__ gT, int64_t MWg,
+                                       const int32_t* __restrict__ table,
+                                       const float* __restrict__ dbT, int64_t PB,
+                                       const int32_t* __restrict__ occ, int64_t M,
+                                       float* __restrict__ out) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t width = 2 * kBandRows;
+  if (idx >= M * kBandRows * width) return;
+  const int64_t row = idx / width;
+  const int col = static_cast<int>(idx - row * width);
+  const int64_t k = row / kBandRows;
+  const int rl = static_cast<int>(row - k * kBandRows);
+  const int pr = rl / 6, i = rl - 6 * (rl / 6);
+  const int e = col / kBandRows;
+  const int cl = col - e * kBandRows;
+  const int lq = e * kBandTile + cl / 6, j = cl - 6 * (cl / 6);
+  const int64_t p = k * kBandTile + pr;
+  float v = 0.0f;
+  if (occ[2 * k + e] > 0) {
+    const int32_t ent = table[p * (2 * kBandTile) + lq];
+    if (ent >= 0) {
+      const int64_t slot = ent & (kMirror - 1);
+      const int r = (ent & kMirror) ? j * 6 + i : i * 6 + j;
+      v = -gT[r * MWg + slot];
+    }
+    if (lq == pr) v += dbT[(i * 6 + j) * PB + p];
+  }
+  out[idx] = v;
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -96,6 +192,34 @@ int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs
     segsum_csr_kernel<<<blocks_for(D * num_out), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(vals, order, offs, out,
                                                              D, N, num_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// W, G [18, S]; sb [C]; li, lj [C*chunk]; order/offs: the per-lane CSR of
+// triplet positions (offs [C*kwin + 1]); out [36, C*kwin].
+int cuba_schur_fused(const float* W, const float* G, int64_t S, const int32_t* sb,
+                     const int32_t* li, const int32_t* lj, const int32_t* order,
+                     const int32_t* offs, int64_t slot_block, int64_t kwin, int64_t C,
+                     float* out, void* stream) {
+  const int64_t lanes = C * kwin;
+  if (lanes > 0) {
+    schur_fused_kernel<<<blocks_for(lanes), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        W, G, S, sb, li, lj, order, offs, slot_block, kwin, lanes, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gT [36, MWg]; table [PB, 128]; dbT [36, PB]; occ [2M]; out [M*384, 768].
+int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
+                         const float* dbT, int64_t PB, const int32_t* occ, int64_t M,
+                         float* out, void* stream) {
+  const int64_t n = M * kBandRows * 2 * kBandRows;
+  if (n > 0) {
+    compact_to_band_kernel<<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        gT, MWg, table, dbT, PB, occ, M, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,10 +35,13 @@ def structure_from_numpy(obj) -> BAStructure:
         hpl_row=np.asarray(obj.hpl_row, np.int32),
         hpl_col=np.asarray(obj.hpl_col, np.int32),
         edge2hpl=np.asarray(obj.edge2hpl, np.int32),
+        **{f: np.asarray(getattr(obj, f), np.int32)
+           for f in ("hsc_row", "hsc_col", "mul_i", "mul_j", "mul_k")},
         mono_perm=np.asarray(obj.mono_perm, np.int64),
         stereo_perm=np.asarray(obj.stereo_perm, np.int64),
         lm_rank=np.asarray(obj.lm_rank, np.int64),
         pose_rank=None if pose_rank is None else np.asarray(pose_rank, np.int64),
+        schur_native=getattr(obj, "schur_native", None),
     )
 
 

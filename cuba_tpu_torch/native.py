@@ -3,10 +3,12 @@
 ``cuba_tpu``'s binding (``cuba_tpu/native/__init__.py``) cannot be imported
 here: importing anything under ``cuba_tpu`` imports JAX.  So the port reads
 the same C++ source by path, compiles it with g++ into its own build
-directory at first use and binds the three entry points the slice needs
-(the Hpl slot pass, the per-tile min/max scan and the locality reorder).
-Where no g++ or no source is found, :func:`get_lib` returns None and the
-callers take their NumPy paths, which give the same tables.
+directory at first use and binds the entry points the port needs: the
+symbolic pass (Hpl slots, the Schur co-observation pattern, the
+multiplication triplets and the fused Schur chunk plan), the per-tile
+min/max scan and the locality reorder.  Where no g++ or no source is found,
+:func:`get_lib` returns None and the callers take their NumPy paths, which
+give the same tables.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libcuba_symbolic.abi2.so")
 _ABI_VERSION = 2
 # (chunk, slot_block, max_kwin) of the fused Schur plan the C++ pass also
-# emits; the PCG slice discards that plan, so any valid geometry will do
-_SC_GEOM = (1024, 256, 1024)
+# emits: cuba_tpu's default segmm.sc_geometry(), without its environment
+# overrides
+SC_GEOMETRY = (1024, 256, 1024)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -66,10 +69,21 @@ def _bind(lib: ctypes.CDLL) -> Optional[ctypes.CDLL]:
         _i32p, _i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
-    lib.ba_n_hpl.restype = ctypes.c_int64
-    lib.ba_n_hpl.argtypes = [ctypes.c_void_p]
+    for name in ("ba_n_hpl", "ba_n_hsc", "ba_n_mul", "ba_fsp_chunks", "ba_fsp_slot_pad",
+                 "ba_fsp_hsc_pad"):
+        getattr(lib, name).restype = ctypes.c_int64
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    for name in ("ba_fsp_kwin", "ba_fsp_ok"):
+        getattr(lib, name).restype = ctypes.c_int32
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
     lib.ba_copy_hpl.restype = None
     lib.ba_copy_hpl.argtypes = [ctypes.c_void_p, _i32p, _i32p, _i32p]
+    lib.ba_copy_hsc.restype = None
+    lib.ba_copy_hsc.argtypes = [ctypes.c_void_p, _i32p, _i32p]
+    lib.ba_copy_mul.restype = None
+    lib.ba_copy_mul.argtypes = [ctypes.c_void_p, _i32p, _i32p, _i32p]
+    lib.ba_fsp_copy.restype = None
+    lib.ba_fsp_copy.argtypes = [ctypes.c_void_p, _i32p, _i32p, _i32p, _i32p, _i32p]
     lib.ba_symbolic_free.restype = None
     lib.ba_symbolic_free.argtypes = [ctypes.c_void_p]
     lib.ba_tile_minmax.restype = None
@@ -119,24 +133,41 @@ def _ptr64(a: np.ndarray):
     return a.ctypes.data_as(_i64p)
 
 
-def hpl_slots(e_pi: np.ndarray, e_li: np.ndarray, num_p: int, num_l: int):
-    """(hpl_row, hpl_col, edge2hpl) from the C++ pass, or None."""
+def symbolic_compile(e_pi: np.ndarray, e_li: np.ndarray, num_p: int, num_l: int):
+    """The C++ symbolic pass, or None without the library.  Returns
+    (hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, mul_i, mul_j, mul_k,
+    schur_native), as ``cuba_tpu.native.symbolic_compile``; schur_native is
+    the fused Schur chunk plan at ``SC_GEOMETRY``: ((chunk, slot_block,
+    max_kwin), kwin, ok, C, n_slot_pad, n_hsc_pad, sb, li, lj, lk, gid)."""
     lib = get_lib()
     if lib is None:
         return None
     e_pi = np.ascontiguousarray(e_pi, np.int32)
     e_li = np.ascontiguousarray(e_li, np.int32)
+    chunk = SC_GEOMETRY[0]
     h = lib.ba_symbolic_compile(_ptr32(e_pi), _ptr32(e_li), e_pi.size,
-                                int(num_p), int(num_l), *_SC_GEOM)
+                                int(num_p), int(num_l), *SC_GEOMETRY)
     try:
-        n_hpl = int(lib.ba_n_hpl(h))
-        hpl_row = np.empty(n_hpl, np.int32)
-        hpl_col = np.empty(n_hpl, np.int32)
+        n_hpl, n_hsc, n_mul = (int(f(h)) for f in (lib.ba_n_hpl, lib.ba_n_hsc, lib.ba_n_mul))
+        hpl_row, hpl_col = np.empty(n_hpl, np.int32), np.empty(n_hpl, np.int32)
         edge2hpl = np.empty(e_pi.size, np.int32)
         lib.ba_copy_hpl(h, _ptr32(hpl_row), _ptr32(hpl_col), _ptr32(edge2hpl))
+        hsc_row, hsc_col = np.empty(n_hsc, np.int32), np.empty(n_hsc, np.int32)
+        lib.ba_copy_hsc(h, _ptr32(hsc_row), _ptr32(hsc_col))
+        mul = [np.empty(n_mul, np.int32) for _ in range(3)]
+        lib.ba_copy_mul(h, *(_ptr32(a) for a in mul))
+        kwin = int(lib.ba_fsp_kwin(h))
+        C = int(lib.ba_fsp_chunks(h))
+        sb = np.empty(C, np.int32)
+        li, lj, lk = (np.empty(C * chunk, np.int32) for _ in range(3))
+        gid = np.empty(C * kwin, np.int32)
+        lib.ba_fsp_copy(h, _ptr32(sb), _ptr32(li), _ptr32(lj), _ptr32(lk), _ptr32(gid))
+        schur_native = (SC_GEOMETRY, kwin, bool(lib.ba_fsp_ok(h)), C,
+                        int(lib.ba_fsp_slot_pad(h)), int(lib.ba_fsp_hsc_pad(h)),
+                        sb, li, lj, lk, gid)
     finally:
         lib.ba_symbolic_free(h)
-    return hpl_row, hpl_col, edge2hpl
+    return (hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, *mul, schur_native)
 
 
 def tile_minmax(ids: np.ndarray, bound: int, tile: int, mode: int, num_tiles: int):

@@ -1,21 +1,26 @@
-"""Gathers and segment sums over transposed ``[D, N]`` fp32 tables.
+"""Gathers, segment sums and the Schur formation over transposed
+``[D, N]`` fp32 tables.
 
-Port of the six one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``
-that the PCG slice runs.  Each wrapper keeps its TPU kernel's argument list,
-output shape and layout (``[D, N]``, fp32) and invalid-id rules:
+Port of the eight one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``
+that the PCG and band paths run.  Each wrapper keeps its TPU kernel's
+argument list, output shape and layout (fp32) and invalid-id rules:
 
 * gathers ``resident_gather`` / ``windowed_gather`` / ``tiled_gather``:
   ``out[:, n] = src[:, ids[n]]``, 0 where ``ids[n] < 0`` or ``>= S``;
 * segment sums ``accum_segsum`` / ``accum_segsum_windowed`` /
   ``tiled_segsum``: ``out[:, s] = sum of vals[:, n] over ids[n] == s`` for
-  ``0 <= s < num_out``; other ids are dropped.
+  ``0 <= s < num_out``; other ids are dropped;
+* ``schur_fused``: per-chunk windowed W (x) Hpl pair products, [36, C*kwin];
+* ``compact_to_band``: the band-major compact Schur table placed into
+  block-tridiagonal storage [M*384, 768].
 
 The TPU kernels' windows and tiles only kept a one-hot factor inside VMEM;
-here the plan arguments are accepted and ignored.  Underneath, two
-hand-written CUDA kernels (``csrc/segmm.cu``) serve all six wrappers: a
-column gather and a deterministic CSR segment sum.  The CSR of a call site
-(:class:`SegmentCSR`) is built once per structure by the planner
-(``solver/rows.py``); a segment-sum wrapper given none builds it on the spot,
+here the plan arguments are accepted and ignored where the kernel does not
+need them.  Underneath, four hand-written CUDA kernels (``csrc/segmm.cu``)
+serve the eight wrappers: a column gather, a deterministic CSR segment sum,
+a per-lane CSR pair-product sum and a table-driven band placement.  The
+CSRs and the band table of a call site are built once per structure by the
+planner (``solver/rows.py``); a wrapper given none builds them on the spot,
 which only tests do.
 
 Dispatch: a CPU tensor takes the ``*_plain`` torch version, a CUDA tensor
@@ -24,9 +29,10 @@ switches CUDA tensors to the plain versions too, for the comparisons in the
 tests and ``chip_smoke.py``.  Every kernel launch adds one to
 ``LAUNCHES[wrapper name]``.
 
-The host plans (:class:`TilePlan`, :class:`AccumWindowPlan` and their
-planners) are NumPy copies of ``cuba_tpu``'s: the planner keeps them so its
-paddings and its choice of wrapper match ``cuba_tpu``'s exactly.
+The host plans (:class:`TilePlan`, :class:`AccumWindowPlan`,
+:class:`SchurPlan` and their planners) are NumPy copies of ``cuba_tpu``'s:
+the planner keeps them so its paddings and its choice of wrapper match
+``cuba_tpu``'s exactly.
 """
 
 from __future__ import annotations
@@ -164,6 +170,147 @@ def plan_gather_tiles(ids: np.ndarray, num_src: int, *, tile: int = 512, block: 
     return TilePlan(tile, block, n_blocks, num_tiles, base_block.astype(np.int32), n_pad, ok)
 
 
+# (chunk, slot_block, max_kwin) of the fused Schur plan, the geometry the
+# C++ pass plans at too
+SC_GEOMETRY = native.SC_GEOMETRY
+
+
+@dataclasses.dataclass(frozen=True)
+class SchurPlan:
+    """Chunk metadata of schur_fused: triplets in landmark order, in chunks
+    of ``chunk``.  Chunk c reads W/Hpl slots from the two ``slot_block``
+    blocks starting at block sb[c] and writes its ``kwin`` output lanes;
+    li/lj/lk are the local ids (-1 on padding), gid the global Hsc block
+    of each output lane (-1 on padding)."""
+
+    chunk: int
+    slot_block: int
+    kwin: int
+    num_chunks: int
+    sb: np.ndarray  # [C] int32
+    li: np.ndarray  # [C*chunk] int32
+    lj: np.ndarray  # [C*chunk] int32
+    lk: np.ndarray  # [C*chunk] int32
+    gid: np.ndarray  # [C*kwin] int32
+    n_slot_pad: int
+    n_hsc_pad: int
+    ok: bool
+
+
+def _chunk_by_landmark(mi, mj, mk, col, chunk, slot_block):
+    """Greedy landmark-granular chunking of the landmark-major triplet
+    streams: close a chunk early (padding with -1) where the next
+    landmark's triplets would overflow it or push its slot window past
+    2*slot_block.  Returns padded (mi, mj, mk, num_chunks)."""
+    n = mi.size
+    lm = col[mi]
+    starts = np.flatnonzero(np.concatenate(([True], lm[1:] != lm[:-1])))
+    ends = np.append(starts[1:], n)
+    counts = ends - starts
+    lo_r = np.minimum.reduceat(np.minimum(mi, mj), starts)
+    hi_r = np.maximum.reduceat(np.maximum(mi, mj), starts)
+    if int(counts.max()) > chunk or int((hi_r - lo_r).max()) >= 2 * slot_block:
+        # one landmark alone overflows: pack densely, the plan is infeasible
+        C = max((n + chunk - 1) // chunk, 1)
+        pad = np.full(C * chunk - n, -1, np.int64)
+        return np.concatenate([mi, pad]), np.concatenate([mj, pad]), np.concatenate([mk, pad]), C
+    win = 2 * slot_block
+    new_start = np.empty(starts.size, np.int64)  # padded position of each run
+    cid = cur_n = 0
+    cur_lo, cur_hi = np.int64(0), np.int64(-1)
+    for r in range(starts.size):
+        c_, l_, h_ = counts[r], lo_r[r], hi_r[r]
+        if cur_n:
+            nlo, nhi = min(cur_lo, l_), max(cur_hi, h_)
+            if cur_n + c_ > chunk or nhi >= (nlo // slot_block) * slot_block + win:
+                cid += 1
+                cur_n = 0
+        if cur_n == 0:
+            cur_lo, cur_hi = l_, h_
+        else:
+            cur_lo, cur_hi = min(cur_lo, l_), max(cur_hi, h_)
+        new_start[r] = cid * chunk + cur_n
+        cur_n += c_
+    C = cid + 1
+    pos = np.repeat(new_start - starts, counts) + np.arange(n, dtype=np.int64)
+    out = []
+    for a in (mi, mj, mk):
+        p = np.full(C * chunk, -1, np.int64)
+        p[pos] = a
+        out.append(p)
+    return out[0], out[1], out[2], C
+
+
+def plan_schur(mul_i, mul_j, mul_k, n_hpl: int, n_hsc: int, *, chunk: int = 1024,
+               slot_block: int = 512, max_kwin: int = 1024, precomputed=None,
+               col: Optional[np.ndarray] = None) -> SchurPlan:
+    """The schur_fused chunk plan (NumPy copy of cuba_tpu's plan_schur).
+    ``precomputed`` is the C++ pass's plan (BAStructure.schur_native), taken
+    as is when its geometry matches; ``col`` (slot -> landmark) enables the
+    landmark-granular re-chunk."""
+    if precomputed is not None and precomputed[0] == (chunk, slot_block, max_kwin):
+        kwin, ok, C, n_slot_pad, n_hsc_pad, sb, li, lj, lk, gid = precomputed[1:]
+        return SchurPlan(chunk, slot_block, int(kwin), C, sb, li, lj, lk,
+                         gid, n_slot_pad, n_hsc_pad, ok)
+    mul_i, mul_j, mul_k = (np.asarray(a) for a in (mul_i, mul_j, mul_k))
+    n_mul = int(mul_i.size)
+    order = np.argsort(mul_i, kind="stable")  # landmark-major slot order
+    mi, mj, mk = mul_i[order], mul_j[order], mul_k[order]
+    big = np.int64(1) << 40
+    if col is not None and n_mul:
+        mi, mj, mk, C = _chunk_by_landmark(
+            mi.astype(np.int64), mj.astype(np.int64), mk.astype(np.int64),
+            np.asarray(col, np.int64), chunk, slot_block)
+    else:
+        C = max((n_mul + chunk - 1) // chunk, 1)
+        pad = np.full(C * chunk - n_mul, -1, np.int64)
+        mi, mj, mk = (np.concatenate([a, pad]) for a in (mi, mj, mk))
+    mi2, mj2, mk2 = (a.reshape(C, chunk) for a in (mi, mj, mk))
+    valid = mi2 >= 0
+    smin = np.where(valid, np.minimum(mi2, mj2), big).min(axis=1)
+    smax = np.where(valid, np.maximum(mi2, mj2), -1).max(axis=1)
+    none = smax < 0
+    smin[none] = 0
+    smax[none] = 0
+    sb = (smin // slot_block).astype(np.int32)
+    ok = bool(np.all(smax - sb.astype(np.int64) * slot_block < 2 * slot_block))
+    li = np.where(valid, mi2 - sb[:, None].astype(np.int64) * slot_block, -1)
+    lj = np.where(valid, mj2 - sb[:, None].astype(np.int64) * slot_block, -1)
+
+    # compact per-chunk block lists: the sorted distinct mk of each chunk
+    mk_sorted = np.sort(np.where(valid, mk2, big), axis=1)
+    isnew = np.ones_like(mk_sorted, dtype=bool)
+    isnew[:, 1:] = mk_sorted[:, 1:] != mk_sorted[:, :-1]
+    isnew &= mk_sorted < big
+    counts = isnew.sum(axis=1)
+    kwin = min(max_kwin, max(_round_up(int(counts.max()) if C else 1, 128), 128))
+    ok = ok and bool(counts.max() <= kwin if C else True)
+    gid = np.full((C, kwin), -1, np.int64)
+    if C and ok:
+        rank = np.cumsum(isnew, axis=1) - 1
+        rows, cols = np.nonzero(isnew)
+        gid[rows, rank[rows, cols]] = mk_sorted[rows, cols]
+        # local lane of each triplet: one searchsorted over the row-wise
+        # sorted lists, made globally ascending with per-chunk offsets
+        stride = np.int64(n_hsc + 2)
+        offs = (np.arange(C, dtype=np.int64) * stride)[:, None]
+        flat = (np.where(gid >= 0, gid, stride - 1) + offs).reshape(-1)
+        queries = (np.where(valid, mk2, 0) + offs).reshape(-1)
+        lk = np.searchsorted(flat, queries).astype(np.int64) - (
+            np.repeat(np.arange(C, dtype=np.int64), chunk) * kwin)
+        lk = np.where(valid.reshape(-1), lk, -1).reshape(C, chunk)
+    else:
+        lk = np.where(valid, mk2, -1)
+    n_slot_pad = max((int(sb.max()) + 2) * slot_block if C else slot_block,
+                     _round_up(n_hpl, slot_block))
+    return SchurPlan(
+        chunk, slot_block, kwin, C, sb,
+        li.reshape(-1).astype(np.int32), lj.reshape(-1).astype(np.int32),
+        lk.reshape(-1).astype(np.int32), gid.reshape(-1).astype(np.int32),
+        n_slot_pad, _round_up(n_hsc, 128), ok,
+    )
+
+
 class SegmentCSR(NamedTuple):
     """The fixed summation order of one segment-sum call site."""
 
@@ -187,6 +334,41 @@ def segment_csr(ids, num_out: int, device) -> SegmentCSR:
     )
 
 
+def schur_lane_csr(plan: SchurPlan, device) -> SegmentCSR:
+    """schur_fused's summation order: for every output lane c*kwin + l, the
+    chunk's triplet positions t with lk[t] == l, in ascending t."""
+    lk = np.asarray(plan.lk, np.int64)
+    chunk_of = np.arange(lk.size, dtype=np.int64) // plan.chunk
+    lanes = np.where(lk >= 0, chunk_of * plan.kwin + lk, -1)
+    return segment_csr(lanes, plan.num_chunks * plan.kwin, device)
+
+
+BAND_TILE = 64  # pose blocks per CR block: 384 = 64 * 6 scalars
+_MIRROR = np.int32(1 << 30)
+
+
+def band_table(iru, icu, PB: int) -> np.ndarray:
+    """compact_to_band's placement table [PB, 128] int32: for pose row p and
+    local pose column q (global column (p // 64) * 64 + q) the band slot
+    whose 6x6 block lands there, with bit 30 set where the block is read
+    transposed (a mirror); -1 where none does.  Every output block has at
+    most one source: uppers have row <= col, mirrors row > col."""
+    if isinstance(iru, torch.Tensor):
+        iru, icu = iru.cpu().numpy(), icu.cpu().numpy()
+    iru = np.asarray(iru, np.int64)
+    icu = np.asarray(icu, np.int64)
+    tab = np.full((PB, 2 * BAND_TILE), -1, np.int32)
+    s = np.flatnonzero(iru >= 0)
+    r, c = iru[s], icu[s]
+    rbase = (r // BAND_TILE) * BAND_TILE
+    up = (c >= rbase) & (c < rbase + 2 * BAND_TILE)  # tile (k, 0) or (k, 1)
+    tab[r[up], (c - rbase)[up]] = s[up]
+    cbase = (c // BAND_TILE) * BAND_TILE
+    mir = (r != c) & (r >= cbase)  # the transposed read, inside tile (k, 0)
+    tab[c[mir], (r - cbase)[mir]] = s[mir].astype(np.int32) | _MIRROR
+    return tab
+
+
 # ---------------------------------------------------------------------------
 # the CUDA library: built from csrc/segmm.cu with nvcc, bound with ctypes
 # ---------------------------------------------------------------------------
@@ -207,6 +389,8 @@ LAUNCHES = {
     "accum_segsum": 0,
     "accum_segsum_windowed": 0,
     "tiled_segsum": 0,
+    "schur_fused": 0,
+    "compact_to_band": 0,
 }
 _FORCE_PLAIN = [False]
 
@@ -262,6 +446,11 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.cuba_gather_cols.argtypes = [vp, vp, vp, i64, i64, i64, vp]
             lib.cuba_segsum_csr.restype = ctypes.c_int
             lib.cuba_segsum_csr.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+            lib.cuba_schur_fused.restype = ctypes.c_int
+            lib.cuba_schur_fused.argtypes = [vp, vp, i64, vp, vp, vp, vp, vp,
+                                             i64, i64, i64, vp, vp]
+            lib.cuba_compact_to_band.restype = ctypes.c_int
+            lib.cuba_compact_to_band.argtypes = [vp, i64, vp, vp, i64, vp, i64, vp, vp]
             _lib = lib
         return _lib
 
@@ -426,3 +615,131 @@ def tiled_segsum(vals, ids, num_out: int, plan: TilePlan, base_block, *,
 
 def tiled_segsum_plain(vals, ids, num_out: int, plan: TilePlan, base_block, *, csr=None):
     return _segsum_plain(vals, ids, num_out)
+
+
+# ---------------------------------------------------------------------------
+# the v2 Schur formation: schur_fused and compact_to_band
+# ---------------------------------------------------------------------------
+
+
+def schur_fused_plain(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr=None):
+    """Plain torch schur_fused: every chunk's pair products, gathered from
+    its slot window and summed into its output lanes."""
+    C, R, KW, SB = plan.num_chunks, plan.chunk, plan.kwin, plan.slot_block
+    base = (sb.long() * SB).repeat_interleave(R)
+    valid = (li >= 0) & (lj >= 0) & (lk >= 0)
+    i = torch.where(valid, base + li.long(), torch.zeros_like(base))
+    j = torch.where(valid, base + lj.long(), torch.zeros_like(base))
+    prod = torch.einsum("akt,bkt->abt", W[:, i].view(6, 3, -1),
+                        G[:, j].view(6, 3, -1)).reshape(36, -1)
+    lane = torch.arange(C * R, device=W.device) // R * KW + lk.long()
+    out = torch.zeros((36, C * KW), dtype=W.dtype, device=W.device)
+    return out.index_add_(1, lane[valid], prod[:, valid])
+
+
+def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentCSR] = None):
+    """Per-chunk windowed pair products (cuba_tpu segmm.schur_fused):
+    out[a*6+b, c*kwin + lk[t]] += sum_m W[3a+m, sb[c]*SB + li[t]] *
+    G[3b+m, sb[c]*SB + lj[t]] over chunk c's triplets t; -1 ids dropped.
+    W, G [18, >= n_slot_pad] -> [36, C*kwin].  ``csr`` is
+    :func:`schur_lane_csr` of the plan, built once per structure; the
+    kernel needs it."""
+    C, KW = plan.num_chunks, plan.kwin
+    for t, name in ((W, "W"), (G, "G")):
+        if t.dim() != 2 or t.shape[0] != 18 or t.shape[1] < plan.n_slot_pad:
+            raise ValueError(f"{name}: expected [18, >= {plan.n_slot_pad}], "
+                             f"got {tuple(t.shape)}")
+    if G.shape != W.shape:
+        raise ValueError(f"W {tuple(W.shape)} and G {tuple(G.shape)} differ")
+    if (sb.shape[0] != C or li.shape[0] != C * plan.chunk or lj.shape[0] != li.shape[0]
+            or lk.shape[0] != li.shape[0]):
+        raise ValueError("sb/li/lj/lk do not match the plan")
+    if not _use_kernel(W, G, sb, li, lj, lk):
+        return schur_fused_plain(W, G, plan, sb, li, lj, lk)
+    for t, name in ((W, "W"), (G, "G")):
+        _check(t, name, torch.float32, 2)
+    for t, name in ((sb, "sb"), (li, "li"), (lj, "lj")):
+        _check(t, name, torch.int32, 1)
+    if csr is None:
+        raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
+    _check(csr.order, "csr.order", torch.int32, 1)
+    _check(csr.offs, "csr.offs", torch.int32, 1)
+    if csr.offs.shape[0] != C * KW + 1 or csr.offs.device != W.device:
+        raise ValueError("csr does not match the plan or the device")
+    out = torch.empty((36, C * KW), dtype=torch.float32, device=W.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = lib.cuba_schur_fused(
+            W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), li.data_ptr(),
+            lj.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(),
+            plan.slot_block, KW, C, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"schur_fused: launch failed (cudaError {err})")
+    LAUNCHES["schur_fused"] += 1
+    return out
+
+
+def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, table=None):
+    """Plain torch compact_to_band: uppers, transposed mirrors and the
+    damped diagonal placed into [M, 64, 6, 2, 64, 6] = tile (k, e) element
+    (pose row, i, pose col, j), then zeroed on unoccupied tiles."""
+    T = BAND_TILE
+    M = PB // T
+    out = gT.new_zeros((M, T, 6, 2, T, 6))
+    s = torch.nonzero(iru >= 0).flatten()
+    r, c = iru[s].long(), icu[s].long()
+    blocks = gT[:, s].T.reshape(-1, 6, 6)  # [n, i, j] = gT[i*6+j, slot]
+    k = r // T
+    e = c // T - k
+    up = (e >= 0) & (e <= 1)
+    out[k[up], (r % T)[up], :, e[up], (c % T)[up], :] = -blocks[up]
+    mir = (r != c) & (r // T == c // T)
+    out[(c // T)[mir], (c % T)[mir], :, 0, (r % T)[mir], :] = -blocks[mir].transpose(1, 2)
+    p = torch.arange(PB, device=gT.device)
+    out[p // T, p % T, :, 0, p % T, :] += dbT.T.reshape(PB, 6, 6)
+    occ = (occ_band.reshape(M, 2) > 0)[:, None, None, :, None, None]
+    out = torch.where(occ, out, torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.reshape(M * 6 * T, 12 * T)
+
+
+def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
+                    table: Optional[torch.Tensor] = None):
+    """Block-tridiagonal storage from the band-major compact Schur table
+    (cuba_tpu segmm.compact_to_band): tile (k, e) of the [M*384, 768]
+    output is the 384x384 block A[k, k+e] of the damped Schur complement,
+    diag - (upper + mirrored blocks); unoccupied tiles are zero.  dbT
+    [36, PB] is indexed by the global pose block.  ``table`` is
+    :func:`band_table` of (iru, icu), built once per structure; the kernel
+    needs it."""
+    if PB % BAND_TILE != 0:
+        raise ValueError(f"PB={PB} is not a multiple of {BAND_TILE}")
+    M = PB // BAND_TILE
+    if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
+            or tuple(occ_band.shape) != (2 * M,) or tuple(iru.shape) != (M * Wg,)
+            or tuple(icu.shape) != (M * Wg,)):
+        raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
+                         f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ_band "
+                         f"{tuple(occ_band.shape)} do not fit PB={PB}, Wg={Wg}")
+    if not _use_kernel(gT, iru, icu, dbT, occ_band):
+        return compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB, Wg)
+    _check(gT, "gT", torch.float32, 2)
+    _check(dbT, "dbT", torch.float32, 2)
+    _check(occ_band, "occ_band", torch.int32, 1)
+    if table is None:
+        raise ValueError("compact_to_band: the kernel needs table=band_table(iru, icu, PB)")
+    _check(table, "table", torch.int32, 2)
+    if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
+        raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+    out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=torch.float32,
+                      device=gT.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(gT.device):
+        stream = torch.cuda.current_stream(gT.device).cuda_stream
+        err = lib.cuba_compact_to_band(gT.data_ptr(), gT.shape[1], table.data_ptr(),
+                                       dbT.data_ptr(), PB, occ_band.data_ptr(), M,
+                                       out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"compact_to_band: launch failed (cudaError {err})")
+    LAUNCHES["compact_to_band"] += 1
+    return out

@@ -1,11 +1,12 @@
 """Block-solver engine: the Levenberg-Marquardt loop over the rows front end
-and the matrix-free PCG reduced solve (port of the PCG path of
-``cuba_tpu/solver/engine.py``).
+and the matrix-free PCG or the band (cyclic-reduction) reduced solve (port
+of the PCG and band paths of ``cuba_tpu/solver/engine.py``).
 
 The loop runs eagerly in torch.  Accept/reject is a ``torch.where`` on the
 device; the host reads the device once per damped attempt (the gain ratio
-and whether lambda is finite, which decide whether to retry or stop) and
-once per CG step (the PCG stop test), plus once per ``optimize`` for the
+and whether lambda is finite, which decide whether to retry or stop), once
+per CG step and once per CG solve (the PCG stop test) or once per fp32 band
+factorisation (the boost-retry test), plus once per ``optimize`` for the
 chi² trajectory.  The control law is ``cuba_tpu``'s (``_make_lm_run``):
 lambda0 = tau * max diag, attenuation clamped to [1/3, 2/3], nu doubling,
 x8 escalation when the solve fails, and the accepted trial's residual packs
@@ -21,8 +22,17 @@ import torch
 
 from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.ops import se3
-from cuba_tpu_torch.solver import edgerows, rows
+from cuba_tpu_torch.solver import band_cr, edgerows, rows
 from cuba_tpu_torch.solver.structure import BAStructure
+
+# "auto" takes the dense solver up to this many padded pose blocks
+# (cuba_tpu engine._DENSE_MAX_PB)
+_DENSE_MAX_PB = 4096
+_PORTED = ("pcg", "band_cr")
+_UNPORTED = {
+    "band_lr": "the band + Woodbury loop-closure solver is ROADMAP queue 1 item 4",
+    "dense_cholesky": "the dense solver is ROADMAP queue 1 item 5",
+}
 
 
 class State(NamedTuple):
@@ -36,7 +46,7 @@ class LMResult(NamedTuple):
     chis: np.ndarray  # [niters] F after each outer iteration (chi_dtype)
     niters: int  # outer iterations run
     nattempts: int  # damped solves (inner trials)
-    cg_steps: int  # CG steps over all attempts
+    cg_steps: int  # CG steps over all attempts (0 on the band path)
     host_reads: int  # device-to-host reads the loop made
 
 
@@ -47,17 +57,61 @@ def _set_exact_fp32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def resolve_solver(s: BAStructure, config: BAConfig):
+    """Band certification and the solver choice, as cuba_tpu's engine makes
+    them: (solver, band_m, pad_blocks).  band_m is the CR block count of a
+    pure band, else 0."""
+    pad_blocks = rows.pad_blocks_of(s.num_p, config.pose_block_pad)
+    m_lr, ob_idx = band_cr.certify_lr(s.hsc_row, s.hsc_col, pad_blocks)
+    band_m = m_lr if ob_idx.size == 0 else 0
+    has_lr = False  # banded plus at most 64 loop-closure pose-block columns
+    if m_lr >= 2 and ob_idx.size:
+        J = np.unique(np.concatenate([np.asarray(s.hsc_row)[ob_idx],
+                                      np.asarray(s.hsc_col)[ob_idx]]))
+        has_lr = J.size <= 64
+    if config.solver == "band_cr" and not band_m:
+        raise ValueError(
+            "solver='band_cr' requires a band-certified Schur pattern "
+            "(half-bandwidth <= 64 pose blocks after the locality "
+            "reorder); this problem is not banded — use 'band_lr' "
+            "(banded + loop closures), 'dense_cholesky' or 'pcg'"
+        )
+    if config.solver == "band_lr" and not has_lr and not band_m:
+        raise ValueError(
+            "solver='band_lr' requires a banded-plus-low-rank Schur "
+            "pattern (in-band half-bandwidth <= 64 pose blocks and at "
+            "most 64 loop-closure pose-block columns) — use "
+            "'dense_cholesky' or 'pcg'"
+        )
+    solver = config.solver
+    if solver == "auto":
+        # CR's batched levels pay off from m >= 8; small systems factor
+        # fastest dense
+        if band_m >= 8:
+            solver = "band_cr"
+        elif has_lr and m_lr >= 8:
+            solver = "band_lr"
+        elif pad_blocks <= _DENSE_MAX_PB:
+            solver = "dense_cholesky"
+        else:
+            solver = "pcg"
+    if solver == "band_lr" and not has_lr:
+        solver = "band_cr"  # a pure band after all
+    return solver, band_m, pad_blocks
+
+
 class BlockSolverEngine:
     """Owns the device tables of one problem structure and runs the LM loop."""
 
     def __init__(self, structure: BAStructure, kernels, config: BAConfig):
-        if config.solver != "pcg":
+        self.solver, self.band_m, self.pad_blocks = resolve_solver(structure, config)
+        if self.solver in _UNPORTED:
             raise NotImplementedError(
-                f"solver={config.solver!r}: only 'pcg' is ported; the band, "
-                "band+Woodbury and dense solvers (and 'auto', which picks among "
-                "them) are ROADMAP queue 1 items 'Band solver', "
-                "'Loop-closure solver' and 'Dense solver'"
+                f"solver={config.solver!r} resolves to {self.solver!r}, which is not "
+                f"ported: {_UNPORTED[self.solver]}"
             )
+        if self.solver not in _PORTED:
+            raise ValueError(f"unknown solver {config.solver!r}")
         self.structure = s = structure
         self.config = config
         self.device = config.resolve_device()
@@ -71,7 +125,9 @@ class BlockSolverEngine:
             _set_exact_fp32()
         self.kernels = tuple((int(k[0]), float(k[1])) for k in kernels)
         self.num_p, self.num_l = s.num_p, s.num_l
-        self.plan, self.rc = rows.plan_rows(s, self.device, self.dtype)
+        self.plan, self.rc = rows.plan_rows(
+            s, self.device, self.dtype,
+            pad_blocks=self.pad_blocks if self.solver == "band_cr" else 0)
 
         def dev(a):
             return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -94,18 +150,27 @@ class BlockSolverEngine:
                                       self.num_l, self.plan, self.rc)
 
     def _solve(self, sys, lam):
-        """One damped trial solve.  Returns (xp [P, 6], xl [L, 3], ok, cg_steps)."""
+        """One damped trial solve.  Returns (xp [P, 6], xl [L, 3], ok,
+        cg_steps, host_reads)."""
         HppT, HllT, HplT = sys
-        plan, rc = self.plan, self.rc
-        iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, self.num_p,
+        plan, rc, P = self.plan, self.rc, self.num_p
+        iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
                                                  self.num_l, plan, rc)
-        xT, ok, k = rows.pcg_solve_rows(
-            HppT, HplT, W, lam, bscT, self.num_p, self.num_l, plan, rc,
-            self.config.pcg_max_iterations, self.config.pcg_tol,
-        )
-        xp = xT.T
+        if self.solver == "pcg":
+            xT, ok, k = rows.pcg_solve_rows(
+                HppT, HplT, W, lam, bscT, P, self.num_l, plan, rc,
+                self.config.pcg_max_iterations, self.config.pcg_tol,
+            )
+            xp, reads = xT.T, k + 1
+        else:
+            D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
+            rhs = bscT.new_zeros(6 * self.pad_blocks)
+            rhs[:6 * P] = bscT.T.reshape(-1)
+            refine = self.config.refinement_steps if self.dtype == torch.float32 else 0
+            x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
+            xp, k = x[:6 * P].reshape(P, 6), 0
         xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
-        return xp, xl, ok, k
+        return xp, xl, ok, k, reads
 
     def _apply_update(self, state: State, xp, xl) -> State:
         """Left-compose the pose steps and add the landmark steps (active
@@ -154,9 +219,9 @@ class BlockSolverEngine:
                 lam = cfg.tau * rows.max_diagonal_T(sys[0], sys[1]).to(dt)
             q = 0
             while True:
-                xp, xl, ok, k = self._solve(sys, lam)
+                xp, xl, ok, k, solve_reads = self._solve(sys, lam)
                 cg += k
-                reads += k + 1
+                reads += solve_reads
                 trial = self._apply_update(st, xp, xl)
                 tm, ts_, F0t = self._residuals_and_chi(trial)
                 Fhat = F0t.to(dt)

@@ -1,5 +1,6 @@
-"""The rows front end and the matrix-free PCG reduced solve (the PCG subset
-of ``cuba_tpu/solver/mxu.py``), over transposed ``[D, N]`` tensors.
+"""The rows front end, the matrix-free PCG reduced solve and the v2 band
+Schur formation (the PCG and band subsets of ``cuba_tpu/solver/mxu.py``),
+over transposed ``[D, N]`` tensors.
 
 Every index-driven step goes through the wrappers of ``ops/segmm.py``
 (hand-written CUDA kernels on the card); the per-slot 6x6/3x3 block algebra
@@ -8,13 +9,16 @@ is reshapes and einsums.  Function by function:
 =========================  ==================================
 this module                ``cuba_tpu/solver/mxu.py``
 =========================  ==================================
-``plan_rows``              ``plan_mxu(need_dense=False, wire_pack=False)``
-                           (688-1116) and ``pose_ranks`` (325)
+``plan_rows``              ``plan_mxu(wire_pack=False)`` (688-1116),
+                           ``plan_schur_for`` (306) and ``pose_ranks`` (325)
 ``edge_rows``              ``edge_rows_mxu`` (1428)
 ``_pose_accum``            ``_pose_accum`` (1478)
 ``build_system_rows``      ``build_system_rows`` (1488)
 ``_sym3x3_inv_rows``       ``_sym3x3_inv_rows`` (1548)
 ``prepare_factors``        ``prepare_factors_mxu`` (1575)
+``schur_band``             ``schur_band_mxu`` (1676)
+``schur_compact``          ``schur_compact_mxu`` (1698)
+``band_from_compact``      ``band_from_compact`` (1733)
 ``back_substitute``        ``back_substitute_mxu`` (1757)
 ``_hpp_matvec_rows``       ``_hpp_matvec_rows`` (1778)
 ``schur_matvec_rows``      ``schur_matvec_rows`` (1786)
@@ -24,7 +28,10 @@ this module                ``cuba_tpu/solver/mxu.py``
 =========================  ==================================
 
 Table layouts: HppT [42, P] (Hpp row-major 36, then bp 6), HllT [12, L]
-(Hll 9, then bl 3), HplT [18, hpl_pad] (Hpl row-major i*3+k per slot).
+(Hll 9, then bl 3), HplT [18, hpl_pad] (Hpl row-major i*3+k per slot),
+gT [36, M*Wg] (the band-major compact Schur table: band m holds the
+(row, col)-sorted Hsc blocks whose row lies in [64m, 64(m+1)), at lanes
+[m*Wg, m*Wg + count_m)).
 """
 
 from __future__ import annotations
@@ -43,6 +50,17 @@ from cuba_tpu_torch.solver.structure import BAStructure
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# band-major lanes per 64-row band at most (cuba_tpu mxu._WG_MAX)
+_WG_MAX = 2048
+# total grid steps of the v2 combine's tile plan (cuba_tpu
+# mxu._COMBINE_STEPS_MAX), which sets that plan's block cap
+_COMBINE_STEPS_MAX = 65536
+
+_FALLBACK = ("falls back to its dense formation there (the v1 MXU formation or the "
+             "XLA path), and that fallback path is ROADMAP queue 1 item 7, not "
+             "ported yet")
 
 
 def _pad_ids(ids, n, valid_mask=None):
@@ -92,6 +110,12 @@ class RowPlan:
     paw_b: AccumWindowPlan
     rg_m: Optional[AccumWindowPlan]  # None: the rank-ordered pose gather is off
     rg_s: Optional[AccumWindowPlan]
+    # v2 band formation (None / 0 without need_dense)
+    pad_blocks: int = 0  # PB: the reduced system in pose blocks
+    schur: Optional[segmm.SchurPlan] = None
+    wg: int = 0  # band-major lanes per 64-row band
+    up2: Optional[TilePlan] = None  # the combine's tile plan over gkey_up2
+    wpad: int = 0  # padded width of schur_fused's output and of gkey_up2
 
 
 @dataclasses.dataclass
@@ -126,22 +150,102 @@ class RowConsts:
     csr_e2h_s: SegmentCSR
     csr_hpl_row: SegmentCSR
     csr_hpl_col: SegmentCSR
+    # v2 band formation (None without need_dense)
+    sc_sb: Optional[torch.Tensor] = None  # [C] schur_fused slot blocks
+    sc_li: Optional[torch.Tensor] = None  # [C*chunk] local ids
+    sc_lj: Optional[torch.Tensor] = None
+    sc_lk: Optional[torch.Tensor] = None
+    gkey_up2: Optional[torch.Tensor] = None  # [wpad] band slot per output lane
+    iru: Optional[torch.Tensor] = None  # [M*Wg] block row / col per band slot
+    icu: Optional[torch.Tensor] = None
+    band_occ: Optional[torch.Tensor] = None  # [2M] tile (k, e) occupancy
+    band_table: Optional[torch.Tensor] = None  # [PB, 128] segmm.band_table
+    csr_sc: Optional[SegmentCSR] = None  # schur_fused's per-lane order
+    csr_up2: Optional[SegmentCSR] = None  # the combine's order
 
 
-def plan_row_tables(s: BAStructure):
+def pad_blocks_of(num_p: int, pad: int = 128) -> int:
+    """The reduced system's padding in pose blocks (cuba_tpu
+    engine._pad_blocks, BAConfig.pose_block_pad)."""
+    if pad % 128 != 0 or pad <= 0:
+        raise ValueError(f"pose_block_pad must be a positive multiple of 128, got {pad}")
+    return max(((num_p + pad - 1) // pad) * pad, pad)
+
+
+def plan_schur_for(s: BAStructure) -> segmm.SchurPlan:
+    """schur_fused's chunk plan: the C++ pass's when its geometry matches,
+    else planned here."""
+    chunk, sb, mk = segmm.SC_GEOMETRY
+    return segmm.plan_schur(s.mul_i, s.mul_j, s.mul_k, s.n_hpl, s.n_hsc, chunk=chunk,
+                            slot_block=sb, max_kwin=mk, precomputed=s.schur_native,
+                            col=s.hpl_col)
+
+
+def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
+    """The v2 band-major tables of ``plan_mxu``'s need_dense branch: (wg,
+    up2, {gkey_up2, iru, icu, band_occ}), or None where cuba_tpu would take
+    the dense fallback (Wg over _WG_MAX, no Hsc block or the combine plan
+    fails)."""
+    i32 = np.int32
+    n_hsc = s.n_hsc
+    gid = sc.gid.astype(np.int64)
+    hr = np.asarray(s.hsc_row, np.int64)
+    hc = np.asarray(s.hsc_col, np.int64)
+    M = PB // 64
+    bandcnt = np.bincount(hr // 64, minlength=M)
+    wg = _round_up(max(int(bandcnt.max()) if n_hsc else 1, 1), 128)
+    if wg > _WG_MAX or not n_hsc:
+        return None
+    # blocks are (row, col)-sorted: the position within a band is the slot
+    bandstart = np.zeros(M + 1, np.int64)
+    np.cumsum(bandcnt, out=bandstart[1:])
+    bslot = (hr // 64) * wg + (np.arange(n_hsc, dtype=np.int64) - bandstart[hr // 64])
+    gkey_up2 = np.where(gid >= 0, bslot[np.maximum(gid, 0)], -1).astype(i32)
+    n_t_up2 = max((M * wg + 127) // 128, 1)
+    up2 = segmm.plan_tiles(gkey_up2, M * wg, tile=128, block=512,
+                           max_blocks=max(32, _COMBINE_STEPS_MAX // n_t_up2))
+    if not up2.ok:
+        return None
+    iru = np.full(M * wg, -1, i32)
+    icu = np.full(M * wg, -1, i32)
+    iru[bslot] = hr
+    icu[bslot] = hc
+    # D_k always carries the damped diagonal; U_k only with adjacent blocks
+    band_occ = np.zeros(M * 2, i32)
+    band_occ[0::2] = 1
+    tr, tc = hr // 64, hc // 64
+    adj = np.abs(tr - tc) == 1
+    if adj.any():
+        band_occ[np.minimum(tr[adj], tc[adj]) * 2 + 1] = 1
+    return wg, up2, dict(gkey_up2=gkey_up2, iru=iru, icu=icu, band_occ=band_occ)
+
+
+def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
     """The host half of :func:`plan_rows`: (RowPlan, {name: np.ndarray}).
     Paddings, plans and tables equal ``cuba_tpu``'s ``plan_mxu(s,
-    need_dense=False, wire_pack=False)``."""
+    pad_blocks, need_dense=pad_blocks > 0, wire_pack=False)``; with
+    ``pad_blocks`` the v2 band formation's plans and tables come too."""
     num_p, num_l, n_hpl = s.num_p, s.num_l, s.n_hpl
     if num_p == 0 or num_l == 0 or n_hpl == 0:
         raise NotImplementedError(
             "pose-only and landmark-only problems need the fallback path "
             "(ROADMAP queue 1, 'Fallback path'), which is not ported yet"
         )
+    need_dense = pad_blocks > 0
+    sc = None
+    if need_dense:
+        if pad_blocks % 128 != 0:
+            raise ValueError(f"pad_blocks must be a positive multiple of 128, got {pad_blocks}")
+        sc = plan_schur_for(s)
+        if not sc.ok:
+            raise NotImplementedError(
+                "the Schur chunk plan does not hold for this structure: cuba_tpu "
+                + _FALLBACK)
     Em, Es = s.mono.count, s.stereo.count
     e_pad_m = max(_round_up(Em, 1024), 1024)
     e_pad_s = max(_round_up(Es, 1024), 1024)
-    hpl_pad = max(_round_up(n_hpl, 1024), 1024)
+    # schur_fused reads W/Hpl windows up to the plan's padded slot count
+    hpl_pad = max(_round_up(n_hpl, 1024), sc.n_slot_pad if sc else 1024)
     p_src_pad = max(_round_up(num_p + 1, 1024), 1024)
     # paddings and plan windows depend on each other: iterate to a fixpoint
     for _ in range(4):
@@ -192,6 +296,20 @@ def plan_row_tables(s: BAStructure):
     else:
         rg_m = rg_s = None
 
+    band = {}
+    if need_dense:
+        v2 = _band_tables(s, sc, pad_blocks)
+        if v2 is None:
+            raise NotImplementedError(
+                "the v2 band-major Schur formation does not plan for this structure: "
+                "cuba_tpu " + _FALLBACK)
+        wg, up2, v2_tables = v2
+        tables.update(v2_tables, sc_sb=np.asarray(sc.sb, np.int32),
+                      sc_li=np.asarray(sc.li, np.int32), sc_lj=np.asarray(sc.lj, np.int32),
+                      sc_lk=np.asarray(sc.lk, np.int32))
+        band = dict(pad_blocks=pad_blocks, schur=sc, wg=wg, up2=up2,
+                    wpad=_round_up(max(up2.n_pad, sc.num_chunks * sc.kwin), 1024))
+
     pacc_m = _pad_ids(s.mono.pose_idx, e_pad_m, s.mono.pose_idx < num_p)
     pacc_s = _pad_ids(s.stereo.pose_idx, e_pad_s, s.stereo.pose_idx < num_p)
     plan = RowPlan(
@@ -200,7 +318,7 @@ def plan_row_tables(s: BAStructure):
         segmm.plan_accum_windows(pacc_m, num_p),
         segmm.plan_accum_windows(pacc_s, num_p),
         segmm.plan_accum_windows(_pad_ids(s.hpl_row, hpl_pad), num_p),
-        rg_m, rg_s,
+        rg_m, rg_s, **band,
     )
     tables.update(
         pose_gid_m=pose_gid_m, pose_gid_s=pose_gid_s, lm_gid_m=lm_gid_m, lm_gid_s=lm_gid_s,
@@ -210,9 +328,11 @@ def plan_row_tables(s: BAStructure):
     return plan, tables
 
 
-def plan_rows(s: BAStructure, device, dtype):
-    """Plan a structure and upload its tables: (RowPlan, RowConsts)."""
-    plan, t = plan_row_tables(s)
+def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0):
+    """Plan a structure and upload its tables: (RowPlan, RowConsts).  With
+    ``pad_blocks`` the band formation's tables, CSRs and placement table
+    come too."""
+    plan, t = plan_row_tables(s, pad_blocks)
     Em, Es = s.mono.count, s.stereo.count
     measT_m = np.zeros((2, plan.e_pad_m))
     measT_m[:, :Em] = s.mono.measurements.T
@@ -245,6 +365,18 @@ def plan_rows(s: BAStructure, device, dtype):
         csr_e2h_m=csr("e2h_m", plan.hpl_pad), csr_e2h_s=csr("e2h_s", plan.hpl_pad),
         csr_hpl_row=csr("hpl_row", s.num_p), csr_hpl_col=csr("hpl_col", s.num_l),
     )
+    if plan.schur is not None:
+        PB, sc = plan.pad_blocks, plan.schur
+        gkey = _pad_ids(t["gkey_up2"], plan.wpad)
+        M_wg = PB // 64 * plan.wg
+        consts = dataclasses.replace(
+            consts, **{name: ints(name) for name in (
+                "sc_sb", "sc_li", "sc_lj", "sc_lk", "iru", "icu", "band_occ")},
+            gkey_up2=torch.from_numpy(gkey).to(device),
+            band_table=torch.from_numpy(segmm.band_table(t["iru"], t["icu"], PB)).to(device),
+            csr_sc=segmm.schur_lane_csr(sc, device),
+            csr_up2=segmm.segment_csr(gkey, M_wg, device),
+        )
     return plan, consts
 
 
@@ -356,6 +488,43 @@ def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowC
     wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
     bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
     return iv9, W.reshape(18, H), HppT[36:42] - bsc_sub, g12
+
+
+def schur_compact(W, HplT, plan: RowPlan, rc: RowConsts):
+    """The band-major compact table gT [36, M*Wg] = + sum of W Hpl^T over
+    every Hsc block: schur_fused's per-chunk windows, padded to ``wpad``,
+    combined by gkey_up2."""
+    sc = plan.schur
+    win = segmm.schur_fused(W.contiguous(), HplT, sc, rc.sc_sb, rc.sc_li, rc.sc_lj,
+                            rc.sc_lk, csr=rc.csr_sc)
+    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
+    M = plan.pad_blocks // 64
+    return segmm.tiled_segsum(win, rc.gkey_up2, M * plan.wg, plan.up2,
+                              plan.up2.base_block, csr=rc.csr_up2)
+
+
+def damped_diagonal_T(HppT, lam, num_p: int, PB: int) -> torch.Tensor:
+    """dbT [36, PB]: the damped Hpp blocks, identity on the padding poses."""
+    eye = torch.eye(6, dtype=HppT.dtype, device=HppT.device)
+    hpp_d = HppT[:36].T.reshape(num_p, 6, 6) + lam * eye
+    return torch.cat([hpp_d, eye.expand(PB - num_p, 6, 6)]).reshape(PB, 36).T.contiguous()
+
+
+def band_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts):
+    """Damped diagonal + the compact table placed into block-tridiagonal
+    storage: (D [M, 384, 384], U [M, 384, 384]), U[k] = A[k, k+1]."""
+    PB = plan.pad_blocks
+    band = segmm.compact_to_band(gT, rc.iru, rc.icu, damped_diagonal_T(HppT, lam, num_p, PB),
+                                 rc.band_occ, PB, plan.wg, table=rc.band_table)
+    arr = band.view(PB // 64, 384, 2, 384)
+    return arr[:, :, 0, :], arr[:, :, 1, :]
+
+
+def schur_band(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
+    """The damped Schur complement in block-tridiagonal storage (D, U),
+    never formed densely."""
+    gT = schur_compact(W, HplT, plan, rc)
+    return band_from_compact(gT, HppT, lam, num_p, plan, rc)
 
 
 def back_substitute(iv9, HllT, HplT, g12, xp, num_l, plan: RowPlan, rc: RowConsts):

@@ -1,18 +1,18 @@
 """Problem compiler: graph -> static index structure (the symbolic pass).
 
 A NumPy copy of ``cuba_tpu/solver/structure.py`` (which cannot be imported
-without JAX) for the PCG slice: active/fixed vertex partitioning, the edge
-gather, the pose band permutation, the landmark locality reorder and the
-deduplicated Hpl slot pattern.  The Schur co-observation pattern and its
-multiplication triplets are left out: the matrix-free PCG solve never forms
-the Schur complement.  ``tests/test_torch_structure.py`` holds every table
-here equal, bit for bit, to ``cuba_tpu``'s.
+without JAX): active/fixed vertex partitioning, the edge gather, the pose
+band permutation, the landmark locality reorder, the deduplicated Hpl slot
+pattern, the Schur co-observation pattern and its multiplication triplets
+(and, from the C++ pass, the fused Schur chunk plan).
+``tests/test_torch_structure.py`` holds every table here equal, bit for
+bit, to ``cuba_tpu``'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -56,15 +56,29 @@ class BAStructure:
     hpl_row: np.ndarray  # [n_hpl]
     hpl_col: np.ndarray  # [n_hpl]
     edge2hpl: np.ndarray  # [E2+E3] slot per combined edge id; n_hpl if not both-free
+    # Hsc block pattern: unique upper-triangle pose pairs (r <= c), row-major
+    hsc_row: np.ndarray  # [n_hsc]
+    hsc_col: np.ndarray  # [n_hsc]
+    # Schur multiplication triplets: Hsc[k] -= W[i] Hpl[j]^T, landmark-major
+    mul_i: np.ndarray  # [n_mul] Hpl slot
+    mul_j: np.ndarray  # [n_mul] Hpl slot of the same landmark
+    mul_k: np.ndarray  # [n_mul] Hsc block id
     # internal edge order: internal_edges = original_edges[perm]
     mono_perm: np.ndarray  # [E2] int64
     stereo_perm: np.ndarray  # [E3] int64
     lm_rank: np.ndarray  # [num_l] int64, active-landmark renumbering (old -> new)
     pose_rank: np.ndarray = None  # [num_p] int64 band permutation, or None
+    # the fused Schur chunk plan the C++ pass emits (native.symbolic_compile),
+    # or None on the NumPy path; segmm.plan_schur takes it as ``precomputed``
+    schur_native: tuple = None
 
     @property
     def n_hpl(self) -> int:
         return int(self.hpl_row.shape[0])
+
+    @property
+    def n_hsc(self) -> int:
+        return int(self.hsc_row.shape[0])
 
 
 def build_structure_from_arrays(
@@ -285,8 +299,27 @@ def _locality_reorder(num_l, mono: EdgeArrays, stereo: EdgeArrays, Xws):
     return rank, mono2, mono_perm, stereo2, stereo_perm, Xws
 
 
-def _hpl_slots(e_pi, e_li, num_p, num_l, total_p):
-    """NumPy twin of the C++ slot pass: (hpl_row, hpl_col, edge2hpl)."""
+def _pair_expand(col_ptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """All within-segment slot pairs (i, j), i <= j, of a CSC column
+    pointer, in column-major generation order."""
+    seg_len = np.diff(col_ptr)
+    n_slots = int(col_ptr[-1])
+    if n_slots == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    col_of_slot = np.repeat(np.arange(seg_len.size), seg_len)
+    rank = np.arange(n_slots) - col_ptr[col_of_slot]
+    # slot s pairs with slots s .. end of its column
+    counts = seg_len[col_of_slot] - rank
+    i_idx = np.repeat(np.arange(n_slots), counts)
+    offsets = np.arange(counts.sum()) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    return i_idx, i_idx + offsets
+
+
+def _symbolic_numpy(e_pi, e_li, num_p, num_l, total_p):
+    """NumPy twin of the C++ symbolic pass: (hpl_row, hpl_col, edge2hpl,
+    hsc_row, hsc_col, mul_i, mul_j, mul_k, None)."""
     both_free = (e_pi < num_p) & (e_li < num_l)
     pair_key = e_li.astype(np.int64) * max(total_p, 1) + e_pi.astype(np.int64)
     uniq_keys, inv = np.unique(pair_key[both_free], return_inverse=True)
@@ -295,13 +328,32 @@ def _hpl_slots(e_pi, e_li, num_p, num_l, total_p):
     hpl_row = (uniq_keys % max(total_p, 1)).astype(np.int32)
     edge2hpl = np.full(e_pi.size, n_hpl, dtype=np.int32)  # n_hpl == "no slot"
     edge2hpl[both_free] = inv.astype(np.int32)
-    return hpl_row, hpl_col, edge2hpl
+
+    col_ptr = np.zeros(num_l + 1, dtype=np.int64)
+    if n_hpl:
+        np.add.at(col_ptr, hpl_col + 1, 1)
+        np.cumsum(col_ptr, out=col_ptr)
+    i_idx, j_idx = _pair_expand(col_ptr)
+    if i_idx.size:
+        r1 = hpl_row[i_idx].astype(np.int64)
+        r2 = hpl_row[j_idx].astype(np.int64)
+        # r1 <= r2 within a (pose-)sorted column; np.unique sorts the keys,
+        # so mul_k is the row-major rank of the Hsc block
+        uniq_blk, mul_k = np.unique(r1 * max(num_p, 1) + r2, return_inverse=True)
+        hsc_row = (uniq_blk // max(num_p, 1)).astype(np.int32)
+        hsc_col = (uniq_blk % max(num_p, 1)).astype(np.int32)
+        mul_i, mul_j, mul_k = (a.astype(np.int32) for a in (i_idx, j_idx, mul_k))
+    else:
+        hsc_row = hsc_col = np.zeros(0, dtype=np.int32)
+        mul_i = mul_j = mul_k = np.zeros(0, dtype=np.int32)
+    return hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, mul_i, mul_j, mul_k, None
 
 
 def _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
                       mono: EdgeArrays, stereo: EdgeArrays) -> BAStructure:
     """Shared symbolic pass: pose band permutation, landmark locality
-    reorder and the Hpl slot pattern (C++ when built, else NumPy)."""
+    reorder, the Hpl slot pattern, the Hsc pattern and the Schur triplets
+    (C++ when built, else NumPy)."""
     pose_rank = _pose_band_perm(num_p, mono, stereo)
     if pose_rank is not None:
         order = np.argsort(pose_rank)  # new -> old
@@ -328,14 +380,15 @@ def _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
 
     e_pi = np.concatenate([mono.pose_idx, stereo.pose_idx])
     e_li = np.concatenate([mono.lm_idx, stereo.lm_idx])
-    slots = native.hpl_slots(e_pi, e_li, num_p, num_l)
-    if slots is None:
-        slots = _hpl_slots(e_pi, e_li, num_p, num_l, total_p)
-    hpl_row, hpl_col, edge2hpl = slots
+    sym = native.symbolic_compile(e_pi, e_li, num_p, num_l)
+    if sym is None:
+        sym = _symbolic_numpy(e_pi, e_li, num_p, num_l, total_p)
+    hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, mul_i, mul_j, mul_k, schur_native = sym
     return BAStructure(
         num_p=num_p, num_l=num_l, total_p=total_p, total_l=total_l,
         qs=qs, ts=ts, cams=cams, Xws=Xws, mono=mono, stereo=stereo,
         hpl_row=hpl_row, hpl_col=hpl_col, edge2hpl=edge2hpl,
+        hsc_row=hsc_row, hsc_col=hsc_col, mul_i=mul_i, mul_j=mul_j, mul_k=mul_k,
         mono_perm=mono_perm, stereo_perm=stereo_perm,
-        lm_rank=lm_rank, pose_rank=pose_rank,
+        lm_rank=lm_rank, pose_rank=pose_rank, schur_native=schur_native,
     )

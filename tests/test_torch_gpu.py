@@ -14,6 +14,7 @@ import torch
 from cuba_tpu_torch import BAConfig, EdgeType, RobustKernelType
 from cuba_tpu_torch.io import synthetic
 from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.solver import rows, structure
 
 pytestmark = pytest.mark.gpu
 
@@ -90,6 +91,81 @@ def test_slice_on_card_matches_plain(cuda):
     segmm.reset_launches()
     got = run()
     assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum"))
+    with segmm.use_plain():
+        want = run()
+    n = min(len(got), len(want))
+    np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
+    assert got[-1] < got[0]
+
+
+@pytest.fixture
+def band_plan(cuda):
+    """A real band plan (150 poses, 1,400 landmarks) on the card, with
+    seeded W / Hpl windows, compact table and damped diagonal."""
+    prob = synthetic.generate(num_poses=150, num_landmarks=1400, seed=2)
+    fp = np.zeros(150, bool)
+    fp[prob.fixed_poses] = True
+    s = structure.build_structure_from_arrays(
+        prob.qs, prob.ts, np.tile(prob.cam, (150, 1)), prob.Xws, fp, np.zeros(1400, bool),
+        prob.mono_p, prob.mono_l, prob.mono_z, prob.mono_w,
+        prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w)
+    PB = rows.pad_blocks_of(s.num_p)
+    plan, rc = rows.plan_rows(s, cuda, torch.float32, pad_blocks=PB)
+    rng = np.random.default_rng(3)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    return plan, rc, PB, draw(18, plan.hpl_pad), draw(18, plan.hpl_pad), \
+        draw(36, PB // 64 * plan.wg), draw(36, PB)
+
+
+def test_schur_fused_kernel_matches_plain(band_plan):
+    plan, rc, _PB, W, G, _gT, _dbT = band_plan
+    args = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
+    before = segmm.LAUNCHES["schur_fused"]
+    got = segmm.schur_fused(W, G, *args, csr=rc.csr_sc)
+    want = segmm.schur_fused_plain(W, G, *args)
+    bound = segmm.schur_fused_plain(W.abs(), G.abs(), *args)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["schur_fused"] == before + 1
+    assert bool(((got - want).abs() <= 1e-5 * bound).all())
+    csr = segmm.schur_lane_csr(plan.schur, W.device)  # built anew: the same order
+    assert torch.equal(got, segmm.schur_fused(W, G, *args, csr=csr))
+    with pytest.raises(ValueError, match="csr"):
+        segmm.schur_fused(W, G, *args)
+
+
+def test_compact_to_band_kernel_matches_plain(band_plan):
+    plan, rc, PB, _W, _G, gT, dbT = band_plan
+    args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
+    before = segmm.LAUNCHES["compact_to_band"]
+    got = segmm.compact_to_band(*args, table=rc.band_table)
+    want = segmm.compact_to_band_plain(*args)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["compact_to_band"] == before + 1
+    assert torch.equal(got, want)  # a placement: bit for bit
+    table = torch.from_numpy(segmm.band_table(rc.iru, rc.icu, PB)).to(gT.device)
+    assert torch.equal(got, segmm.compact_to_band(*args, table=table))
+    with pytest.raises(ValueError, match="table"):
+        segmm.compact_to_band(*args)
+
+
+def test_band_slice_on_card_matches_plain(cuda):
+    prob = synthetic.generate(num_poses=150, num_landmarks=1400, seed=2)
+
+    def run():
+        ba = synthetic.build_graph(prob, BAConfig(dtype=torch.float32, solver="band_cr",
+                                                  device="cuda"))
+        ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(5.991), EdgeType.MONOCULAR)
+        ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(7.815), EdgeType.STEREO)
+        ba.initialize()
+        ba.optimize(6)
+        return np.array([s.chi2 for s in ba.batch_statistics()])
+
+    segmm.reset_launches()
+    got = run()
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("schur_fused", "compact_to_band", "tiled_segsum"))
     with segmm.use_plain():
         want = run()
     n = min(len(got), len(want))

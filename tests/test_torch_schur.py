@@ -1,0 +1,195 @@
+"""The port's v2 band Schur formation against cuba_tpu's, on CPU.
+
+The plan is real: the 150-pose / 1,400-landmark problem of
+tests/test_band_cr.py (its test of ``schur_band_mxu``), planned by both
+packages.  The values (W, Hpl, the compact table, the damped diagonal) are
+seeded numpy draws handed to both.  cuba_tpu's Pallas kernels run in
+interpret mode.  The CUDA kernels cannot run here; the tables they read
+(the per-lane CSR of ``schur_fused`` and the placement table of
+``compact_to_band``) are checked by a numpy walk of the kernels' own index
+arithmetic.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cuba_tpu.io import synthetic as tpu_synthetic
+from cuba_tpu.ops import segmm as tpu_segmm
+from cuba_tpu.solver import engine as tpu_engine
+from cuba_tpu.solver import mxu
+from cuba_tpu.solver import structure as tpu_structure
+from cuba_tpu_torch.interop import structure_from_numpy
+from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.solver import rows
+
+torch.set_num_threads(1)
+
+# each output within this share of its sum of |products| (fp32 sums in
+# another order)
+SUM_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def band_problem():
+    num_p, num_l = 150, 1400
+    prob = tpu_synthetic.generate(num_poses=num_p, num_landmarks=num_l, seed=2)
+    fp = np.zeros(num_p, bool)
+    fp[prob.fixed_poses] = True
+    s = tpu_structure.build_structure_from_arrays(
+        prob.qs, prob.ts, np.tile(prob.cam, (num_p, 1)), prob.Xws, fp, np.zeros(num_l, bool),
+        prob.mono_p, prob.mono_l, prob.mono_z, prob.mono_w,
+        prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w,
+    )
+    PB = tpu_engine._pad_blocks(s.num_p)
+    plans, consts = mxu.plan_mxu(s, PB, need_dense=True, wire_pack=False)
+    assert plans.ok and plans.v2
+    plan, rc = rows.plan_rows(structure_from_numpy(s), "cpu", torch.float32, pad_blocks=PB)
+    rng = np.random.default_rng(11)
+    H = plan.hpl_pad
+    W = (rng.standard_normal((18, H)) * 0.3).astype(np.float32)
+    G = (rng.standard_normal((18, H)) * 0.3).astype(np.float32)
+    return s, PB, plans, consts, plan, rc, W, G
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _sc_args(plan, rc):
+    return plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk
+
+
+def test_schur_fused_plain_matches_pallas_and_xla(band_problem):
+    s, _PB, plans, consts, plan, rc, W, G = band_problem
+    got = segmm.schur_fused(_t(W), _t(G), *_sc_args(plan, rc)).numpy()
+    bound = SUM_RTOL * segmm.schur_fused_plain(_t(np.abs(W)), _t(np.abs(G)),
+                                               *_sc_args(plan, rc)).numpy()
+    want = np.asarray(tpu_segmm.schur_fused(
+        jnp.asarray(W), jnp.asarray(G), plans.schur, jnp.asarray(consts.sc_sb),
+        jnp.asarray(consts.sc_li), jnp.asarray(consts.sc_lj), jnp.asarray(consts.sc_lk),
+        interpret=True))
+    assert got.shape == want.shape == (36, plan.schur.num_chunks * plan.schur.kwin)
+    assert np.all(np.abs(got - want) <= bound + 1e-30)
+    # per Hsc block (the lanes combined by their global block ids) against
+    # the XLA reference over the unsorted triplets
+    gid = torch.from_numpy(np.asarray(plan.schur.gid, np.int32))
+    per_block = segmm.tiled_segsum_plain(_t(got), gid, s.n_hsc, None, None).numpy()
+    xla = np.asarray(tpu_segmm.schur_fused_xla(jnp.asarray(W), jnp.asarray(G),
+                                               s.mul_i, s.mul_j, s.mul_k, s.n_hsc))
+    bound_b = segmm.tiled_segsum_plain(_t(bound), gid, s.n_hsc, None, None).numpy()
+    assert np.all(np.abs(per_block - xla) <= bound_b + 1e-30)
+
+
+def test_schur_lane_csr_walk_matches_plain(band_problem):
+    """The order schur_fused's kernel sums in (one lane's CSR segment,
+    its triplets' windowed ids), walked in numpy, gives the plain sums."""
+    _s, _PB, _plans, _consts, plan, rc, W, G = band_problem
+    sc = plan.schur
+    order, offs = rc.csr_sc.order.numpy(), rc.csr_sc.offs.numpy()
+    li, lj, sb = (a.numpy() for a in (rc.sc_li, rc.sc_lj, rc.sc_sb))
+    lanes = sc.num_chunks * sc.kwin
+    out = np.zeros((36, lanes), np.float64)
+    for lane in range(lanes):
+        t = order[offs[lane]:offs[lane + 1]]
+        base = int(sb[lane // sc.kwin]) * sc.slot_block
+        w = W[:, base + li[t]].reshape(6, 3, -1).astype(np.float64)
+        g = G[:, base + lj[t]].reshape(6, 3, -1).astype(np.float64)
+        out[:, lane] = np.einsum("akt,bkt->ab", w, g).reshape(36)
+    plain = segmm.schur_fused(_t(W), _t(G), *_sc_args(plan, rc)).numpy()
+    bound = SUM_RTOL * segmm.schur_fused_plain(_t(np.abs(W)), _t(np.abs(G)),
+                                               *_sc_args(plan, rc)).numpy()
+    assert np.all(np.abs(out - plain) <= bound + 1e-30)
+    assert offs[-1] == int((np.asarray(sc.lk) >= 0).sum())
+
+
+def _compact_inputs(plan, PB, seed):
+    rng = np.random.default_rng(seed)
+    M = PB // 64
+    gT = rng.standard_normal((36, M * plan.wg)).astype(np.float32)
+    dbT = rng.standard_normal((36, PB)).astype(np.float32)
+    return gT, dbT
+
+
+def test_compact_to_band_plain_matches_pallas(band_problem):
+    _s, PB, plans, consts, plan, rc, _W, _G = band_problem
+    gT, dbT = _compact_inputs(plan, PB, 3)
+    got = segmm.compact_to_band(_t(gT), rc.iru, rc.icu, _t(dbT), rc.band_occ, PB,
+                                plan.wg).numpy()
+    want = np.asarray(tpu_segmm.compact_to_band(
+        jnp.asarray(gT), jnp.asarray(consts.iru), jnp.asarray(consts.icu), jnp.asarray(dbT),
+        jnp.asarray(consts.band_occ), PB, plans.wg, interpret=True))
+    assert got.shape == want.shape == (PB // 64 * 384, 768)
+    # a placement: the Pallas kernel's exact one-hot selections give the
+    # same values
+    np.testing.assert_array_equal(got, want)
+
+
+def test_band_table_walk_matches_plain(band_problem):
+    """compact_to_band's kernel index arithmetic over the placement table,
+    walked in numpy, gives the plain version bit for bit."""
+    _s, PB, _plans, _consts, plan, rc, _W, _G = band_problem
+    gT, dbT = _compact_inputs(plan, PB, 4)
+    M = PB // 64
+    tab = rc.band_table.numpy()
+    occ = rc.band_occ.numpy()
+    R, C = np.meshgrid(np.arange(M * 384), np.arange(768), indexing="ij")
+    k, rl = R // 384, R % 384
+    pr, i = rl // 6, rl % 6
+    e, cl = C // 384, C % 384
+    lq, j = e * 64 + cl // 6, cl % 6
+    p = k * 64 + pr
+    ent = tab[p, lq]
+    slot = ent & ((1 << 30) - 1)
+    row = np.where(ent & (1 << 30), j * 6 + i, i * 6 + j)
+    v = np.where(ent >= 0, -gT[row, np.where(ent >= 0, slot, 0)], np.float32(0))
+    v = np.where(lq == pr, v + dbT[i * 6 + j, p], v)
+    v = np.where(occ[2 * k + e] > 0, v, np.float32(0)).astype(np.float32)
+    plain = segmm.compact_to_band_plain(_t(gT), rc.iru, rc.icu, _t(dbT), rc.band_occ, PB,
+                                        plan.wg).numpy()
+    np.testing.assert_array_equal(v, plain)
+
+
+@pytest.mark.parametrize("case", ["W narrower than n_slot_pad", "G wider than W",
+                                  "lk shorter than the plan", "gT narrower than M*Wg",
+                                  "iru shorter than M*Wg", "dbT narrower than PB"])
+def test_wrappers_refuse_input_that_does_not_fit_the_plan(band_problem, case):
+    """The wrappers check their shapes against the plan on every device:
+    the kernels would drop or read past what does not fit."""
+    _s, PB, _plans, _consts, plan, rc, W, G = band_problem
+    gT, dbT = _compact_inputs(plan, PB, 6)
+    sc = plan.schur
+    Wt, Gt, lk = _t(W), _t(G), rc.sc_lk
+    band = [_t(gT), rc.iru, rc.icu, _t(dbT)]
+    if case == "W narrower than n_slot_pad":
+        Wt = Gt = Wt[:, :sc.n_slot_pad - 1].contiguous()
+    elif case == "G wider than W":
+        Gt = torch.cat([Gt, Gt[:, :1]], dim=1)
+    elif case == "lk shorter than the plan":
+        lk = lk[:-1]
+    elif case == "gT narrower than M*Wg":
+        band[0] = band[0][:, :-1].contiguous()
+    elif case == "iru shorter than M*Wg":
+        band[1] = band[1][:-1]
+    else:
+        band[3] = band[3][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="do not fit|differ|expected|do not match"):
+        if case.split()[0] in ("W", "G", "lk"):
+            segmm.schur_fused(Wt, Gt, sc, rc.sc_sb, rc.sc_li, rc.sc_lj, lk)
+        else:
+            segmm.compact_to_band(*band, rc.band_occ, PB, plan.wg)
+
+
+def test_band_formation_matches_schur_band_mxu(band_problem):
+    s, PB, plans, consts, plan, rc, W, G = band_problem
+    rng = np.random.default_rng(5)
+    HppT = rng.standard_normal((42, s.num_p)).astype(np.float32)
+    lam = np.float32(1e-4)
+    mc = jax.tree_util.tree_map(jnp.asarray, consts)
+    D2, U2 = mxu.schur_band_mxu(jnp.asarray(HppT), jnp.asarray(W), jnp.asarray(G), lam,
+                                s.num_p, PB, plans, mc, jnp.float32, interpret=True)
+    D, U = rows.schur_band(_t(HppT), _t(W), _t(G), torch.tensor(lam), s.num_p, plan, rc)
+    np.testing.assert_allclose(D.numpy(), np.asarray(D2), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(U.numpy(), np.asarray(U2), rtol=1e-5, atol=1e-5)

@@ -3,8 +3,11 @@
 The port carries NumPy copies of cuba_tpu's host layer (cuba_tpu imports
 JAX, which the card does not have).  These tests hold the copies to the
 originals: the structure of ``build_structure_from_arrays`` and
-``build_structure``, and the paddings, window plans, padded id tables and
-``res_perm`` of ``plan_mxu(..., need_dense=False, wire_pack=False)``.
+``build_structure`` (the Schur pattern, triplets and the C++ pass's fused
+Schur plan included), ``plan_schur`` through the C++ and the NumPy paths,
+and the paddings, window plans, padded id tables and ``res_perm`` of
+``plan_mxu(..., wire_pack=False)``, with and without the v2 band tables
+(``need_dense``).
 """
 
 import dataclasses
@@ -13,12 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from cuba_tpu import native as tpu_native
 from cuba_tpu.io import synthetic as tpu_synthetic
+from cuba_tpu.ops import segmm as tpu_segmm
+from cuba_tpu.solver import engine as tpu_engine
 from cuba_tpu.solver import mxu
 from cuba_tpu.solver import structure as tpu_structure
 from cuba_tpu_torch import native
 from cuba_tpu_torch.interop import structure_from_numpy
 from cuba_tpu_torch.io import synthetic
+from cuba_tpu_torch.ops import segmm
 from cuba_tpu_torch.solver import rows
 from cuba_tpu_torch.solver import structure
 
@@ -45,10 +52,17 @@ def _arrays(num_p, num_l, seed, loop, fix_stride):
             prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w)
 
 
-def _assert_structures_equal(port, ref):
+def _assert_structures_equal(port, ref, skip=()):
     for f in dataclasses.fields(structure.BAStructure):
+        if f.name in skip:
+            continue
         a, b = getattr(port, f.name), getattr(ref, f.name)
-        if isinstance(a, structure.EdgeArrays):
+        if f.name == "schur_native" and a is not None and b is not None:
+            assert a[0] == b[0] and len(a) == len(b)
+            for k, (x, y) in enumerate(zip(a[1:], b[1:])):
+                np.testing.assert_array_equal(np.asarray(x), np.asarray(y),
+                                              err_msg=f"schur_native[{k + 1}]")
+        elif isinstance(a, structure.EdgeArrays):
             for g in ("measurements", "omegas", "pose_idx", "lm_idx"):
                 x, y = getattr(a, g), getattr(b, g)
                 assert x.dtype == y.dtype, (f.name, g)
@@ -65,6 +79,8 @@ def test_structure_from_arrays_matches(name):
     port = structure.build_structure_from_arrays(*args)
     ref = tpu_structure.build_structure_from_arrays(*args)
     _assert_structures_equal(port, ref)
+    assert port.n_hsc > 0 and port.mul_i.size > 0
+    assert (port.schur_native is None) == (native.backend() == "numpy")
     if name == "loop_band_perm":
         assert port.pose_rank is not None  # the band permutation ran
 
@@ -75,7 +91,11 @@ def test_numpy_symbolic_pass_matches(monkeypatch):
     ref = tpu_structure.build_structure_from_arrays(*args)
     monkeypatch.setattr(native, "get_lib", lambda: None)
     assert native.backend() == "numpy"
-    _assert_structures_equal(structure.build_structure_from_arrays(*args), ref)
+    port = structure.build_structure_from_arrays(*args)
+    # the NumPy pass emits no fused Schur plan: plan_schur makes it
+    # (test_schur_plan_matches)
+    assert port.schur_native is None
+    _assert_structures_equal(port, ref, skip=("schur_native",))
 
 
 def test_object_graph_structure_matches():
@@ -124,3 +144,55 @@ def test_row_plan_matches_plan_mxu(name):
     _, rc = rows.plan_rows(structure_from_numpy(s), "cpu", torch.float32)
     for f in ("measT_m", "measT_s", "omegaT_m", "omegaT_s"):
         np.testing.assert_array_equal(getattr(rc, f).numpy(), getattr(consts, f), err_msg=f)
+
+
+def _assert_schur_plans_equal(a, b, name):
+    for f in dataclasses.fields(segmm.SchurPlan):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f.name)),
+                                      np.asarray(getattr(b, f.name)),
+                                      err_msg=f"{name}.{f.name}")
+
+
+@pytest.mark.parametrize("path", ["c++", "numpy"])
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_schur_plan_matches(name, path, monkeypatch):
+    """plan_schur through the C++ pass's plan and through the NumPy planner
+    (no library on either side) gives cuba_tpu's plan of the same path."""
+    args = _arrays(*PROBLEMS[name])
+    ref_s = tpu_structure.build_structure_from_arrays(*args)
+    if path == "numpy":
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+        monkeypatch.setattr(tpu_native, "schur_plan", lambda *a, **k: None)
+        ref_s.schur_native = None
+    elif native.backend() == "numpy":
+        pytest.skip("no g++: the C++ symbolic pass is not built")
+    s = structure.build_structure_from_arrays(*args)
+    assert segmm.SC_GEOMETRY == tpu_segmm.sc_geometry()
+    _assert_schur_plans_equal(rows.plan_schur_for(s), mxu.plan_schur_for(ref_s), name)
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_band_plan_matches_plan_mxu(name):
+    """The v2 band formation's plans and tables (need_dense=True) and the
+    paddings they move, bit for bit."""
+    s = tpu_structure.build_structure_from_arrays(*_arrays(*PROBLEMS[name]))
+    PB = tpu_engine._pad_blocks(s.num_p)
+    assert rows.pad_blocks_of(s.num_p) == PB
+    plans, consts = mxu.plan_mxu(s, PB, need_dense=True, wire_pack=False)
+    assert plans.ok and plans.v2 and consts is not None
+    plan, tables = rows.plan_row_tables(structure_from_numpy(s), PB)
+    for f in ("e_pad_m", "e_pad_s", "hpl_pad", "p_src_pad", "p_res_pad", "wg"):
+        assert getattr(plan, f) == getattr(plans, f), f
+    assert plan.hpl_pad >= plan.schur.n_slot_pad
+    for f in ("hll_m", "hll_s", "hpl_m", "hpl_s", "ivs", "xpg", "cl", "up2", "paw_b"):
+        _assert_plan_equal(getattr(plan, f), getattr(plans, f), f)
+    _assert_schur_plans_equal(plan.schur, plans.schur, name)
+    assert set(tables) >= {"gkey_up2", "iru", "icu", "band_occ", "sc_sb", "sc_li",
+                           "sc_lj", "sc_lk", "hpl_row", "e2h_m"}
+    for f, t in tables.items():
+        assert t.dtype == np.int32, f
+        np.testing.assert_array_equal(t, np.asarray(getattr(consts, f)), err_msg=f)
+    _, rc = rows.plan_rows(structure_from_numpy(s), "cpu", torch.float32, pad_blocks=PB)
+    assert rc.gkey_up2.shape[0] == plan.wpad >= max(plan.up2.n_pad, tables["gkey_up2"].size)
+    np.testing.assert_array_equal(rc.gkey_up2[:tables["gkey_up2"].size].numpy(),
+                                  tables["gkey_up2"])
