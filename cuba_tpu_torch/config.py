@@ -2,9 +2,9 @@
 
 The LM hyper-parameters keep ``cuba_tpu``'s defaults.  Dtypes are torch
 dtypes, and ``device`` names where every tensor of the engine lives.  The
-matrix-free PCG and the band (cyclic-reduction) reduced solvers are ported;
-the engine rejects the others (ROADMAP queue 1, "Loop-closure solver" and
-"Dense solver").
+matrix-free PCG, the band (cyclic-reduction) and the dense (Cholesky)
+reduced solvers are ported; the engine rejects the band + Woodbury solver
+(ROADMAP queue 1, "Loop-closure solver").
 """
 
 from __future__ import annotations
@@ -34,17 +34,18 @@ class BAConfig:
       solver: reduced-system solver.  "pcg" (block-Jacobi preconditioned
         conjugate gradient on the matrix-free Schur operator), "band_cr"
         (block-tridiagonal cyclic reduction on a band-certified Schur
-        pattern) or "auto", which picks as cuba_tpu does: band_cr for a
-        pure band of at least 8 CR blocks, band_lr for a band with loop
-        columns, dense_cholesky up to 4096 padded pose blocks, else pcg.
-        "band_lr" and "dense_cholesky" are not ported: choosing them, or
-        "auto" resolving to them, raises NotImplementedError at
+        pattern), "dense_cholesky" (equilibrated Cholesky of the dense
+        Schur complement, with iterative refinement) or "auto", which picks
+        as cuba_tpu does: band_cr for a pure band of at least 8 CR blocks,
+        band_lr for a band with loop columns, dense_cholesky up to 4096
+        padded pose blocks, else pcg.  "band_lr" is not ported: choosing
+        it, or "auto" resolving to it, raises NotImplementedError at
         ``initialize()``.
       numerical_escalation: lambda factor when the solve fails (PCG did not
         converge, or the factor or the step was non-finite).
       pcg_max_iterations / pcg_tol: PCG stopping controls.
-      refinement_steps: iterative-refinement sweeps after the fp32 band
-        solve (none in fp64).
+      refinement_steps: iterative-refinement sweeps after the fp32 band or
+        dense solve (none in fp64; the dense solve on the card adds one).
       pose_block_pad: pad the reduced system to a multiple of this many
         pose blocks (a positive multiple of 128).
     """

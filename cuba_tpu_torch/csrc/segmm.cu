@@ -1,8 +1,8 @@
 // Index-driven gathers, segment sums and the v2 Schur formation for Hopper
 // (sm_90a).
 //
-// These four kernels replace the eight one-hot-matmul Pallas kernels of
-// cuba_tpu/ops/segmm.py that the PCG and band paths run:
+// These five kernels replace the nine one-hot-matmul Pallas kernels of
+// cuba_tpu/ops/segmm.py that the PCG, band and dense paths run:
 //
 //   gather_cols  <- resident_gather (segmm.py:1257), windowed_gather
 //                   (segmm.py:1215), tiled_gather (segmm.py:487)
@@ -16,6 +16,8 @@
 //   compact_to_band <- compact_to_band (segmm.py:1093)
 //                   tile (k, e) of [M*384, 768] = A[k, k+e] of the damped
 //                   Schur complement, diag - (upper + mirrored blocks)
+//   compact_to_dense <- compact_to_dense (segmm.py:964)
+//                   element (6p+i, 6q+j) of [6PB, 6PB] = the same, dense
 //
 // On the TPU the one-hot matrix exists because XLA's gather/scatter ran at
 // 5-10 GB/s while the MXU was idle; the windows and tiles of the Pallas
@@ -52,6 +54,13 @@
 //    [PB, 128] slot table (upper slot, or mirror slot with bit 30 set) and
 //    writes every element, zeros included, with coalesced stores.  Bound by
 //    the writes (M*384*768*4 bytes, 26 MB at M = 22).
+//  * compact_to_dense: the same placement over the whole [6PB, 6PB] matrix,
+//    from a host [PB, PB] slot table; one thread per element, every element
+//    written (zeros included) with coalesced stores, the six threads of one
+//    6-wide block row sharing a table entry.  The TPU kernel skipped empty
+//    64x128-block tiles to save MXU passes; here an empty tile costs its
+//    stores, which any dense output pays.  Bound by the writes: 36*PB^2*4
+//    bytes, 9.4 MB at kitti07 scale (PB = 256), 285 MB at PB = 1408.
 //
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns cudaGetLastError() so the Python wrapper can raise on
@@ -166,6 +175,34 @@ __global__ void compact_to_band_kernel(const float* __restrict__ gT, int64_t MWg
   out[idx] = v;
 }
 
+constexpr int kDenseTileP = 64;   // occupancy tile rows, pose blocks
+constexpr int kDenseTileQ = 128;  // occupancy tile cols, pose blocks
+
+__global__ void compact_to_dense_kernel(const float* __restrict__ gT, int64_t MWg,
+                                        const int32_t* __restrict__ table,
+                                        const float* __restrict__ dbT, int64_t PB,
+                                        const int32_t* __restrict__ occ,
+                                        float* __restrict__ out) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n = 6 * PB;
+  if (idx >= n * n) return;
+  const int64_t row = idx / n;
+  const int64_t col = idx - row * n;
+  const int64_t p = row / 6, q = col / 6;
+  const int i = static_cast<int>(row - 6 * p), j = static_cast<int>(col - 6 * q);
+  float v = 0.0f;
+  if (occ[(p / kDenseTileP) * (PB / kDenseTileQ) + q / kDenseTileQ] > 0) {
+    const int32_t ent = table[p * PB + q];
+    if (ent >= 0) {
+      const int64_t slot = ent & (kMirror - 1);
+      const int r = (ent & kMirror) ? j * 6 + i : i * 6 + j;
+      v = -gT[r * MWg + slot];
+    }
+    if (p == q) v += dbT[(i * 6 + j) * PB + p];
+  }
+  out[idx] = v;
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -220,6 +257,20 @@ int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
     compact_to_band_kernel<<<blocks_for(n), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         gT, MWg, table, dbT, PB, occ, M, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gT [36, MWg]; table [PB, PB]; dbT [36, PB]; occ [PB/64 * PB/128];
+// out [6PB, 6PB].
+int cuba_compact_to_dense(const float* gT, int64_t MWg, const int32_t* table,
+                          const float* dbT, int64_t PB, const int32_t* occ, float* out,
+                          void* stream) {
+  const int64_t n = 36 * PB * PB;
+  if (n > 0) {
+    compact_to_dense_kernel<<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        gT, MWg, table, dbT, PB, occ, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

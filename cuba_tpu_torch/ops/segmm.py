@@ -1,8 +1,8 @@
 """Gathers, segment sums and the Schur formation over transposed
 ``[D, N]`` fp32 tables.
 
-Port of the eight one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``
-that the PCG and band paths run.  Each wrapper keeps its TPU kernel's
+Port of the nine one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``
+that the PCG, band and dense paths run.  Each wrapper keeps its TPU kernel's
 argument list, output shape and layout (fp32) and invalid-id rules:
 
 * gathers ``resident_gather`` / ``windowed_gather`` / ``tiled_gather``:
@@ -12,22 +12,24 @@ argument list, output shape and layout (fp32) and invalid-id rules:
   ``0 <= s < num_out``; other ids are dropped;
 * ``schur_fused``: per-chunk windowed W (x) Hpl pair products, [36, C*kwin];
 * ``compact_to_band``: the band-major compact Schur table placed into
-  block-tridiagonal storage [M*384, 768].
+  block-tridiagonal storage [M*384, 768];
+* ``compact_to_dense``: the same table placed into the dense damped Schur
+  matrix [6PB, 6PB].
 
 The TPU kernels' windows and tiles only kept a one-hot factor inside VMEM;
 here the plan arguments are accepted and ignored where the kernel does not
-need them.  Underneath, four hand-written CUDA kernels (``csrc/segmm.cu``)
-serve the eight wrappers: a column gather, a deterministic CSR segment sum,
-a per-lane CSR pair-product sum and a table-driven band placement.  The
-CSRs and the band table of a call site are built once per structure by the
-planner (``solver/rows.py``); a wrapper given none builds them on the spot,
-which only tests do.
+need them.  Underneath, five hand-written CUDA kernels (``csrc/segmm.cu``)
+serve the nine wrappers: a column gather, a deterministic CSR segment sum,
+a per-lane CSR pair-product sum and two table-driven placements (band and
+dense).  The CSRs and the placement tables of a call site are built once per
+structure by the planner (``solver/rows.py``); the kernels need them, and
+only the segment sums build a missing CSR on the spot (which only tests do).
 
-Dispatch: a CPU tensor takes the ``*_plain`` torch version, a CUDA tensor
-the kernel (or an exception: there is no fallback).  :func:`use_plain`
-switches CUDA tensors to the plain versions too, for the comparisons in the
-tests and ``chip_smoke.py``.  Every kernel launch adds one to
-``LAUNCHES[wrapper name]``.
+Dispatch (``ops/cudalib.py``): a CPU tensor takes the ``*_plain`` torch
+version, a CUDA tensor the kernel (or an exception: there is no fallback).
+:func:`use_plain` switches CUDA tensors to the plain versions too, for the
+comparisons in the tests and ``chip_smoke.py``.  Every kernel launch adds
+one to ``LAUNCHES[wrapper name]``.
 
 The host plans (:class:`TilePlan`, :class:`AccumWindowPlan`,
 :class:`SchurPlan` and their planners) are NumPy copies of ``cuba_tpu``'s:
@@ -37,20 +39,18 @@ the planner keeps them so its paddings and its choice of wrapper match
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cuba_tpu_torch import native
+from cuba_tpu_torch.ops import cudalib
+# re-exported: the launch counts, the plain-version switch and the build
+from cuba_tpu_torch.ops.cudalib import (  # noqa: F401
+    LAUNCHES, build_kernels, reset_launches, use_plain)
 
 # ---------------------------------------------------------------------------
 # host plans (NumPy copies of cuba_tpu/ops/segmm.py's planners)
@@ -369,137 +369,67 @@ def band_table(iru, icu, PB: int) -> np.ndarray:
     return tab
 
 
+def dense_table(iru, icu, PB: int) -> np.ndarray:
+    """compact_to_dense's placement table [PB, PB] int32: for pose block
+    (p, q) the band slot whose 6x6 block lands there, with bit 30 set where
+    it is read transposed (a mirror); -1 where none does.  Every output
+    block has at most one source: uppers have row <= col, mirrors row > col;
+    the diagonal blocks take their upper block and the damped diagonal.  At
+    the dense solver's cap of 4096 pose blocks it takes 64 MB, built once per
+    structure."""
+    if isinstance(iru, torch.Tensor):
+        iru, icu = iru.cpu().numpy(), icu.cpu().numpy()
+    iru = np.asarray(iru, np.int64)
+    icu = np.asarray(icu, np.int64)
+    s = np.flatnonzero(iru >= 0)
+    r, c = iru[s], icu[s]
+    if np.any(r > c):
+        raise ValueError("compact Schur blocks must have row <= col")
+    tab = np.full((PB, PB), -1, np.int32)
+    tab[r, c] = s
+    mir = r != c
+    tab[c[mir], r[mir]] = s[mir].astype(np.int32) | _MIRROR
+    return tab
+
+
 # ---------------------------------------------------------------------------
-# the CUDA library: built from csrc/segmm.cu with nvcc, bound with ctypes
+# the CUDA library: csrc/segmm.cu, built and bound by cudalib
 # ---------------------------------------------------------------------------
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "segmm.cu")
-_LIB_PATH = os.path.join(native.BUILD_DIR, "libcuba_segmm.so")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-
-LAUNCHES = {
-    "resident_gather": 0,
-    "windowed_gather": 0,
-    "tiled_gather": 0,
-    "accum_segsum": 0,
-    "accum_segsum_windowed": 0,
-    "tiled_segsum": 0,
-    "schur_fused": 0,
-    "compact_to_band": 0,
+KERNEL_SRC = cudalib.SOURCES["segmm"]
+_i64, _vp = ctypes.c_int64, ctypes.c_void_p
+_SIGNATURES = {
+    "cuba_gather_cols": [_vp, _vp, _vp, _i64, _i64, _i64, _vp],
+    "cuba_segsum_csr": [_vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp],
+    "cuba_schur_fused": [_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp],
+    "cuba_compact_to_band": [_vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _vp],
+    "cuba_compact_to_dense": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp],
 }
-_FORCE_PLAIN = [False]
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-@contextlib.contextmanager
-def use_plain():
-    """Run CUDA tensors through the plain torch versions (comparisons only)."""
-    prev = _FORCE_PLAIN[0]
-    _FORCE_PLAIN[0] = True
-    try:
-        yield
-    finally:
-        _FORCE_PLAIN[0] = prev
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if os.path.exists("/usr/local/cuda/bin/nvcc"):
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: the CUDA kernels of csrc/segmm.cu cannot be built")
-
-
-def build_kernels() -> float:
-    """Compile csrc/segmm.cu into the build directory; returns seconds."""
-    os.makedirs(native.BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.tmp.{os.getpid()}"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, KERNEL_SRC],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {KERNEL_SRC}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return time.perf_counter() - t0
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            if (not os.path.exists(_LIB_PATH)
-                    or os.path.getmtime(_LIB_PATH) < os.path.getmtime(KERNEL_SRC)):
-                build_kernels()
-            lib = ctypes.CDLL(_LIB_PATH)
-            i64, vp = ctypes.c_int64, ctypes.c_void_p
-            lib.cuba_gather_cols.restype = ctypes.c_int
-            lib.cuba_gather_cols.argtypes = [vp, vp, vp, i64, i64, i64, vp]
-            lib.cuba_segsum_csr.restype = ctypes.c_int
-            lib.cuba_segsum_csr.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
-            lib.cuba_schur_fused.restype = ctypes.c_int
-            lib.cuba_schur_fused.argtypes = [vp, vp, i64, vp, vp, vp, vp, vp,
-                                             i64, i64, i64, vp, vp]
-            lib.cuba_compact_to_band.restype = ctypes.c_int
-            lib.cuba_compact_to_band.argtypes = [vp, i64, vp, vp, i64, vp, i64, vp, vp]
-            _lib = lib
-        return _lib
-
-
-def _use_kernel(*tensors: torch.Tensor) -> bool:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return not _FORCE_PLAIN[0]
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    return cudalib.library("segmm", _SIGNATURES)
 
 
 def _launch_gather(name: str, src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    _check(src, "src", torch.float32, 2)
-    _check(ids, "ids", torch.int32, 1)
+    cudalib.check(src, "src", torch.float32, 2)
+    cudalib.check(ids, "ids", torch.int32, 1)
     D, S = src.shape
     N = ids.shape[0]
     out = torch.empty((D, N), dtype=torch.float32, device=src.device)
     if D * N == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.cuba_gather_cols(src.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                                   D, S, N, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: gather_cols launch failed (cudaError {err})")
+    cudalib.call(f"{name} (gather_cols)", src, _kernel_lib().cuba_gather_cols,
+                 src.data_ptr(), ids.data_ptr(), out.data_ptr(), D, S, N)
     LAUNCHES[name] += 1
     return out
 
 
 def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
                    csr: SegmentCSR) -> torch.Tensor:
-    _check(vals, "vals", torch.float32, 2)
-    _check(csr.order, "csr.order", torch.int32, 1)
-    _check(csr.offs, "csr.offs", torch.int32, 1)
+    cudalib.check(vals, "vals", torch.float32, 2)
+    cudalib.check(csr.order, "csr.order", torch.int32, 1)
+    cudalib.check(csr.offs, "csr.offs", torch.int32, 1)
     if csr.offs.shape[0] != num_out + 1:
         raise ValueError(f"csr.offs has {csr.offs.shape[0]} entries, expected {num_out + 1}")
     if csr.order.device != vals.device or csr.offs.device != vals.device:
@@ -508,13 +438,9 @@ def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
     out = torch.empty((D, num_out), dtype=torch.float32, device=vals.device)
     if D * num_out == 0:
         return out
-    lib = _kernel_lib()
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = lib.cuba_segsum_csr(vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(),
-                                  out.data_ptr(), D, N, num_out, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: segsum_csr launch failed (cudaError {err})")
+    cudalib.call(f"{name} (segsum_csr)", vals, _kernel_lib().cuba_segsum_csr,
+                 vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(), out.data_ptr(),
+                 D, N, num_out)
     LAUNCHES[name] += 1
     return out
 
@@ -533,13 +459,13 @@ def _segsum_plain(vals: torch.Tensor, ids: torch.Tensor, num_out: int) -> torch.
 
 
 def _gather(name, src, ids):
-    if _use_kernel(src, ids):
+    if cudalib.use_kernel(src, ids):
         return _launch_gather(name, src, ids)
     return _gather_plain(src, ids)
 
 
 def _segsum(name, vals, ids, num_out, csr):
-    if _use_kernel(vals, ids):
+    if cudalib.use_kernel(vals, ids):
         if csr is None:
             csr = segment_csr(ids, num_out, vals.device)
         return _launch_segsum(name, vals, num_out, csr)
@@ -654,28 +580,23 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
     if (sb.shape[0] != C or li.shape[0] != C * plan.chunk or lj.shape[0] != li.shape[0]
             or lk.shape[0] != li.shape[0]):
         raise ValueError("sb/li/lj/lk do not match the plan")
-    if not _use_kernel(W, G, sb, li, lj, lk):
+    if not cudalib.use_kernel(W, G, sb, li, lj, lk):
         return schur_fused_plain(W, G, plan, sb, li, lj, lk)
     for t, name in ((W, "W"), (G, "G")):
-        _check(t, name, torch.float32, 2)
+        cudalib.check(t, name, torch.float32, 2)
     for t, name in ((sb, "sb"), (li, "li"), (lj, "lj")):
-        _check(t, name, torch.int32, 1)
+        cudalib.check(t, name, torch.int32, 1)
     if csr is None:
         raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
-    _check(csr.order, "csr.order", torch.int32, 1)
-    _check(csr.offs, "csr.offs", torch.int32, 1)
+    cudalib.check(csr.order, "csr.order", torch.int32, 1)
+    cudalib.check(csr.offs, "csr.offs", torch.int32, 1)
     if csr.offs.shape[0] != C * KW + 1 or csr.offs.device != W.device:
         raise ValueError("csr does not match the plan or the device")
     out = torch.empty((36, C * KW), dtype=torch.float32, device=W.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = lib.cuba_schur_fused(
-            W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), li.data_ptr(),
-            lj.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(),
-            plan.slot_block, KW, C, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"schur_fused: launch failed (cudaError {err})")
+    cudalib.call("schur_fused", W, _kernel_lib().cuba_schur_fused,
+                 W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), li.data_ptr(),
+                 lj.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(),
+                 plan.slot_block, KW, C, out.data_ptr())
     LAUNCHES["schur_fused"] += 1
     return out
 
@@ -721,25 +642,79 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
         raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
                          f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ_band "
                          f"{tuple(occ_band.shape)} do not fit PB={PB}, Wg={Wg}")
-    if not _use_kernel(gT, iru, icu, dbT, occ_band):
+    if not cudalib.use_kernel(gT, iru, icu, dbT, occ_band):
         return compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB, Wg)
-    _check(gT, "gT", torch.float32, 2)
-    _check(dbT, "dbT", torch.float32, 2)
-    _check(occ_band, "occ_band", torch.int32, 1)
+    cudalib.check(gT, "gT", torch.float32, 2)
+    cudalib.check(dbT, "dbT", torch.float32, 2)
+    cudalib.check(occ_band, "occ_band", torch.int32, 1)
     if table is None:
         raise ValueError("compact_to_band: the kernel needs table=band_table(iru, icu, PB)")
-    _check(table, "table", torch.int32, 2)
+    cudalib.check(table, "table", torch.int32, 2)
     if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
     out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=torch.float32,
                       device=gT.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(gT.device):
-        stream = torch.cuda.current_stream(gT.device).cuda_stream
-        err = lib.cuba_compact_to_band(gT.data_ptr(), gT.shape[1], table.data_ptr(),
-                                       dbT.data_ptr(), PB, occ_band.data_ptr(), M,
-                                       out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"compact_to_band: launch failed (cudaError {err})")
+    cudalib.call("compact_to_band", gT, _kernel_lib().cuba_compact_to_band,
+                 gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
+                 occ_band.data_ptr(), M, out.data_ptr())
     LAUNCHES["compact_to_band"] += 1
+    return out
+
+
+DENSE_TILE_P, DENSE_TILE_Q = 64, 128  # compact_to_dense's occupancy tiles, pose blocks
+
+
+def compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *, table=None):
+    """Plain torch compact_to_dense: uppers, transposed mirrors and the
+    damped diagonal placed into [PB, 6, PB, 6] = element (pose row, i, pose
+    col, j), then zeroed on unoccupied 64x128-block tiles."""
+    out = gT.new_zeros((PB, 6, PB, 6))
+    s = torch.nonzero(iru >= 0).flatten()
+    r, c = iru[s].long(), icu[s].long()
+    blocks = gT[:, s].T.reshape(-1, 6, 6)  # [n, i, j] = gT[i*6+j, slot]
+    out[r, :, c, :] = -blocks
+    mir = r != c
+    out[c[mir], :, r[mir], :] = -blocks[mir].transpose(1, 2)
+    p = torch.arange(PB, device=gT.device)
+    out[p, :, p, :] += dbT.T.reshape(PB, 6, 6)
+    occ = occ2.reshape(PB // DENSE_TILE_P, PB // DENSE_TILE_Q) > 0
+    occ = occ.repeat_interleave(DENSE_TILE_P, 0).repeat_interleave(DENSE_TILE_Q, 1)
+    out = torch.where(occ[:, None, :, None], out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.reshape(6 * PB, 6 * PB)
+
+
+def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
+                     table: Optional[torch.Tensor] = None):
+    """The dense damped Schur matrix [6PB, 6PB] from the band-major compact
+    Schur table (cuba_tpu segmm.compact_to_dense): element (6p+i, 6q+j) is
+    diag - (upper + mirrored blocks), where the diagonal is dbT [36, PB]
+    (indexed by pose block) on p == q; 64x128-block tiles that occ2
+    [PB/64 * PB/128] marks empty are zero.  ``table`` is :func:`dense_table`
+    of (iru, icu), built once per structure; the kernel needs it."""
+    if PB % DENSE_TILE_Q != 0:
+        raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
+    M = PB // BAND_TILE
+    n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
+    if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
+            or tuple(occ2.shape) != (n_occ,) or tuple(iru.shape) != (M * Wg,)
+            or tuple(icu.shape) != (M * Wg,)):
+        raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
+                         f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ2 "
+                         f"{tuple(occ2.shape)} do not fit PB={PB}, Wg={Wg}")
+    if not cudalib.use_kernel(gT, iru, icu, dbT, occ2):
+        return compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB, Wg)
+    cudalib.check(gT, "gT", torch.float32, 2)
+    cudalib.check(dbT, "dbT", torch.float32, 2)
+    cudalib.check(occ2, "occ2", torch.int32, 1)
+    if table is None:
+        raise ValueError("compact_to_dense: the kernel needs table=dense_table(iru, icu, PB)")
+    cudalib.check(table, "table", torch.int32, 2)
+    if tuple(table.shape) != (PB, PB) or table.device != gT.device:
+        raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+    out = torch.empty((6 * PB, 6 * PB), dtype=torch.float32, device=gT.device)
+    cudalib.call("compact_to_dense", gT, _kernel_lib().cuba_compact_to_dense,
+                 gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
+                 occ2.data_ptr(), out.data_ptr())
+    LAUNCHES["compact_to_dense"] += 1
     return out

@@ -1,16 +1,18 @@
 """Block-solver engine: the Levenberg-Marquardt loop over the rows front end
-and the matrix-free PCG or the band (cyclic-reduction) reduced solve (port
-of the PCG and band paths of ``cuba_tpu/solver/engine.py``).
+and the matrix-free PCG, the band (cyclic-reduction) or the dense
+(Cholesky) reduced solve (port of the PCG, band and dense paths of
+``cuba_tpu/solver/engine.py``).
 
 The loop runs eagerly in torch.  Accept/reject is a ``torch.where`` on the
 device; the host reads the device once per damped attempt (the gain ratio
 and whether lambda is finite, which decide whether to retry or stop), once
-per CG step and once per CG solve (the PCG stop test) or once per fp32 band
-factorisation (the boost-retry test), plus once per ``optimize`` for the
-chi² trajectory.  The control law is ``cuba_tpu``'s (``_make_lm_run``):
-lambda0 = tau * max diag, attenuation clamped to [1/3, 2/3], nu doubling,
-x8 escalation when the solve fails, and the accepted trial's residual packs
-carried into the next build.
+per CG step and once per CG solve (the PCG stop test), once per fp32 band
+factorisation or once per fp32 dense boost-retry decision (at most four per
+attempt), plus once per ``optimize`` for the chi² trajectory.  The control
+law is ``cuba_tpu``'s (``_make_lm_run``): lambda0 = tau * max diag,
+attenuation clamped to [1/3, 2/3], nu doubling, x8 escalation when the
+solve fails, and the accepted trial's residual packs carried into the next
+build.
 """
 
 from __future__ import annotations
@@ -22,16 +24,15 @@ import torch
 
 from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.ops import se3
-from cuba_tpu_torch.solver import band_cr, edgerows, rows
+from cuba_tpu_torch.solver import band_cr, dense_cholesky, edgerows, rows, trisolve
 from cuba_tpu_torch.solver.structure import BAStructure
 
 # "auto" takes the dense solver up to this many padded pose blocks
 # (cuba_tpu engine._DENSE_MAX_PB)
 _DENSE_MAX_PB = 4096
-_PORTED = ("pcg", "band_cr")
+_PORTED = ("pcg", "band_cr", "dense_cholesky")
 _UNPORTED = {
     "band_lr": "the band + Woodbury loop-closure solver is ROADMAP queue 1 item 4",
-    "dense_cholesky": "the dense solver is ROADMAP queue 1 item 5",
 }
 
 
@@ -127,7 +128,8 @@ class BlockSolverEngine:
         self.num_p, self.num_l = s.num_p, s.num_l
         self.plan, self.rc = rows.plan_rows(
             s, self.device, self.dtype,
-            pad_blocks=self.pad_blocks if self.solver == "band_cr" else 0)
+            pad_blocks=0 if self.solver == "pcg" else self.pad_blocks,
+            dense=self.solver == "dense_cholesky")
 
         def dev(a):
             return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -163,11 +165,24 @@ class BlockSolverEngine:
             )
             xp, reads = xT.T, k + 1
         else:
-            D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
-            rhs = bscT.new_zeros(6 * self.pad_blocks)
+            n = 6 * self.pad_blocks
+            rhs = bscT.new_zeros(n)
             rhs[:6 * P] = bscT.T.reshape(-1)
             refine = self.config.refinement_steps if self.dtype == torch.float32 else 0
-            x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
+            if self.solver == "band_cr":
+                D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
+                x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
+            else:
+                Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
+                # the blocked trisolve kernels on the card (cuba_tpu takes
+                # them on the TPU), with one extra refinement sweep for the
+                # inverted-diagonal-block substitution's larger residual, as
+                # cuba_tpu does; elsewhere solve_triangular and A @ v
+                use_ts = self.device.type == "cuda" and trisolve.usable(n, self.dtype)
+                if use_ts and refine > 0:
+                    refine += 1
+                x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine,
+                                                             use_kernels=use_ts)
             xp, k = x[:6 * P].reshape(P, 6), 0
         xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
         return xp, xl, ok, k, reads

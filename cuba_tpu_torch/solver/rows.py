@@ -1,6 +1,6 @@
 """The rows front end, the matrix-free PCG reduced solve and the v2 band
-Schur formation (the PCG and band subsets of ``cuba_tpu/solver/mxu.py``),
-over transposed ``[D, N]`` tensors.
+and dense Schur formations (the PCG, band and dense subsets of
+``cuba_tpu/solver/mxu.py``), over transposed ``[D, N]`` tensors.
 
 Every index-driven step goes through the wrappers of ``ops/segmm.py``
 (hand-written CUDA kernels on the card); the per-slot 6x6/3x3 block algebra
@@ -19,6 +19,8 @@ this module                ``cuba_tpu/solver/mxu.py``
 ``schur_band``             ``schur_band_mxu`` (1676)
 ``schur_compact``          ``schur_compact_mxu`` (1698)
 ``band_from_compact``      ``band_from_compact`` (1733)
+``schur_dense``            ``schur_dense_mxu``, v2 branch (1620-1638)
+``dense_from_compact``     ``dense_from_compact`` (1719)
 ``back_substitute``        ``back_substitute_mxu`` (1757)
 ``_hpp_matvec_rows``       ``_hpp_matvec_rows`` (1778)
 ``schur_matvec_rows``      ``schur_matvec_rows`` (1786)
@@ -110,7 +112,7 @@ class RowPlan:
     paw_b: AccumWindowPlan
     rg_m: Optional[AccumWindowPlan]  # None: the rank-ordered pose gather is off
     rg_s: Optional[AccumWindowPlan]
-    # v2 band formation (None / 0 without need_dense)
+    # v2 band and dense formations (None / 0 without need_dense)
     pad_blocks: int = 0  # PB: the reduced system in pose blocks
     schur: Optional[segmm.SchurPlan] = None
     wg: int = 0  # band-major lanes per 64-row band
@@ -150,7 +152,7 @@ class RowConsts:
     csr_e2h_s: SegmentCSR
     csr_hpl_row: SegmentCSR
     csr_hpl_col: SegmentCSR
-    # v2 band formation (None without need_dense)
+    # v2 band and dense formations (None without need_dense)
     sc_sb: Optional[torch.Tensor] = None  # [C] schur_fused slot blocks
     sc_li: Optional[torch.Tensor] = None  # [C*chunk] local ids
     sc_lj: Optional[torch.Tensor] = None
@@ -160,6 +162,8 @@ class RowConsts:
     icu: Optional[torch.Tensor] = None
     band_occ: Optional[torch.Tensor] = None  # [2M] tile (k, e) occupancy
     band_table: Optional[torch.Tensor] = None  # [PB, 128] segmm.band_table
+    occ2: Optional[torch.Tensor] = None  # [PB/64 * PB/128] dense tile occupancy
+    dense_table: Optional[torch.Tensor] = None  # [PB, PB] segmm.dense_table (dense only)
     csr_sc: Optional[SegmentCSR] = None  # schur_fused's per-lane order
     csr_up2: Optional[SegmentCSR] = None  # the combine's order
 
@@ -183,8 +187,8 @@ def plan_schur_for(s: BAStructure) -> segmm.SchurPlan:
 
 def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     """The v2 band-major tables of ``plan_mxu``'s need_dense branch: (wg,
-    up2, {gkey_up2, iru, icu, band_occ}), or None where cuba_tpu would take
-    the dense fallback (Wg over _WG_MAX, no Hsc block or the combine plan
+    up2, {gkey_up2, iru, icu, occ2, band_occ}), or None where cuba_tpu would
+    take the v1 fallback (Wg over _WG_MAX, no Hsc block or the combine plan
     fails)."""
     i32 = np.int32
     n_hsc = s.n_hsc
@@ -210,6 +214,13 @@ def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     icu = np.full(M * wg, -1, i32)
     iru[bslot] = hr
     icu[bslot] = hc
+    # compact_to_dense's 64x128-block tiles holding an upper, a mirror or
+    # the diagonal
+    occ2 = np.zeros((PB // 64, PB // 128), i32)
+    occ2[hr // 64, hc // 128] = 1
+    occ2[hc // 64, hr // 128] = 1
+    dd = np.arange(PB)
+    occ2[dd // 64, dd // 128] = 1
     # D_k always carries the damped diagonal; U_k only with adjacent blocks
     band_occ = np.zeros(M * 2, i32)
     band_occ[0::2] = 1
@@ -217,7 +228,8 @@ def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     adj = np.abs(tr - tc) == 1
     if adj.any():
         band_occ[np.minimum(tr[adj], tc[adj]) * 2 + 1] = 1
-    return wg, up2, dict(gkey_up2=gkey_up2, iru=iru, icu=icu, band_occ=band_occ)
+    return wg, up2, dict(gkey_up2=gkey_up2, iru=iru, icu=icu, occ2=occ2.reshape(-1),
+                         band_occ=band_occ)
 
 
 def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
@@ -328,10 +340,10 @@ def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
     return plan, tables
 
 
-def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0):
+def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = False):
     """Plan a structure and upload its tables: (RowPlan, RowConsts).  With
     ``pad_blocks`` the band formation's tables, CSRs and placement table
-    come too."""
+    come too, and with ``dense`` the dense formation's placement table."""
     plan, t = plan_row_tables(s, pad_blocks)
     Em, Es = s.mono.count, s.stereo.count
     measT_m = np.zeros((2, plan.e_pad_m))
@@ -371,12 +383,15 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0):
         M_wg = PB // 64 * plan.wg
         consts = dataclasses.replace(
             consts, **{name: ints(name) for name in (
-                "sc_sb", "sc_li", "sc_lj", "sc_lk", "iru", "icu", "band_occ")},
+                "sc_sb", "sc_li", "sc_lj", "sc_lk", "iru", "icu", "band_occ", "occ2")},
             gkey_up2=torch.from_numpy(gkey).to(device),
             band_table=torch.from_numpy(segmm.band_table(t["iru"], t["icu"], PB)).to(device),
             csr_sc=segmm.schur_lane_csr(sc, device),
             csr_up2=segmm.segment_csr(gkey, M_wg, device),
         )
+        if dense:
+            consts.dense_table = torch.from_numpy(
+                segmm.dense_table(t["iru"], t["icu"], PB)).to(device)
     return plan, consts
 
 
@@ -525,6 +540,21 @@ def schur_band(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
     never formed densely."""
     gT = schur_compact(W, HplT, plan, rc)
     return band_from_compact(gT, HppT, lam, num_p, plan, rc)
+
+
+def dense_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts):
+    """Damped diagonal + the compact table placed into the dense damped
+    Schur matrix [6PB, 6PB]."""
+    PB = plan.pad_blocks
+    return segmm.compact_to_dense(gT, rc.iru, rc.icu, damped_diagonal_T(HppT, lam, num_p, PB),
+                                  rc.occ2, PB, plan.wg, table=rc.dense_table)
+
+
+def schur_dense(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
+    """The damped Schur complement as a dense [6PB, 6PB] matrix, formed
+    from the compact table (no scatter)."""
+    gT = schur_compact(W, HplT, plan, rc)
+    return dense_from_compact(gT, HppT, lam, num_p, plan, rc)
 
 
 def back_substitute(iv9, HllT, HplT, g12, xp, num_l, plan: RowPlan, rc: RowConsts):

@@ -1,0 +1,186 @@
+"""Blocked triangular solves for the dense reduced system (port of
+``cuba_tpu/solver/trisolve.py``).
+
+The lower Cholesky factor L [n, n] of the reduced system is swept in K =
+n / B stripes (B = 256): the diagonal blocks are inverted once per
+factorisation (:func:`prepare`), and each sweep is then one product with an
+inverted diagonal block and one stripe update per step, with the running
+update ``d`` carried from step to step.  ``matvec`` is the refinement
+residual's fp32-exact A x.
+
+=========================  ==========================================
+this module                ``cuba_tpu/solver/trisolve.py``
+=========================  ==========================================
+``extract_diag_blocks``    ``_extract_diag_blocks`` (74), kernel 11
+``tri_inv_blocks``         ``tri_inv_blocks`` (51; XLA there, torch here)
+``prepare``                ``prepare`` (94)
+``solve_lower``            ``solve_lower`` (120), kernel 12
+``solve_upper``            ``solve_upper`` (159), kernel 13
+``matvec``                 ``matvec`` (200), kernel 14
+``usable``                 ``usable`` (228)
+=========================  ==========================================
+
+Each kernel wrapper has a ``*_plain`` twin, the blocked algorithm itself in
+torch (``torch.matmul`` on stripes, ``A @ x``), taken for CPU tensors and
+under ``cudalib.use_plain()``; a CUDA tensor launches the hand-written
+kernel of ``csrc/trisolve.cu`` (one host call per sweep, 2K launches).  The
+port's sweeps run in exact fp32, where the TPU's ran their stripe updates at
+the MXU's default bf16-pass precision.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuba_tpu_torch.ops import cudalib
+from cuba_tpu_torch.ops.cudalib import LAUNCHES
+
+BLOCK = 256  # stripe width; n (= 6 * pad_blocks) is a multiple of 768
+
+KERNEL_SRC = cudalib.SOURCES["trisolve"]
+_i64, _vp = ctypes.c_int64, ctypes.c_void_p
+_SIGNATURES = {
+    "cuba_extract_diag_blocks": [_vp, _i64, _i64, _vp, _vp],
+    "cuba_solve_lower": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "cuba_solve_upper": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "cuba_matvec": [_vp, _vp, _vp, _i64, _vp],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    return cudalib.library("trisolve", _SIGNATURES)
+
+
+def _stripes(L: torch.Tensor, block: int) -> int:
+    """K, the stripe count of a square [n, n] L with n a multiple of block."""
+    n = L.shape[0]
+    if L.dim() != 2 or L.shape[1] != n or n % block != 0:
+        raise ValueError(f"expected a square matrix of a multiple of {block} rows, "
+                         f"got {tuple(L.shape)}")
+    return n // block
+
+
+def _check_sweep(L, invd, v, block):
+    K = _stripes(L, block)
+    if tuple(invd.shape) != (K, block, block) or tuple(v.shape) != (L.shape[0],):
+        raise ValueError(f"invd {tuple(invd.shape)} / vector {tuple(v.shape)} do not fit "
+                         f"L {tuple(L.shape)} in stripes of {block}")
+    if not cudalib.use_kernel(L, invd, v):
+        return False
+    for t, name in ((L, "L"), (invd, "invd"), (v, "vector")):
+        cudalib.check(t, name, torch.float32, t.dim())
+    return True
+
+
+def extract_diag_blocks_plain(L, block: int = BLOCK):
+    K = _stripes(L, block)
+    return torch.diagonal(L.reshape(K, block, K, block), dim1=0, dim2=2).permute(2, 0, 1) \
+        .contiguous()
+
+
+def extract_diag_blocks(L, block: int = BLOCK):
+    """[K, B, B] copy of L's diagonal B x B blocks."""
+    K = _stripes(L, block)
+    if not cudalib.use_kernel(L):
+        return extract_diag_blocks_plain(L, block)
+    cudalib.check(L, "L", torch.float32, 2)
+    out = torch.empty((K, block, block), dtype=torch.float32, device=L.device)
+    cudalib.call("extract_diag_blocks", L, _lib().cuba_extract_diag_blocks,
+                 L.data_ptr(), L.shape[0], block, out.data_ptr())
+    LAUNCHES["extract_diag_blocks"] += 1
+    return out
+
+
+def tri_inv_blocks(Ld: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of lower-triangular blocks [batch, m, m]: one batched
+    triangular solve against I.  ``cuba_tpu`` unrolls a 16-wide recursion
+    in XLA; as torch ops that would be hundreds of tiny launches.  torch
+    returns the blocks column-major; the sweep kernels read them row-major."""
+    eye = torch.eye(Ld.shape[-1], dtype=Ld.dtype, device=Ld.device).expand_as(Ld)
+    return torch.linalg.solve_triangular(Ld, eye, upper=False).contiguous()
+
+
+def prepare(L, block: int = BLOCK):
+    """Inverted diagonal blocks [K, B, B] for solve_lower / solve_upper."""
+    return tri_inv_blocks(extract_diag_blocks(L, block))
+
+
+def solve_lower_plain(L, invd, b, block: int = BLOCK):
+    K = _stripes(L, block)
+    d = torch.zeros_like(b)
+    y = torch.empty_like(b)
+    for k in range(K):
+        lo, hi = k * block, (k + 1) * block
+        y[lo:hi] = invd[k] @ (b[lo:hi] + d[lo:hi])
+        d[hi:] -= L[hi:, lo:hi] @ y[lo:hi]
+    return y
+
+
+def solve_lower(L, invd, b, block: int = BLOCK):
+    """y = L^-1 b for lower-triangular L [n, n], b [n], right-looking over
+    column stripes: y_k = invd[k] (b_k + d_k), then d -= L[:, k] y_k below
+    the diagonal block."""
+    if not _check_sweep(L, invd, b, block):
+        return solve_lower_plain(L, invd, b, block)
+    n = L.shape[0]
+    y = torch.empty_like(b)
+    d = torch.zeros_like(b)
+    cudalib.call("solve_lower", L, _lib().cuba_solve_lower, L.data_ptr(), invd.data_ptr(),
+                 b.data_ptr(), y.data_ptr(), d.data_ptr(), n, block)
+    LAUNCHES["solve_lower"] += 1
+    return y
+
+
+def solve_upper_plain(L, invd, y, block: int = BLOCK):
+    K = _stripes(L, block)
+    d = torch.zeros_like(y)
+    x = torch.empty_like(y)
+    for k in reversed(range(K)):
+        lo, hi = k * block, (k + 1) * block
+        x[lo:hi] = invd[k].T @ (y[lo:hi] + d[lo:hi])
+        d[:lo] -= L[lo:hi, :lo].T @ x[lo:hi]
+    return x
+
+
+def solve_upper(L, invd, y, block: int = BLOCK):
+    """x = L^-T y, backward over ROW stripes of L (no transpose is formed):
+    x_k = invd[k]^T (y_k + d_k), then d -= L[k, :]^T x_k left of the
+    diagonal block."""
+    if not _check_sweep(L, invd, y, block):
+        return solve_upper_plain(L, invd, y, block)
+    n = L.shape[0]
+    x = torch.empty_like(y)
+    d = torch.zeros_like(y)
+    cudalib.call("solve_upper", L, _lib().cuba_solve_upper, L.data_ptr(), invd.data_ptr(),
+                 y.data_ptr(), x.data_ptr(), d.data_ptr(), n, block)
+    LAUNCHES["solve_upper"] += 1
+    return x
+
+
+def matvec_plain(A, x, block: int = BLOCK):
+    return A @ x
+
+
+def matvec(A, x, block: int = BLOCK):
+    """y = A x in exact fp32, one fixed summation order per row (the
+    iterative-refinement residual)."""
+    n = A.shape[0]
+    if A.dim() != 2 or A.shape[1] != n or tuple(x.shape) != (n,):
+        raise ValueError(f"A {tuple(A.shape)} and x {tuple(x.shape)} do not fit")
+    if not cudalib.use_kernel(A, x):
+        return matvec_plain(A, x, block)
+    cudalib.check(A, "A", torch.float32, 2)
+    cudalib.check(x, "x", torch.float32, 1)
+    y = torch.empty_like(x)
+    cudalib.call("matvec", A, _lib().cuba_matvec, A.data_ptr(), x.data_ptr(), y.data_ptr(), n)
+    LAUNCHES["matvec"] += 1
+    return y
+
+
+def usable(n: int, dtype, block: int = BLOCK) -> bool:
+    """The blocked sweeps' gate: fp32, the stripe divides n, at least two
+    stripes.  (``cuba_tpu`` also caps the stripe's VMEM footprint; that
+    limit is the TPU's, and the kernels here stream L from device memory.)"""
+    return dtype == torch.float32 and n % block == 0 and n >= 2 * block

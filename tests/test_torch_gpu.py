@@ -14,7 +14,7 @@ import torch
 from cuba_tpu_torch import BAConfig, EdgeType, RobustKernelType
 from cuba_tpu_torch.io import synthetic
 from cuba_tpu_torch.ops import segmm
-from cuba_tpu_torch.solver import rows, structure
+from cuba_tpu_torch.solver import dense_cholesky, rows, structure, trisolve
 
 pytestmark = pytest.mark.gpu
 
@@ -110,7 +110,7 @@ def band_plan(cuda):
         prob.mono_p, prob.mono_l, prob.mono_z, prob.mono_w,
         prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w)
     PB = rows.pad_blocks_of(s.num_p)
-    plan, rc = rows.plan_rows(s, cuda, torch.float32, pad_blocks=PB)
+    plan, rc = rows.plan_rows(s, cuda, torch.float32, pad_blocks=PB, dense=True)
     rng = np.random.default_rng(3)
 
     def draw(*shape):
@@ -166,6 +166,103 @@ def test_band_slice_on_card_matches_plain(cuda):
     segmm.reset_launches()
     got = run()
     assert all(segmm.LAUNCHES[n] > 0 for n in ("schur_fused", "compact_to_band", "tiled_segsum"))
+    with segmm.use_plain():
+        want = run()
+    n = min(len(got), len(want))
+    np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
+    assert got[-1] < got[0]
+
+
+def test_compact_to_dense_kernel_matches_plain(band_plan):
+    plan, rc, PB, _W, _G, gT, dbT = band_plan
+    args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
+    before = segmm.LAUNCHES["compact_to_dense"]
+    got = segmm.compact_to_dense(*args, table=rc.dense_table)
+    want = segmm.compact_to_dense_plain(*args)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["compact_to_dense"] == before + 1
+    assert got.shape == (6 * PB, 6 * PB)
+    assert torch.equal(got, want)  # a placement: bit for bit
+    with pytest.raises(ValueError, match="table"):
+        segmm.compact_to_dense(*args)
+
+
+@pytest.fixture
+def spd_factor(cuda):
+    """A seeded SPD matrix at n = 1536 (six stripes) on the card, its
+    Cholesky factor and inverted diagonal blocks, and a right-hand side."""
+    n = 1536
+    rng = np.random.default_rng(7)
+    G = rng.standard_normal((n, n))
+    A = torch.from_numpy((G @ G.T / n + np.eye(n)).astype(np.float32)).to(cuda)
+    L = torch.linalg.cholesky(A).contiguous()  # torch's factor is column-major
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    with segmm.use_plain():
+        invd = trisolve.prepare(L)
+    return A, L, invd, b
+
+
+def test_extract_diag_blocks_kernel_matches_plain(spd_factor):
+    _A, L, _invd, _b = spd_factor
+    before = segmm.LAUNCHES["extract_diag_blocks"]
+    got = trisolve.extract_diag_blocks(L)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["extract_diag_blocks"] == before + 1
+    assert torch.equal(got, trisolve.extract_diag_blocks_plain(L))
+
+
+@pytest.mark.parametrize("name", ["solve_lower", "solve_upper"])
+def test_triangular_sweep_kernel_matches_plain(spd_factor, name):
+    _A, L, invd, b = spd_factor
+    before = segmm.LAUNCHES[name]
+    got = getattr(trisolve, name)(L, invd, b)
+    want = getattr(trisolve, name + "_plain")(L, invd, b)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES[name] == before + 1
+    # fp32 sums in other orders through six stripes of a well-conditioned L
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, getattr(trisolve, name)(L, invd, b))  # deterministic
+
+
+def test_matvec_kernel_matches_plain(spd_factor):
+    A, _L, _invd, b = spd_factor
+    before = segmm.LAUNCHES["matvec"]
+    got = trisolve.matvec(A, b)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["matvec"] == before + 1
+    bound = 1e-5 * (A.abs() @ b.abs())
+    assert bool(((got - trisolve.matvec_plain(A, b)).abs() <= bound).all())
+    assert torch.equal(got, trisolve.matvec(A, b))  # deterministic
+
+
+def test_cholesky_solve_kernels_match_plain(spd_factor):
+    A, _L, _invd, b = spd_factor
+    x, ok, reads = dense_cholesky.cholesky_solve(A, b, 2, use_kernels=True)
+    with segmm.use_plain():
+        xp, okp, _ = dense_cholesky.cholesky_solve(A, b, 2, use_kernels=True)
+    xs, oks, _ = dense_cholesky.cholesky_solve(A, b, 2, use_kernels=False)
+    assert bool(ok) and bool(okp) and bool(oks) and reads == 1
+    scale = float(xs.abs().max())
+    assert float((x - xp).abs().max()) <= 1e-5 * scale
+    assert float((x - xs).abs().max()) <= 1e-5 * scale
+
+
+def test_dense_slice_on_card_matches_plain(cuda):
+    prob = synthetic.generate(num_poses=10, num_landmarks=90, seed=7)
+
+    def run():
+        ba = synthetic.build_graph(prob, BAConfig(dtype=torch.float32, device="cuda"))
+        ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(5.991), EdgeType.MONOCULAR)
+        ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(7.815), EdgeType.STEREO)
+        ba.initialize()
+        ba.optimize(6)
+        assert ba._engine.solver == "dense_cholesky"
+        return np.array([s.chi2 for s in ba.batch_statistics()])
+
+    segmm.reset_launches()
+    got = run()
+    assert all(segmm.LAUNCHES[n] > 0 for n in (
+        "compact_to_dense", "extract_diag_blocks", "solve_lower", "solve_upper", "matvec"))
     with segmm.use_plain():
         want = run()
     n = min(len(got), len(want))

@@ -12,7 +12,8 @@ import sys
 import pytest
 import torch
 
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import cudalib, segmm
+from cuba_tpu_torch.solver import trisolve
 
 torch.set_num_threads(1)
 
@@ -54,6 +55,16 @@ def test_port_runs_without_jax():
     assert "isolated" in r.stdout
 
 
+def test_dense_path_runs_without_jax():
+    """The dense solver (``solver="auto"`` on a graph under 8 CR blocks)
+    with its trisolve modules, in a process without JAX."""
+    drive = _DRIVE.replace('BAConfig(solver="pcg")', "BAConfig()").replace(
+        "ba.optimize(3)", 'ba.optimize(3)\nassert ba._engine.solver == "dense_cholesky"')
+    r = _python(drive, REPO)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
 def test_sources_import_no_jax():
     pkg = os.path.join(REPO, "cuba_tpu_torch")
     for root, _dirs, files in os.walk(pkg):
@@ -66,10 +77,16 @@ def test_sources_import_no_jax():
 
 
 def test_kernel_source_and_binding_import_without_nvcc():
-    src = open(segmm.KERNEL_SRC).read()
-    for entry in ("cuba_gather_cols", "cuba_segsum_csr", "__global__"):
-        assert entry in src
-    assert "arch=compute_90a,code=sm_90a" in segmm._NVCC_FLAGS
+    for path, entries in (
+            (segmm.KERNEL_SRC, ("cuba_gather_cols", "cuba_segsum_csr", "cuba_schur_fused",
+                                "cuba_compact_to_band", "cuba_compact_to_dense")),
+            (trisolve.KERNEL_SRC, ("cuba_extract_diag_blocks", "cuba_solve_lower",
+                                   "cuba_solve_upper", "cuba_matvec"))):
+        src = open(path).read()
+        for entry in entries + ("__global__",):
+            assert entry in src, (path, entry)
+    assert sorted(cudalib.SOURCES.values()) == sorted([segmm.KERNEL_SRC, trisolve.KERNEL_SRC])
+    assert "arch=compute_90a,code=sm_90a" in cudalib.NVCC_FLAGS
 
 
 def test_cuda_only_calls_raise_on_cpu():
@@ -85,6 +102,8 @@ def test_cuda_only_calls_raise_on_cpu():
     meta = torch.empty((3, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         segmm.tiled_gather(meta, torch.zeros(8, dtype=torch.int32, device="meta"), None, None)
+    with pytest.raises(ValueError, match="no kernel"):
+        trisolve.matvec(torch.empty((8, 8), device="meta"), torch.empty(8, device="meta"))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from cuba_tpu.ops import segmm as tpu
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import cudalib, segmm
 
 torch.set_num_threads(1)
 
@@ -186,7 +186,9 @@ def test_segment_csr_orders_valid_ids_stably():
 
 
 def test_use_plain_restores_dispatch():
-    assert not segmm._FORCE_PLAIN[0]
+    # one switch for every kernel (ops/cudalib.py), re-exported by segmm
+    assert segmm.use_plain is cudalib.use_plain and segmm.LAUNCHES is cudalib.LAUNCHES
+    assert not cudalib._FORCE_PLAIN[0]
     with segmm.use_plain():
-        assert segmm._FORCE_PLAIN[0]
-    assert not segmm._FORCE_PLAIN[0]
+        assert cudalib._FORCE_PLAIN[0]
+    assert not cudalib._FORCE_PLAIN[0]

@@ -6,8 +6,8 @@ originals: the structure of ``build_structure_from_arrays`` and
 ``build_structure`` (the Schur pattern, triplets and the C++ pass's fused
 Schur plan included), ``plan_schur`` through the C++ and the NumPy paths,
 and the paddings, window plans, padded id tables and ``res_perm`` of
-``plan_mxu(..., wire_pack=False)``, with and without the v2 band tables
-(``need_dense``).
+``plan_mxu(..., wire_pack=False)``, with and without the v2 band and dense
+tables (``need_dense``), and the placement table of ``compact_to_dense``.
 """
 
 import dataclasses
@@ -187,7 +187,7 @@ def test_band_plan_matches_plan_mxu(name):
     for f in ("hll_m", "hll_s", "hpl_m", "hpl_s", "ivs", "xpg", "cl", "up2", "paw_b"):
         _assert_plan_equal(getattr(plan, f), getattr(plans, f), f)
     _assert_schur_plans_equal(plan.schur, plans.schur, name)
-    assert set(tables) >= {"gkey_up2", "iru", "icu", "band_occ", "sc_sb", "sc_li",
+    assert set(tables) >= {"gkey_up2", "iru", "icu", "occ2", "band_occ", "sc_sb", "sc_li",
                            "sc_lj", "sc_lk", "hpl_row", "e2h_m"}
     for f, t in tables.items():
         assert t.dtype == np.int32, f
@@ -196,3 +196,31 @@ def test_band_plan_matches_plan_mxu(name):
     assert rc.gkey_up2.shape[0] == plan.wpad >= max(plan.up2.n_pad, tables["gkey_up2"].size)
     np.testing.assert_array_equal(rc.gkey_up2[:tables["gkey_up2"].size].numpy(),
                                   tables["gkey_up2"])
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_dense_table_places_every_block(name):
+    """compact_to_dense's placement table: every Hsc block at (row, col),
+    its transposed mirror at (col, row) off the diagonal, nothing else; and
+    occ2 marks every tile the table or the diagonal writes."""
+    s = structure_from_numpy(tpu_structure.build_structure_from_arrays(
+        *_arrays(*PROBLEMS[name])))
+    PB = rows.pad_blocks_of(s.num_p)
+    plan, rc = rows.plan_rows(s, "cpu", torch.float32, pad_blocks=PB, dense=True)
+    tab = rc.dense_table.numpy()
+    iru, icu = rc.iru.numpy(), rc.icu.numpy()
+    assert tab.shape == (PB, PB) and tab.dtype == np.int32
+    slots = np.flatnonzero(iru >= 0)
+    r, c = iru[slots], icu[slots]
+    assert slots.size == s.n_hsc and np.all(r <= c)
+    np.testing.assert_array_equal(tab[r, c], slots)
+    off = r != c
+    np.testing.assert_array_equal(tab[c[off], r[off]], slots[off] | (1 << 30))
+    assert int((tab >= 0).sum()) == slots.size + int(off.sum())
+    occ = rc.occ2.numpy().reshape(PB // 64, PB // 128)
+    p, q = np.nonzero(tab >= 0)
+    assert occ[p // 64, q // 128].all()
+    d = np.arange(PB)
+    assert occ[d // 64, d // 128].all()
+    # without dense=True the table is not built
+    assert rows.plan_rows(s, "cpu", torch.float32, pad_blocks=PB)[1].dense_table is None
