@@ -63,14 +63,57 @@ Phases (any failure exits non-zero, before the result line):
    chi² must be finite and fall (its final chi² is logged, not gated).
 10. Phase 8's run with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
+11. The v1 formation: ``bench.py``'s kitti00 odometry graph (``loop_closure
+   =False``: 1322 poses, 133,383 landmarks, seed 0) with the v2 gate closed
+   (``rows._WG_MAX = 0``, restored after): ``solver="auto"`` must resolve
+   to ``band_cr`` (m = 22) through the v1 formation and ``from_dense``;
+   kernels 1-7 at its call sites (``tiled_segsum`` at both combines) and
+   ``band_transpose`` (bit for bit at PB = 1408, timed beside its plain
+   version and the permuted copy) against their plain versions; the
+   counted ``optimize(10)`` must land within CHI2_REL_BAND of the fp64
+   record and agree with the plain run to 5e-3; on one attempt's tensors
+   the v1 dense matrix must match the v2 one within fp32 summation order;
+   the gate-open (v2) run must agree with the v1 one to 5e-3 per iteration.
+   With the gate still closed, kitti07's graph runs ``dense_cholesky``
+   through the v1 formation (kernels 10-14): counted, within
+   CHI2_REL_BAND of its fp64 record and within 5e-3 of phase 8's run.
+12. ``band_lr`` on the MXU path: phase 11's graph (gate open) plus two loop
+   chords (pose (src + 3P/7) % P and (src + 5P/7) % P re-observe the first
+   landmark of pose src = (2c+1)P/5, c = 0, 1): m_lr 22, 26 out-of-band
+   blocks, |J| 16; ``auto`` must resolve to ``band_lr`` on the v2 route;
+   kernels 1-8 against their plain versions at its shapes; the counted
+   ``optimize(10)`` against the plain run (5e-3) and against
+   ``solver="dense_cholesky"`` on the same graph (rtol 2e-2 per iteration,
+   final chi² within 5e-3).
+13. The AoS path: the same graph with three chords, where the planner's
+   ``ok`` fails: ``auto`` must resolve to ``band_lr`` on the AoS route; the
+   segment-sum kernel against its plain version at two AoS call sites (the
+   pose sums of the mono terms, the per-block triplet sums); the checks of
+   phase 12; then kitti07's graph with every landmark fixed (pose-only) and
+   with every pose fixed (landmark-only) must descend.
+
+Every phase's kernel check also times the one PyTorch call that computes
+the same function where there is one (``index_select`` for the gathers,
+``index_add_`` for the segment sums, the permuted copy for
+``band_transpose``, the strided diagonal copy for
+``extract_diag_blocks``, ``solve_triangular`` for the sweeps, ``mv`` for the
+matvec) and computes the kernel's bound on this card: the larger of the
+bytes it must move (each input read once, each output written once, for
+this run's data) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s.
+
+After each path's counted run one more ``optimize(10)`` of a fresh graph
+runs under ``torch.profiler`` (device activity only) and logs the device
+kernels per attempt, the device-busy share of the wall and the kernels
+with the most device time (not gated).
 
 The line before the last is a JSON object with one entry per kernel and
 path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
 ``dense`` from phases 8-9 at kitti07, ``dense-kitti00`` from phase 9's
-kitti00 engine; ``"site"`` names a second call site of one kernel).
-``launches`` is the kernel's count in that path's counted run, over all its
-call sites; the other numbers are that path's comparisons.  The last line
-is ``{"ok": true, "device": {...}}``.
+kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13;
+``"site"`` names a second call site of one kernel).  ``launches`` is the
+kernel's count in that path's counted run, over all its call sites, and
+``attempts`` that run's damped attempts; the other numbers are that
+path's comparisons.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -85,6 +128,18 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ITERS = 10
+# bench.py's recorded fp64 final chi² of its default graphs after 10 LM
+# iterations (docs/PARITY_kitti00.md), and the band a run must land in
+CHI2_FP64_FINAL = {
+    ("kitti00_scale_loop", 10): 925601.05,
+    ("kitti00_scale", 10): 924194.00,
+    ("kitti07_scale", 10): 148331.12,
+}
+CHI2_REL_BAND = 5e-3
+# one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): device
+# memory rate and fp32 rate outside the tensor cores, per millisecond
+HBM_BYTES_PER_MS = 3.35e9
+FP32_FLOPS_PER_MS = 67e9
 REPEATS = 25
 SEGSUM_RTOL = 1e-5
 # the blocked sweeps against their plain versions: each entry within this
@@ -101,6 +156,13 @@ KITTI = dict(num_poses=1322, num_landmarks=133383, mean_obs_per_landmark=5.5,
 KITTI_BAND_M = 22
 KITTI07 = dict(num_poses=248, num_landmarks=26127, mean_obs_per_landmark=4.65,
                stereo_fraction=0.25, seed=0, loop_closure=False)  # bench.py:114-119
+KITTI00 = dict(KITTI, loop_closure=False)  # bench.py:121-137, the odometry graph
+# the dense solver against band_lr per iteration: cuba_tpu's on-chip bar
+# for two solvers on one graph (tests/test_tpu_matrix.py)
+SOLVER_RTOL = 2e-2
+# the v1 dense Schur matrix against the v2 one: both sum the same window
+# lanes of schur_fused in fp32, each within this share of max |A|
+FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
@@ -116,6 +178,7 @@ REPLACES = {
     "solve_lower": "cuba_tpu/solver/trisolve.py:120",
     "solve_upper": "cuba_tpu/solver/trisolve.py:159",
     "matvec": "cuba_tpu/solver/trisolve.py:200",
+    "band_transpose": "cuba_tpu/ops/segmm.py:903",
 }
 
 
@@ -132,11 +195,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_graph(prob, config):
+def make_graph(prob, config, fix=None):
+    """The problem's graph with Huber kernels; ``fix`` = "landmarks" or
+    "poses" holds every landmark or every pose fixed."""
     from cuba_tpu_torch import EdgeType, RobustKernelType
     from cuba_tpu_torch.io import synthetic
 
     ba = synthetic.build_graph(prob, config)
+    if fix == "landmarks":
+        for j in range(prob.Xws.shape[0]):
+            ba.landmark_vertex(j).fixed = True
+    elif fix == "poses":
+        for i in range(prob.qs.shape[0]):
+            ba.pose_vertex(i).fixed = True
     ba.set_robust_kernels(RobustKernelType.HUBER, float(np.sqrt(5.991)), EdgeType.MONOCULAR)
     ba.set_robust_kernels(RobustKernelType.HUBER, float(np.sqrt(7.815)), EdgeType.STEREO)
     return ba
@@ -158,9 +229,45 @@ def cuda_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time this card could take to move
+    ``nbytes`` and do ``flops`` fp32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOPS_PER_MS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_case(call, kern, plain, src, ids, torch):
+    """A gather's case: its ids and output, and the source columns this
+    run's ids need, read once; the yardstick is ``index_select`` on the
+    in-range ids (out-of-range ids read column 0 there)."""
+    valid = (ids >= 0) & (ids < src.shape[1])
+    cols = int(torch.unique(ids[valid]).numel())
+    D, N = src.shape[0], ids.shape[0]
+    safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+    return ("exact", call, kern, plain, (4 * (N + D * N + D * cols), 0),
+            lambda: src.index_select(1, safe))
+
+
+def segsum_case(call, kern, plain, vals, ids, num_out, torch):
+    """A segment sum's case: its ids, the columns with an id in range and
+    its output; one add per summed value; the yardstick is ``index_add_``
+    into zeros."""
+    valid = (ids >= 0) & (ids < num_out)
+    nv = int(valid.sum())
+    D, N = vals.shape
+    idx, v = ids[valid].long(), vals[:, valid].contiguous()
+
+    def library():
+        return torch.zeros((D, num_out), dtype=vals.dtype, device=vals.device).index_add_(
+            1, idx, v)
+
+    return ((vals, ids, num_out), call, kern, plain, (4 * (N + D * nv + D * num_out), D * nv),
+            library)
+
+
 def check_kernels(engine, torch, segmm):
     """Phase 2: each wrapper's kernel against its plain version on the
-    slice's tensors.  Returns {name: (max_abs_err, ms, plain_ms)}."""
+    slice's tensors.  Returns {name: entry} (see :func:`compare_cases`)."""
     from cuba_tpu_torch.solver import edgerows, rows
 
     plan, rc = engine.plan, engine.rc
@@ -183,27 +290,26 @@ def check_kernels(engine, torch, segmm):
         wsrc, wids = psrc, rc.pose_gid_m
     paw = plan.paw_m
     cases = {
-        "resident_gather": (
-            "exact", lambda f: f(psrc, rc.pose_gid_m),
-            segmm.resident_gather, segmm.resident_gather_plain),
-        "windowed_gather": (
-            "exact", lambda f: f(wsrc, wids, plan.rg_m, None),
-            segmm.windowed_gather, segmm.windowed_gather_plain),
-        "tiled_gather": (
-            "exact", lambda f: f(src12, rc.hpl_col, plan.ivs, None),
-            segmm.tiled_gather, segmm.tiled_gather_plain),
-        "accum_segsum_windowed": (
-            (v42, rc.pose_acc_m, engine.num_p),
+        "resident_gather": gather_case(
+            lambda f: f(psrc, rc.pose_gid_m),
+            segmm.resident_gather, segmm.resident_gather_plain, psrc, rc.pose_gid_m, torch),
+        "windowed_gather": gather_case(
+            lambda f: f(wsrc, wids, plan.rg_m, None),
+            segmm.windowed_gather, segmm.windowed_gather_plain, wsrc, wids, torch),
+        "tiled_gather": gather_case(
+            lambda f: f(src12, rc.hpl_col, plan.ivs, None),
+            segmm.tiled_gather, segmm.tiled_gather_plain, src12, rc.hpl_col, torch),
+        "accum_segsum_windowed": segsum_case(
             lambda f: f(v42, rc.pose_acc_m, engine.num_p, paw, None, csr=rc.csr_pose_m),
-            segmm.accum_segsum_windowed, segmm.accum_segsum_windowed_plain),
-        "tiled_segsum": (
-            (v18, rc.e2h_m, plan.hpl_pad),
+            segmm.accum_segsum_windowed, segmm.accum_segsum_windowed_plain,
+            v42, rc.pose_acc_m, engine.num_p, torch),
+        "tiled_segsum": segsum_case(
             lambda f: f(v18, rc.e2h_m, plan.hpl_pad, plan.hpl_m, None, csr=rc.csr_e2h_m),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain),
-        "accum_segsum": (
-            (v42, rc.pose_acc_m, engine.num_p),
+            segmm.tiled_segsum, segmm.tiled_segsum_plain, v18, rc.e2h_m, plan.hpl_pad, torch),
+        "accum_segsum": segsum_case(
             lambda f: f(v42, rc.pose_acc_m, engine.num_p, csr=rc.csr_pose_m),
-            segmm.accum_segsum, segmm.accum_segsum_plain),
+            segmm.accum_segsum, segmm.accum_segsum_plain, v42, rc.pose_acc_m, engine.num_p,
+            torch),
     }
     return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
 
@@ -215,11 +321,13 @@ def segsum_bound(segmm, vals, ids, num_out):
 
 def compare_cases(cases, torch, bound_of):
     """Each case's kernel against its plain version: equal bit for bit
-    ("exact"), or within ``bound_of(*kind)`` elementwise.  A case's label is
-    the wrapper's name, with ``:site`` where one wrapper has two call sites.
-    Returns {label: (max_abs_err, ms, plain_ms)}."""
+    ("exact"), or within ``bound_of(*kind)`` elementwise.  A case is (kind,
+    call, kernel, plain, (bytes, flops), library call or None); its label
+    is the wrapper's name, with ``:site`` where one wrapper has two call
+    sites.  Returns {label: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
     out = {}
-    for name, (kind, call, kern, plain) in cases.items():
+    for name, (kind, call, kern, plain, work, library) in cases.items():
         got = call(kern)
         torch.cuda.synchronize()
         ref = call(plain)
@@ -233,11 +341,17 @@ def compare_cases(cases, torch, bound_of):
         elif not bool((diff <= bound_of(*kind)).all()):
             fail(f"{name}: kernel and plain sums differ beyond the stated bound "
                  f"(max abs diff {float(diff.max())})")
-        ms = cuda_ms(lambda: call(kern), torch)
-        plain_ms = cuda_ms(lambda: call(plain), torch)
-        out[name] = (float(diff.max()) if diff.numel() else 0.0, ms, plain_ms)
-        log(f"kernel {name}: shape {tuple(got.shape)} max_abs_err {out[name][0]:.3e} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        err = float(diff.max()) if diff.numel() else 0.0
+        del got, ref, diff
+        bound_ms, bound_by = bound(*work)
+        e = dict(max_abs_err=err, ms=cuda_ms(lambda: call(kern), torch),
+                 plain_ms=cuda_ms(lambda: call(plain), torch), bound_ms=bound_ms,
+                 bound_by=bound_by,
+                 library_ms=None if library is None else cuda_ms(library, torch))
+        out[name] = e
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
+        log(f"kernel {name}: max_abs_err {err:.3e} kernel {e['ms']:.4f} ms plain "
+            f"{e['plain_ms']:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) library {lib}")
     return out
 
 
@@ -254,26 +368,41 @@ def first_attempt(engine):
     return HppT, HplT, lam, W.contiguous(), bscT
 
 
+def schur_case(W, G, plan, sc, csr, segmm, torch):
+    """schur_fused's case: the W and G columns its triplets read, its index
+    streams and its output; 3 multiply-adds for each of the 36 outputs of a
+    triplet.  No single PyTorch call computes it."""
+    sb, li, lj, _lk = sc[1:]
+    base = (sb.long() * plan.slot_block).repeat_interleave(plan.chunk)
+    valid = (li >= 0) & (lj >= 0)
+    cols = sum(int(torch.unique((base + x.long())[valid]).numel()) for x in (li, lj))
+    nbytes = 4 * (18 * cols + 3 * li.numel() + sb.numel() + 36 * plan.num_chunks * plan.kwin)
+    return (("schur",), lambda f: f(W, G, *sc, csr=csr), segmm.schur_fused,
+            segmm.schur_fused_plain, (nbytes, 216 * int(valid.sum())), None)
+
+
 def check_schur_kernels(engine, torch, segmm, HplT, W):
-    """Kernels 1-6 at the call sites of phase 2, ``tiled_segsum`` at the
-    combine of ``rows.schur_compact``, and ``schur_fused``."""
+    """Kernels 1-6 at the call sites of phase 2, ``schur_fused``, and
+    ``tiled_segsum`` at the combine of the engine's formation: v2's one
+    (``rows.schur_compact``) or v1's two (``rows.dense_block_table``)."""
     out = check_kernels(engine, torch, segmm)
     plan, rc = engine.plan, engine.rc
     sc = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
-    M = plan.pad_blocks // 64
-    # the combine's input as rows.schur_compact makes it
+    PB = plan.pad_blocks
+    # the combine's input as the formation makes it
     win = segmm.schur_fused(W, HplT, *sc, csr=rc.csr_sc)
     win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
-    cases = {
-        "schur_fused": (
-            ("schur",), lambda f: f(W, HplT, *sc, csr=rc.csr_sc),
-            segmm.schur_fused, segmm.schur_fused_plain),
-        "tiled_segsum:combine": (
-            (win, rc.gkey_up2, M * plan.wg),
-            lambda f: f(win, rc.gkey_up2, M * plan.wg, plan.up2, plan.up2.base_block,
-                        csr=rc.csr_up2),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain),
-    }
+    cases = {"schur_fused": schur_case(W, HplT, plan.schur, sc, rc.csr_sc, segmm, torch)}
+    if plan.v2:
+        sites = {"combine": (rc.gkey_up2, PB // 64 * plan.wg, plan.up2, rc.csr_up2)}
+    else:
+        sites = {"combine_up": (rc.gkey_up, PB * PB, plan.up, rc.csr_up),
+                 "combine_lo": (rc.gkey_lo, PB * PB, plan.lo, rc.csr_lo)}
+    for site, (keys, num_out, tplan, csr) in sites.items():
+        cases[f"tiled_segsum:{site}"] = segsum_case(
+            lambda f, keys=keys, num_out=num_out, tplan=tplan, csr=csr: f(
+                win, keys, num_out, tplan, tplan.base_block, csr=csr),
+            segmm.tiled_segsum, segmm.tiled_segsum_plain, win, keys, num_out, torch)
 
     def bound_of(*kind):
         if kind == ("schur",):
@@ -284,24 +413,30 @@ def check_schur_kernels(engine, torch, segmm, HplT, W):
     return out
 
 
-def check_band_kernels(engine, torch, segmm):
+def check_band_kernels(engine, torch, segmm, cr_timings=True):
     """Phase 6: every kernel of the band path against its plain version on
     the band run's plan and first-attempt tensors: kernels 1-7 (as
-    :func:`check_schur_kernels`) and ``compact_to_band``; then the CR factor
-    + solve timed with each diagonal-block inverse.  Returns the kernel
-    entries."""
+    :func:`check_schur_kernels`) and ``compact_to_band``; then (with
+    ``cr_timings``) the CR factor + solve timed with each diagonal-block
+    inverse.  Returns the kernel entries."""
     from cuba_tpu_torch.solver import band_cr, rows
 
     plan, rc = engine.plan, engine.rc
     HppT, HplT, lam, W, bscT = first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W)
     PB = plan.pad_blocks
+    M = PB // 64
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
     band_args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
+    n_slots = int((rc.iru >= 0).sum())
+    nbytes = 4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + 2 * M + M * 384 * 768)
     out.update(compare_cases({"compact_to_band": (
         "exact", lambda f: f(*band_args, table=rc.band_table),
-        segmm.compact_to_band, segmm.compact_to_band_plain)}, torch, None))
+        segmm.compact_to_band, segmm.compact_to_band_plain, (nbytes, 36 * PB), None)},
+        torch, None))
+    if not cr_timings:
+        return out
 
     D, U = rows.band_from_compact(gT, HppT, lam, engine.num_p, plan, rc)
     rhs = bscT.new_zeros(6 * PB)
@@ -351,21 +486,31 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     y = trisolve.solve_lower(L, invd, b)
     z = trisolve.solve_upper(L, invd, y)
     x = (s * z).contiguous()
+    K = n // trisolve.BLOCK
+    n_slots = int((rc.iru >= 0).sum())
+    tri_bytes = 4 * (n * (n + 1) // 2 + K * trisolve.BLOCK ** 2 + 2 * n)
     cases = {
         "compact_to_dense": (
             "exact", lambda f: f(*dense_args, table=rc.dense_table),
-            segmm.compact_to_dense, segmm.compact_to_dense_plain),
+            segmm.compact_to_dense, segmm.compact_to_dense_plain,
+            (4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + rc.occ2.numel() + n * n),
+             36 * PB), None),
         "extract_diag_blocks": (
             "exact", lambda f: f(L), trisolve.extract_diag_blocks,
-            trisolve.extract_diag_blocks_plain),
+            trisolve.extract_diag_blocks_plain, (8 * K * trisolve.BLOCK ** 2, 0),
+            lambda: torch.diagonal(L.reshape(K, trisolve.BLOCK, K, trisolve.BLOCK), dim1=0,
+                                   dim2=2).permute(2, 0, 1).contiguous()),
         "solve_lower": (
             ("solve", y), lambda f: f(L, invd, b), trisolve.solve_lower,
-            trisolve.solve_lower_plain),
+            trisolve.solve_lower_plain, (tri_bytes, n * n),
+            lambda: torch.linalg.solve_triangular(L, b[:, None], upper=False)),
         "solve_upper": (
             ("solve", z), lambda f: f(L, invd, y), trisolve.solve_upper,
-            trisolve.solve_upper_plain),
+            trisolve.solve_upper_plain, (tri_bytes, n * n),
+            lambda: torch.linalg.solve_triangular(L.mT, y[:, None], upper=True)),
         "matvec": (
-            ("matvec",), lambda f: f(A, x), trisolve.matvec, trisolve.matvec_plain),
+            ("matvec",), lambda f: f(A, x), trisolve.matvec, trisolve.matvec_plain,
+            (4 * (n * n + 2 * n), 2 * n * n), lambda: torch.mv(A, x)),
     }
 
     def bound_of(*kind):
@@ -385,7 +530,7 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     fac_ms = cuda_ms(lambda: dense_cholesky.factor(A * s[:, None] * s[None, :]), torch)
     log(f"{label}: cholesky_solve (n {n}, {refine} refinement sweeps): kernels {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms; equilibrate + factor {fac_ms:.4f} ms ({reads} host read); "
-        f"kernel sweeps lower + upper {out['solve_lower'][1] + out['solve_upper'][1]:.4f} ms "
+        f"kernel sweeps lower + upper {out['solve_lower']['ms'] + out['solve_upper']['ms']:.4f} ms "
         f"against torch.linalg.solve_triangular lower + upper {tri_ms:.4f} ms")
     return out
 
@@ -439,9 +584,32 @@ def dense_attempt_phases(engine, torch):
         f"{engine.config.refinement_steps + 1} refinement sweeps counted once")
 
 
-def run_path(prob, config, torch, label):
+def with_chords(prob, C: int):
+    """The problem plus C loop chords (tests/test_band_lr.py's): for chord c,
+    poses (src + 3P/7) % P and (src + 5P/7) % P re-observe the first
+    landmark that pose src = (2c+1)P/(2C+1) observes in the mono edge list,
+    at a fixed pixel (the Huber kernel caps its residual)."""
+    import dataclasses
+
+    P = prob.qs.shape[0]
+    mp, ml = [], []
+    for c in range(C):
+        src = (2 * c + 1) * P // (2 * C + 1)
+        lm = int(prob.mono_l[np.flatnonzero(prob.mono_p == src)[0]])
+        for frac in (3, 5):
+            mp.append((src + frac * P // 7) % P)
+            ml.append(lm)
+    n = len(mp)
+    return dataclasses.replace(
+        prob, mono_p=np.concatenate([prob.mono_p, mp]).astype(prob.mono_p.dtype),
+        mono_l=np.concatenate([prob.mono_l, ml]).astype(prob.mono_l.dtype),
+        mono_z=np.concatenate([prob.mono_z, np.tile([600.0, 180.0], (n, 1))]),
+        mono_w=np.concatenate([prob.mono_w, np.ones(n)]))
+
+
+def run_path(prob, config, torch, label, fix=None):
     """initialize() + optimize(ITERS) through the public API, timed."""
-    ba = make_graph(prob, config)
+    ba = make_graph(prob, config, fix)
     t0 = time.perf_counter()
     ba.initialize()
     torch.cuda.synchronize()
@@ -452,7 +620,8 @@ def run_path(prob, config, torch, label):
     t_opt = time.perf_counter() - t0
     r = ba.last_result
     chis = np.array([s.chi2 for s in ba.batch_statistics()])
-    log(f"{label}: solver {ba._engine.solver}, band_m {ba._engine.band_m}")
+    log(f"{label}: solver {ba._engine.solver}, band_m {ba._engine.band_m}, "
+        f"route {ba._engine.path}")
     log(f"{label}: initialize {t_init:.4f} s, optimize({ITERS}) {t_opt:.4f} s, "
         f"niters {r.niters}, attempts {r.nattempts}, cg_steps {r.cg_steps}, "
         f"host_reads {r.host_reads}")
@@ -466,34 +635,211 @@ def run_path(prob, config, torch, label):
 
 
 def expected_kernels(engine):
-    """The kernel wrappers an engine's plan and solver route the LM loop
+    """The kernel wrappers an engine's route and solver run the LM loop
     through."""
     from cuba_tpu_torch.solver import trisolve
 
+    if not engine.use_rows:
+        return {"accum_segsum"}  # the AoS path's segment sums
     plan = engine.plan
     expected = {"tiled_gather", "tiled_segsum",
                 "windowed_gather" if plan.rg_m is not None else "resident_gather"}
     for paw in (plan.paw_m, plan.paw_s, plan.paw_b):
         expected.add("accum_segsum_windowed" if paw.ok else "accum_segsum")
-    if engine.solver == "band_cr":
-        expected |= {"schur_fused", "compact_to_band"}
-    elif engine.solver == "dense_cholesky":
-        expected |= {"schur_fused", "compact_to_dense"}
-        if trisolve.usable(6 * engine.pad_blocks, engine.dtype):
-            expected |= {"extract_diag_blocks", "solve_lower", "solve_upper"}
-            if engine.config.refinement_steps > 0:
-                expected.add("matvec")
+    if plan.schur is not None:
+        expected.add("schur_fused")
+        if not plan.v2:
+            expected.add("band_transpose")
+        elif engine.solver in ("band_cr", "band_lr"):
+            expected.add("compact_to_band")
+        else:
+            expected.add("compact_to_dense")
+    if engine.solver == "dense_cholesky" and trisolve.usable(6 * engine.pad_blocks,
+                                                             engine.dtype):
+        expected |= {"extract_diag_blocks", "solve_lower", "solve_upper"}
+        if engine.config.refinement_steps > 0:
+            expected.add("matvec")
     return expected
 
 
-def compare_trajectories(chis, chis_plain, label):
-    n = min(len(chis), len(chis_plain))
-    if n < 2 or len(chis) != len(chis_plain):
-        fail(f"{label}: trajectories differ in length: {len(chis)} vs {len(chis_plain)}")
-    rel = np.abs(chis[:n] - chis_plain[:n]) / np.abs(chis_plain[:n])
-    log(f"{label}: kernel vs plain chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL})")
+def counted_run(prob, config, torch, segmm, label, expect_route, fix=None):
+    """The path's counted run: launch counts set to 0 just before it and
+    read just after; every kernel of its route must have launched.
+    Returns (ba, chis, t_opt, launches)."""
+    segmm.reset_launches()
+    ba, chis, _t_init, t_opt = run_path(prob, config, torch, label, fix)
+    launches = dict(segmm.LAUNCHES)
+    log(f"launches ({label}): {json.dumps(launches)}")
+    if ba._engine.path != expect_route:
+        fail(f"{label}: route {ba._engine.path!r}, expected {expect_route!r}")
+    if not chis[-1] < chis[0]:
+        fail(f"{label}: chi2 did not fall: {chis.tolist()}")
+    missing = sorted(n for n in expected_kernels(ba._engine) if launches[n] == 0)
+    if missing:
+        fail(f"kernels of the {label} never launched: {missing}")
+    return ba, chis, t_opt, launches
+
+
+def profile_path(prob, config, torch, label, wall_s, fix=None):
+    """One ``optimize(ITERS)`` of a fresh graph under ``torch.profiler``
+    (device activity only): the device kernels and copies per damped
+    attempt, the union of their device intervals, that union's share of
+    the profiled wall and of ``wall_s`` (the same run's wall unprofiled),
+    and the five kernels with the most device time.  Logged, not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ba = make_graph(prob, config, fix)
+    ba.initialize()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ba.optimize(ITERS)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    except (RuntimeError, AssertionError) as e:
+        log(f"profile ({label}): the profiler failed ({e}): not measured")
+        return
+    attempts = ba.last_result.nattempts
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        log(f"profile ({label}): the profiler saw no device activity: not measured")
+        return
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"profile ({label}): {len(spans)} device kernels and copies over {attempts} attempts "
+        f"({len(spans) / attempts:.1f} per attempt); device busy {busy_us / 1e3:.4f} ms of "
+        f"{wall_ms:.4f} ms profiled wall ({busy_us / 10 / wall_ms:.1f}% busy) and of "
+        f"{1e3 * wall_s:.4f} ms unprofiled ({busy_us / 10 / (1e3 * wall_s):.1f}% busy); top: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.4f} ms ({100 * us / busy_us:.1f}%)"
+                    for name, us in top))
+
+
+def check_v1_kernels(engine, torch, segmm):
+    """Phase 11: kernels 1-7 at the v1 engine's call sites (the combine at
+    both of its sites) and ``band_transpose`` on the first attempt's block
+    table, bit for bit, beside the permuted copy.  Returns (entries, the
+    attempt's (HppT, HplT, lam, W))."""
+    from cuba_tpu_torch.solver import rows
+
+    plan, rc = engine.plan, engine.rc
+    HppT, HplT, lam, W, _bscT = first_attempt(engine)
+    out = check_schur_kernels(engine, torch, segmm, HplT, W)
+    PB = plan.pad_blocks
+    m4 = rows.dense_block_table(W, HplT, plan, rc)
+    m4.diagonal(dim1=1, dim2=2).add_(rows.damped_diagonal_T(HppT, lam, engine.num_p, PB))
+    n_occ = int((rc.occ > 0).sum())
+    log(f"band_transpose at PB {PB}: {n_occ} of {rc.occ.numel()} 64x128-block tiles occupied")
+    nbytes = 4 * (36 * PB * PB + rc.occ.numel() + n_occ * 36 * 64 * 128)
+    out.update(compare_cases({"band_transpose": (
+        "exact", lambda f: f(m4, rc.occ, PB), segmm.band_transpose, segmm.band_transpose_plain,
+        (nbytes, 0),
+        lambda: m4.view(6, 6, PB, PB).permute(2, 0, 3, 1).reshape(6 * PB, 6 * PB).contiguous(),
+    )}, torch, None))
+    return out, (HppT, HplT, lam, W)
+
+
+def compare_formations(engine, attempt, torch):
+    """The v1 engine's dense Schur matrix against the v2 formation's (gate
+    open) of the same structure, on one attempt's tensors."""
+    from cuba_tpu_torch.solver import rows
+
+    HppT, HplT, lam, W = attempt
+    plan2, rc2 = rows.plan_rows(engine.structure, engine.device, torch.float32,
+                                pad_blocks=engine.pad_blocks, dense=True)
+    if plan2 is None or not plan2.v2 or plan2.hpl_pad != engine.plan.hpl_pad:
+        fail("the gate-open plan of the v1 graph is not a v2 plan of the same widths")
+    A1 = rows.schur_dense(HppT, W, HplT, lam, engine.num_p, engine.plan, engine.rc)
+    A2 = rows.schur_dense(HppT, W, HplT, lam, engine.num_p, plan2, rc2)
+    diff, scale = float((A1 - A2).abs().max()), float(A2.abs().max())
+    log(f"v1 vs v2 dense Schur matrix (n {A1.shape[0]}): max abs diff {diff:.3e}, max |A| "
+        f"{scale:.3e}, bit-equal {bool(torch.equal(A1, A2))} (bound {FORMATION_RTOL} max |A|)")
+    if not diff <= FORMATION_RTOL * scale:
+        fail("the v1 and v2 dense Schur matrices disagree")
+
+
+def time_woodbury(engine, torch):
+    """Phase 12: the first attempt's band + Woodbury solve, timed beside the
+    plain CR solve of the same band."""
+    from cuba_tpu_torch.solver import band_cr, rows
+
+    plan, rc, P = engine.plan, engine.rc, engine.num_p
+    HppT, HplT, lam, W, bscT = first_attempt(engine)
+    D, U, Vob = rows.schur_band(HppT, W, HplT, lam, P, plan, rc, with_ob=True)
+    rhs = bscT.new_zeros(6 * plan.pad_blocks)
+    rhs[:6 * P] = bscT.T.reshape(-1)
+    refine = max(engine.config.refinement_steps, 1)
+    x, ok, _ = band_cr.cr_solve_woodbury(D, U, rhs, Vob, *engine.lr_dev, refine)
+    if not bool(ok):
+        fail("cr_solve_woodbury rejected the first attempt")
+    ms = cuda_ms(lambda: band_cr.cr_solve_woodbury(D, U, rhs, Vob, *engine.lr_dev, refine),
+                 torch)
+    cr_ms = cuda_ms(lambda: band_cr.cr_solve(D, U, rhs, refine), torch)
+    log(f"band_lr first attempt: {Vob.shape[0]} out-of-band blocks, |J| "
+        f"{engine.lr_dev[2].numel() // 6}; cr_solve_woodbury {ms:.4f} ms, cr_solve of the band "
+        f"alone {cr_ms:.4f} ms ({refine} refinement sweep)")
+
+
+def check_aos_kernels(engine, torch, segmm):
+    """Phase 13: the segment-sum kernel against its plain version at two of
+    the AoS path's call sites: the pose sums of the mono terms (Hpp with bp)
+    and the per-block sums of the triplet products in ``assemble_dense``."""
+    from cuba_tpu_torch.solver import assembly, schur
+
+    st, sc, P = engine.state, engine.sc, engine.num_p
+    pack_m, pack_s, _chi = engine._residuals_and_chi(st)
+    Hpp, bp, Hll, bl, Hpl = engine._build(pack_m, pack_s, st)
+    lam = engine.config.tau * assembly.max_diagonal(Hpp, Hll)
+    _inv, W, _bsc = schur.prepare_factors(bp, assembly.damp(Hll, lam), bl, Hpl, sc, P)
+    ec, (err, Xc) = engine.edges[0], pack_m
+    Hpp_e, bp_e, *_ = assembly.quadratic_form_terms(st.qs, engine.cams, err, Xc, ec, 2,
+                                                    engine.kernels[0])
+    v42 = torch.cat([Hpp_e.reshape(-1, 36), bp_e], 1).T.contiguous()
+    prod = schur.triplet_products(W, Hpl, sc)
+    n_hsc = sc.hsc_row.shape[0]
+    cases = {
+        "accum_segsum": segsum_case(
+            lambda f: f(v42, ec.pose_idx, P, csr=ec.csr_pose), segmm.accum_segsum,
+            segmm.accum_segsum_plain, v42, ec.pose_idx, P, torch),
+        "accum_segsum:triplets": segsum_case(
+            lambda f: f(prod, sc.mul_k, n_hsc, csr=sc.csr_mul), segmm.accum_segsum,
+            segmm.accum_segsum_plain, prod, sc.mul_k, n_hsc, torch),
+    }
+    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
+
+
+def compare_solvers(chis, chis_dense, label):
+    """band_lr against dense_cholesky on one graph: SOLVER_RTOL per
+    iteration, and the final chi² within CHI2_REL_BAND."""
+    n = min(len(chis), len(chis_dense))
+    if n < 2:
+        fail(f"{label}: trajectories too short: {len(chis)} and {len(chis_dense)}")
+    rel = np.abs(chis[:n] - chis_dense[:n]) / np.abs(chis_dense[:n])
+    final = abs(chis[-1] - chis_dense[-1]) / abs(chis_dense[-1])
+    log(f"{label}: band_lr vs dense_cholesky chi2: max rel diff {rel.max():.3e} "
+        f"(rtol {SOLVER_RTOL}), final rel diff {final:.3e} (band {CHI2_REL_BAND})")
+    if not (np.all(rel <= SOLVER_RTOL) and final <= CHI2_REL_BAND):
+        fail(f"{label}: band_lr and dense_cholesky trajectories disagree")
+
+
+def compare_trajectories(chis, chis_ref, label, what="kernel vs plain"):
+    n = min(len(chis), len(chis_ref))
+    if n < 2 or len(chis) != len(chis_ref):
+        fail(f"{label}: trajectories differ in length: {len(chis)} vs {len(chis_ref)}")
+    rel = np.abs(chis[:n] - chis_ref[:n]) / np.abs(chis_ref[:n])
+    log(f"{label}: {what} chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL})")
     if not np.all(rel <= TRAJ_RTOL):
-        fail(f"{label}: kernel and plain chi2 trajectories disagree")
+        fail(f"{label}: {what} chi2 trajectories disagree")
 
 
 def main() -> None:
@@ -559,6 +905,7 @@ def main() -> None:
     segmm.reset_launches()
     ba, chis, t_init, t_opt = run_path(prob, config, torch, "pcg path")
     launches_pcg = dict(segmm.LAUNCHES)
+    attempts = {"pcg": ba.last_result.nattempts}
     log(f"launches (pcg path): {json.dumps(launches_pcg)}")
     if not chis[-1] < chis[0]:
         fail(f"chi2 did not fall: {chis[0]} -> {chis[-1]}")
@@ -566,6 +913,7 @@ def main() -> None:
     if missing:
         fail(f"kernels of the pcg path never launched: {missing}")
     del ba
+    profile_path(prob, config, torch, "pcg path", t_opt)
 
     # phase 4: the same run with the plain versions on the card
     with segmm.use_plain():
@@ -576,8 +924,6 @@ def main() -> None:
     del _ba
 
     # phase 5: the band path (solver="auto") on the kitti00-scale loop graph
-    from bench import CHI2_FP64_FINAL, CHI2_REL_BAND
-
     kprob = synthetic.generate(**KITTI)
     log(f"kitti00 loop: P {KITTI['num_poses']}, L {KITTI['num_landmarks']}, "
         f"E {kprob.mono_p.size + kprob.stereo_p.size} ({kprob.stereo_p.size} stereo), "
@@ -596,6 +942,7 @@ def main() -> None:
     segmm.reset_launches()
     kba, kchis, kt_init, kt_opt = run_path(kprob, kconfig, torch, "band path")
     launches_band = dict(segmm.LAUNCHES)
+    attempts["band"] = kba.last_result.nattempts
     log(f"launches (band path): {json.dumps(launches_band)}")
     if not (kchis[-1] < kchis[0] and np.all(np.diff(kchis) <= 0)):
         fail(f"kitti00 chi2 did not fall: {kchis.tolist()}")
@@ -609,6 +956,7 @@ def main() -> None:
     if missing:
         fail(f"kernels of the band path never launched: {missing}")
     del kba
+    profile_path(kprob, kconfig, torch, "band path", kt_opt)
 
     # phase 7: the band run with the plain versions on the card
     with segmm.use_plain():
@@ -639,6 +987,7 @@ def main() -> None:
     segmm.reset_launches()
     dba, dchis, dt_init, dt_opt = run_path(dprob, kconfig, torch, "dense path")
     launches_dense = dict(segmm.LAUNCHES)
+    attempts["dense"] = dba.last_result.nattempts
     log(f"launches (dense path): {json.dumps(launches_dense)}")
     if not (dchis[-1] < dchis[0] and np.all(np.diff(dchis) <= 0)):
         fail(f"kitti07 chi2 did not fall: {dchis.tolist()}")
@@ -652,6 +1001,7 @@ def main() -> None:
     if missing:
         fail(f"kernels of the dense path never launched: {missing}")
     del dba
+    profile_path(dprob, kconfig, torch, "dense path", dt_opt)
 
     # phase 9, kitti00: the dense solver on the loop graph (n = 8448)
     xconfig = BAConfig(dtype=torch.float32, device="cuda", solver="dense_cholesky")
@@ -667,6 +1017,7 @@ def main() -> None:
     segmm.reset_launches()
     _xba, xchis, _xt_init, xt_opt = run_path(kprob, xconfig, torch, "kitti00 dense path")
     launches_dense00 = dict(segmm.LAUNCHES)
+    attempts["dense-kitti00"] = _xba.last_result.nattempts
     if not (xchis[-1] < xchis[0] and np.all(np.diff(xchis) <= 0)):
         fail(f"kitti00 dense chi2 did not fall: {xchis.tolist()}")
     ref00 = CHI2_FP64_FINAL[("kitti00_scale_loop", ITERS)]
@@ -685,17 +1036,147 @@ def main() -> None:
         f"plain optimize {dt_opt_plain} s")
     del _dba
 
+    # phase 11: the v1 formation on the kitti00 odometry graph, v2 gate closed
+    from cuba_tpu_torch.solver import rows
+
+    oprob = synthetic.generate(**KITTI00)
+    log(f"kitti00 odometry: P {KITTI00['num_poses']}, L {KITTI00['num_landmarks']}, "
+        f"E {oprob.mono_p.size + oprob.stereo_p.size} ({oprob.stereo_p.size} stereo), "
+        "bench.py parameters with loop_closure=False, seed 0")
+    wg_max = rows._WG_MAX
+    rows._WG_MAX = 0
+    log(f"v2 gate closed: rows._WG_MAX = {rows._WG_MAX} (was {wg_max})")
+    try:
+        vba, _vchis, _vt_init0, vt_opt0 = run_path(oprob, kconfig, torch, "v1 warm-up")
+        vengine = vba._engine
+        if (vengine.path, vengine.solver, vengine.band_m) != ("v1", "band_cr", KITTI_BAND_M):
+            fail(f"the gate-closed kitti00 odometry graph took {vengine.path!r} / "
+                 f"{vengine.solver!r} / m {vengine.band_m}, expected v1 / band_cr / 22")
+        kern_v1, attempt = check_v1_kernels(vengine, torch, segmm)
+        del vba
+        vba, vchis, vt_opt, launches_v1 = counted_run(oprob, kconfig, torch, segmm, "v1 path",
+                                                      "v1")
+        attempts["v1"] = vba.last_result.nattempts
+        del vba
+        ref = CHI2_FP64_FINAL[("kitti00_scale", ITERS)]
+        rel = abs(vchis[-1] - ref) / ref
+        log(f"kitti00 odometry (v1) final chi2 {vchis[-1]:.2f} vs fp64 record {ref:.2f}: rel "
+            f"{rel:.3e} (band {CHI2_REL_BAND})")
+        if not rel < CHI2_REL_BAND:
+            fail("kitti00 odometry (v1) final chi2 is outside the recorded fp64 band")
+        with segmm.use_plain():
+            _p, vchis_plain, _ti, vt_opt_plain = run_path(oprob, kconfig, torch, "v1 plain path")
+        del _p
+        compare_trajectories(vchis, vchis_plain, "v1")
+        profile_path(oprob, kconfig, torch, "v1 path", vt_opt)
+        # the dense solver behind the v1 formation: kitti07 plans v1 too
+        # with the gate closed (dense_cholesky, kernels 10-14)
+        wba, wchis, wt_opt, _launches = counted_run(dprob, kconfig, torch, segmm,
+                                                    "v1 dense path", "v1")
+        if wba._engine.solver != "dense_cholesky":
+            fail(f"the gate-closed kitti07 graph resolved to {wba._engine.solver!r}")
+        del wba
+        ref = CHI2_FP64_FINAL[("kitti07_scale", ITERS)]
+        rel = abs(wchis[-1] - ref) / ref
+        log(f"kitti07 (v1, dense_cholesky) final chi2 {wchis[-1]:.2f} vs fp64 record "
+            f"{ref:.2f}: rel {rel:.3e} (band {CHI2_REL_BAND}); optimize({ITERS}) {wt_opt:.4f} s")
+        if not rel < CHI2_REL_BAND:
+            fail("kitti07 (v1) final chi2 is outside the recorded fp64 band")
+        compare_trajectories(wchis, dchis, "kitti07", "v1 vs v2 dense_cholesky")
+    finally:
+        rows._WG_MAX = wg_max
+    log(f"v2 gate restored: rows._WG_MAX = {rows._WG_MAX}")
+    compare_formations(vengine, attempt, torch)
+    del vengine, attempt
+    gba, gchis, _gt_init, gt_opt = run_path(oprob, kconfig, torch, "v2 gate-open path")
+    if gba._engine.path != "v2":
+        fail(f"the gate-open run took {gba._engine.path!r}")
+    del gba
+    compare_trajectories(vchis, gchis, "kitti00 odometry", "v1 vs gate-open v2")
+    log(f"v1 walls ({card}): optimize({ITERS}) {vt_opt} s (cold {vt_opt0} s, plain "
+        f"{vt_opt_plain} s); the gate-open v2 run {gt_opt} s")
+
+    # phase 12: band_lr on the MXU path, two loop chords
+    dnconfig = BAConfig(dtype=torch.float32, device="cuda", solver="dense_cholesky")
+    cprob = with_chords(oprob, 2)
+    cba, _cchis, _ct_init0, ct_opt0 = run_path(cprob, kconfig, torch, "band_lr warm-up")
+    cengine = cba._engine
+    lr = cengine.lr
+    facts = (cengine.solver, cengine.path, lr and lr["m"], cengine.plan.lr_nob,
+             cengine.plan.lr_k)
+    log(f"two chords: solver {facts[0]}, route {facts[1]}, m_lr {facts[2]}, out-of-band "
+        f"blocks {facts[3]}, |J| {facts[4]}")
+    if facts != ("band_lr", "v2", KITTI_BAND_M, 26, 16):
+        fail(f"the two-chord graph planned {facts}, expected band_lr / v2 / 22 / 26 / 16")
+    kern_lr = check_band_kernels(cengine, torch, segmm, cr_timings=False)
+    time_woodbury(cengine, torch)
+    del cba, cengine
+    cba, cchis, ct_opt, launches_lr = counted_run(cprob, kconfig, torch, segmm,
+                                                  "band_lr path", "v2")
+    attempts["band_lr"] = cba.last_result.nattempts
+    del cba
+    profile_path(cprob, kconfig, torch, "band_lr path", ct_opt)
+    with segmm.use_plain():
+        _p, cchis_plain, _ti, ct_opt_plain = run_path(cprob, kconfig, torch,
+                                                      "band_lr plain path")
+    del _p
+    compare_trajectories(cchis, cchis_plain, "band_lr")
+    _p, cchis_dense, _ti, ct_opt_dense = run_path(cprob, dnconfig, torch,
+                                                  "two chords, dense_cholesky")
+    del _p
+    compare_solvers(cchis, cchis_dense, "two chords")
+    log(f"band_lr walls ({card}): optimize({ITERS}) {ct_opt} s (cold {ct_opt0} s, plain "
+        f"{ct_opt_plain} s); dense_cholesky on the same graph {ct_opt_dense} s")
+
+    # phase 13: the AoS path, three loop chords (the planner's ok fails)
+    aprob = with_chords(oprob, 3)
+    aba, _achis, _at_init0, at_opt0 = run_path(aprob, kconfig, torch, "aos warm-up")
+    aengine = aba._engine
+    if (aengine.path, aengine.solver) != ("aos", "band_lr"):
+        fail(f"the three-chord graph took {aengine.path!r} / {aengine.solver!r}, "
+             "expected aos / band_lr")
+    kern_aos = check_aos_kernels(aengine, torch, segmm)
+    del aba, aengine
+    aba, achis, at_opt, launches_aos = counted_run(aprob, kconfig, torch, segmm,
+                                                   "aos path", "aos")
+    attempts["aos"] = aba.last_result.nattempts
+    del aba
+    profile_path(aprob, kconfig, torch, "aos path", at_opt)
+    with segmm.use_plain():
+        _p, achis_plain, _ti, at_opt_plain = run_path(aprob, kconfig, torch, "aos plain path")
+    del _p
+    compare_trajectories(achis, achis_plain, "aos")
+    _p, achis_dense, _ti, at_opt_dense = run_path(aprob, dnconfig, torch,
+                                                  "three chords, dense_cholesky")
+    if _p._engine.path != "aos":
+        fail("the three-chord dense_cholesky run did not take the AoS path")
+    del _p
+    compare_solvers(achis, achis_dense, "three chords")
+    log(f"aos walls ({card}): optimize({ITERS}) {at_opt} s (cold {at_opt0} s, plain "
+        f"{at_opt_plain} s); dense_cholesky on the same graph {at_opt_dense} s")
+    for fix, label in (("landmarks", "pose-only"), ("poses", "landmark-only")):
+        fba, fchis, _ti, ft_opt = run_path(dprob, kconfig, torch, f"kitti07 {label}", fix=fix)
+        if fba._engine.path != "aos" or not fchis[-1] < fchis[0]:
+            fail(f"kitti07 {label}: route {fba._engine.path!r}, chi2 {fchis.tolist()}")
+        del fba
+
     entries = []
     for path, kern, launches in (("pcg", kern_pcg, launches_pcg),
                                  ("band", kern_band, launches_band),
                                  ("dense", kern_dense, launches_dense),
-                                 ("dense-kitti00", kern_dense00, launches_dense00)):
-        for label, (err, ms, plain_ms) in kern.items():
+                                 ("dense-kitti00", kern_dense00, launches_dense00),
+                                 ("v1", kern_v1, launches_v1),
+                                 ("band_lr", kern_lr, launches_lr),
+                                 ("aos", kern_aos, launches_aos)):
+        for label, e in kern.items():
             name, _, site = label.partition(":")
             entries.append({"name": name, "path": path, **({"site": site} if site else {}),
                             "route": "cuda", "source": kernel_source(name),
                             "replaces": REPLACES[name], "launches": launches[name],
-                            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                            "attempts": attempts[path], **e})
+    names = {e["name"] for e in entries}
+    if names != set(REPLACES):
+        fail(f"the kernels line misses {sorted(set(REPLACES) - names)}")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,14 @@
 """Optimizer configuration (port of ``cuba_tpu/config.py``).
 
 The LM hyper-parameters keep ``cuba_tpu``'s defaults.  Dtypes are torch
-dtypes, and ``device`` names where every tensor of the engine lives.  The
-matrix-free PCG, the band (cyclic-reduction) and the dense (Cholesky)
-reduced solvers are ported; the engine rejects the band + Woodbury solver
-(ROADMAP queue 1, "Loop-closure solver").
+dtypes, and ``device`` names where every tensor of the engine lives: the
+card by default; the host only when asked for (``device="cpu"``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -23,9 +21,10 @@ class BAConfig:
       dtype: compute dtype of the numeric path (float32 or float64; the CUDA
         kernels are float32 only).
       chi_dtype: accumulation dtype of the chi² reductions.
-      device: where the engine's tensors live ("cuda", "cuda:0", ...);
-        ``None`` keeps them on the CPU, where every kernel runs its plain
-        torch version.
+      device: where the engine's tensors live: "cuda" (the default),
+        "cuda:1", ..., or "cpu", where every kernel runs its plain torch
+        version.  Without a CUDA device the default fails at
+        ``initialize()``; it never carries on on the host.
       max_inner_iterations: LM trust-region retries per outer iteration.
       tau: initial damping factor, lambda0 = tau * max(diag H).
       scale_eps: epsilon added to the gain-ratio denominator.
@@ -38,9 +37,9 @@ class BAConfig:
         Schur complement, with iterative refinement) or "auto", which picks
         as cuba_tpu does: band_cr for a pure band of at least 8 CR blocks,
         band_lr for a band with loop columns, dense_cholesky up to 4096
-        padded pose blocks, else pcg.  "band_lr" is not ported: choosing
-        it, or "auto" resolving to it, raises NotImplementedError at
-        ``initialize()``.
+        padded pose blocks, else pcg.  "band_lr" is cyclic reduction on
+        the in-band part with a Woodbury correction over at most 64
+        loop-closure pose columns.
       numerical_escalation: lambda factor when the solve fails (PCG did not
         converge, or the factor or the step was non-finite).
       pcg_max_iterations / pcg_tol: PCG stopping controls.
@@ -52,7 +51,7 @@ class BAConfig:
 
     dtype: torch.dtype = torch.float32
     chi_dtype: torch.dtype = torch.float64
-    device: Optional[Union[str, torch.device]] = None
+    device: Union[str, torch.device] = "cuda"
     max_inner_iterations: int = 10
     tau: float = 1e-5
     scale_eps: float = 1e-3
@@ -66,4 +65,4 @@ class BAConfig:
     pose_block_pad: int = 128
 
     def resolve_device(self) -> torch.device:
-        return torch.device(self.device) if self.device is not None else torch.device("cpu")
+        return torch.device(self.device)

@@ -1,8 +1,8 @@
 // Index-driven gathers, segment sums and the v2 Schur formation for Hopper
 // (sm_90a).
 //
-// These five kernels replace the nine one-hot-matmul Pallas kernels of
-// cuba_tpu/ops/segmm.py that the PCG, band and dense paths run:
+// These six kernels replace the ten one-hot-matmul Pallas kernels of
+// cuba_tpu/ops/segmm.py:
 //
 //   gather_cols  <- resident_gather (segmm.py:1257), windowed_gather
 //                   (segmm.py:1215), tiled_gather (segmm.py:487)
@@ -18,6 +18,9 @@
 //                   Schur complement, diag - (upper + mirrored blocks)
 //   compact_to_dense <- compact_to_dense (segmm.py:964)
 //                   element (6p+i, 6q+j) of [6PB, 6PB] = the same, dense
+//   band_transpose <- band_transpose (segmm.py:903)
+//                   out[6p+i, 6q+j] = m4[i*6+j, p, q], 0 on the 64x128-block
+//                   tiles that occ marks empty
 //
 // On the TPU the one-hot matrix exists because XLA's gather/scatter ran at
 // 5-10 GB/s while the MXU was idle; the windows and tiles of the Pallas
@@ -61,6 +64,20 @@
 //    64x128-block tiles to save MXU passes; here an empty tile costs its
 //    stores, which any dense output pays.  Bound by the writes: 36*PB^2*4
 //    bytes, 9.4 MB at kitti07 scale (PB = 256), 285 MB at PB = 1408.
+//  * band_transpose: the v1 formation's lane interleave, a pure copy (no
+//    rounding: bit-equal to its plain version).  The TPU kernel spelled it
+//    as one-hot MXU products with a bf16x3 split because XLA's transpose ran
+//    at ~10 GB/s there; here it is a tile transpose through shared memory.
+//    A block takes one pose row p and 32 pose columns q (one occupancy tile
+//    holds them all): it loads the 36 planes' 32-float runs m4[ij, p, q0:q0+32]
+//    with coalesced 128-byte reads, and each of its 192 threads writes one
+//    output column of the six rows 6p..6p+5, so the stores coalesce too.
+//    The shared rows are padded to 38 floats, which spreads the six-strided
+//    reads over the banks.  A block on an empty tile writes its zeros and
+//    reads nothing.  Bound by the bytes: 36*PB^2*4 written plus the occupied
+//    tiles' share of m4 read, 285 + up to 285 MB at PB = 1408.  (The first
+//    version, one thread per output element reading m4 directly, ran at a
+//    third of this bound on the card; PERF.md keeps its time.)
 //
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns cudaGetLastError() so the Python wrapper can raise on
@@ -203,6 +220,36 @@ __global__ void compact_to_dense_kernel(const float* __restrict__ gT, int64_t MW
   out[idx] = v;
 }
 
+constexpr int kTpQ = 32;             // pose columns per band_transpose block
+constexpr int kTpCols = 6 * kTpQ;    // its 192 output columns, one per thread
+constexpr int kTpStride = kTpQ + 6;  // shared row stride: 38 floats
+
+__global__ void band_transpose_kernel(const float* __restrict__ m4,
+                                      const int32_t* __restrict__ occ, int64_t PB,
+                                      float* __restrict__ out) {
+  __shared__ float tile[36 * kTpStride];
+  const int64_t p = blockIdx.x;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.y) * kTpQ;
+  const int64_t n = 6 * PB;
+  const int t = threadIdx.x;
+  float* dst = out + 6 * p * n + 6 * q0 + t;
+  // the block's 32 columns share one 64x128-block occupancy tile: the branch
+  // is uniform across the block
+  if (occ[(p / kDenseTileP) * (PB / kDenseTileQ) + q0 / kDenseTileQ] <= 0) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) dst[i * n] = 0.0f;
+    return;
+  }
+  for (int k = t; k < 36 * kTpQ; k += kTpCols) {
+    const int ij = k / kTpQ, qq = k - (k / kTpQ) * kTpQ;
+    tile[ij * kTpStride + qq] = m4[(static_cast<int64_t>(ij) * PB + p) * PB + q0 + qq];
+  }
+  __syncthreads();
+  const int qq = t / 6, j = t - 6 * (t / 6);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) dst[i * n] = tile[(i * 6 + j) * kTpStride + qq];
+}
+
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -271,6 +318,17 @@ int cuba_compact_to_dense(const float* gT, int64_t MWg, const int32_t* table,
     compact_to_dense_kernel<<<blocks_for(n), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         gT, MWg, table, dbT, PB, occ, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// m4 [36, PB, PB]; occ [PB/64 * PB/128]; out [6PB, 6PB]; PB a multiple of 128.
+int cuba_band_transpose(const float* m4, const int32_t* occ, int64_t PB, float* out,
+                        void* stream) {
+  if (PB > 0) {
+    const dim3 grid(static_cast<unsigned int>(PB), static_cast<unsigned int>(PB / kTpQ));
+    band_transpose_kernel<<<grid, kTpCols, 0, static_cast<cudaStream_t>(stream)>>>(
+        m4, occ, PB, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,7 @@ LAUNCHES = {
     "schur_fused": 0,
     "compact_to_band": 0,
     "compact_to_dense": 0,
+    "band_transpose": 0,
     "extract_diag_blocks": 0,
     "solve_lower": 0,
     "solve_upper": 0,

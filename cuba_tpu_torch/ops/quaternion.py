@@ -16,6 +16,20 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(qv, t)
 
 
+def to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (...,4) -> rotation matrix (...,3,3)."""
+    x, y, z, w = q.unbind(-1)
+    tx, ty, tz = 2 * x, 2 * y, 2 * z
+    twx, twy, twz = tx * w, ty * w, tz * w
+    txx, txy, txz = tx * x, ty * x, tz * x
+    tyy, tyz, tzz = ty * y, tz * y, tz * z
+    return torch.stack([
+        torch.stack([1 - (tyy + tzz), txy - twz, txz + twy], dim=-1),
+        torch.stack([txy + twz, 1 - (txx + tzz), tyz - twx], dim=-1),
+        torch.stack([txz - twy, tyz + twx, 1 - (txx + tyy)], dim=-1),
+    ], dim=-2)
+
+
 def multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product a*b, both (...,4) in (x,y,z,w) layout."""
     ax, ay, az, aw = a.unbind(-1)

@@ -1,8 +1,8 @@
 """Gathers, segment sums and the Schur formation over transposed
 ``[D, N]`` fp32 tables.
 
-Port of the nine one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``
-that the PCG, band and dense paths run.  Each wrapper keeps its TPU kernel's
+Port of the ten one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``.
+Each wrapper keeps its TPU kernel's
 argument list, output shape and layout (fp32) and invalid-id rules:
 
 * gathers ``resident_gather`` / ``windowed_gather`` / ``tiled_gather``:
@@ -14,16 +14,19 @@ argument list, output shape and layout (fp32) and invalid-id rules:
 * ``compact_to_band``: the band-major compact Schur table placed into
   block-tridiagonal storage [M*384, 768];
 * ``compact_to_dense``: the same table placed into the dense damped Schur
-  matrix [6PB, 6PB].
+  matrix [6PB, 6PB];
+* ``band_transpose``: the v1 formation's dense block table [36, PB, PB]
+  interleaved into the dense matrix [6PB, 6PB].
 
 The TPU kernels' windows and tiles only kept a one-hot factor inside VMEM;
 here the plan arguments are accepted and ignored where the kernel does not
-need them.  Underneath, five hand-written CUDA kernels (``csrc/segmm.cu``)
-serve the nine wrappers: a column gather, a deterministic CSR segment sum,
-a per-lane CSR pair-product sum and two table-driven placements (band and
-dense).  The CSRs and the placement tables of a call site are built once per
-structure by the planner (``solver/rows.py``); the kernels need them, and
-only the segment sums build a missing CSR on the spot (which only tests do).
+need them.  Underneath, six hand-written CUDA kernels (``csrc/segmm.cu``)
+serve the ten wrappers: a column gather, a deterministic CSR segment sum,
+a per-lane CSR pair-product sum, two table-driven placements (band and
+dense) and a lane-interleave copy.  The CSRs and the placement tables of
+a call site are built once per structure by the planner
+(``solver/rows.py``); the kernels need them, and only the segment sums
+build a missing CSR on the spot (which only tests do).
 
 Dispatch (``ops/cudalib.py``): a CPU tensor takes the ``*_plain`` torch
 version, a CUDA tensor the kernel (or an exception: there is no fallback).
@@ -404,6 +407,7 @@ _SIGNATURES = {
     "cuba_schur_fused": [_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp],
     "cuba_compact_to_band": [_vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _vp],
     "cuba_compact_to_dense": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp],
+    "cuba_band_transpose": [_vp, _vp, _i64, _vp, _vp],
 }
 
 
@@ -717,4 +721,35 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
                  gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
                  occ2.data_ptr(), out.data_ptr())
     LAUNCHES["compact_to_dense"] += 1
+    return out
+
+
+def band_transpose_plain(m4, occ, PB: int):
+    """Plain torch band_transpose: the permuted copy of m4, zeroed on the
+    64x128-block tiles that occ marks empty."""
+    out = m4.view(6, 6, PB, PB).permute(2, 0, 3, 1).reshape(
+        PB // DENSE_TILE_P, 6 * DENSE_TILE_P, PB // DENSE_TILE_Q, 6 * DENSE_TILE_Q)
+    keep = occ.view(PB // DENSE_TILE_P, 1, PB // DENSE_TILE_Q, 1) > 0
+    return torch.where(keep, out, torch.zeros((), dtype=m4.dtype,
+                                              device=m4.device)).reshape(6 * PB, 6 * PB)
+
+
+def band_transpose(m4, occ, PB: int):
+    """The lane interleave of the v1 dense formation (cuba_tpu
+    segmm.band_transpose): out[6p+i, 6q+j] = m4[i*6+j, p, q] for m4 [36, PB,
+    PB], zero on the 64x128-block tiles that occ [PB/64 * PB/128] marks
+    empty.  A copy: the kernel is bit-equal to the plain version."""
+    if PB % DENSE_TILE_Q != 0:
+        raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
+    n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
+    if tuple(m4.shape) != (36, PB, PB) or tuple(occ.shape) != (n_occ,):
+        raise ValueError(f"m4 {tuple(m4.shape)}, occ {tuple(occ.shape)} does not fit PB={PB}")
+    if not cudalib.use_kernel(m4, occ):
+        return band_transpose_plain(m4, occ, PB)
+    cudalib.check(m4, "m4", torch.float32, 3)
+    cudalib.check(occ, "occ", torch.int32, 1)
+    out = torch.empty((6 * PB, 6 * PB), dtype=torch.float32, device=m4.device)
+    cudalib.call("band_transpose", m4, _kernel_lib().cuba_band_transpose,
+                 m4.data_ptr(), occ.data_ptr(), PB, out.data_ptr())
+    LAUNCHES["band_transpose"] += 1
     return out

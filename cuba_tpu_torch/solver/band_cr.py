@@ -17,6 +17,10 @@ undamped band operator, and ok=False (a rejected LM step) on a non-finite
 result.  The retry decision is one host read per factorisation (``cuba_tpu``
 takes it inside the device program with ``lax.cond``).
 ``cuba_tpu``'s pair-merge knob is not ported: it was measured as a loss.
+
+Loop closures that no pose fold makes local leave a few out-of-band blocks;
+:func:`cr_solve_woodbury` factors the band by cyclic reduction and corrects
+it over the loop columns by the Woodbury identity.
 """
 
 from __future__ import annotations
@@ -52,6 +56,27 @@ def certify_lr(hsc_row, hsc_col, pad_blocks: int):
     return m, np.nonzero(out)[0]
 
 
+def loop_plan(hsc_row, hsc_col, m: int, ob_idx):
+    """The host Woodbury plan of a band that :func:`certify_lr` split as
+    (m, ob_idx), where at most 64 loop-closure pose-block columns hold its
+    out-of-band blocks (cuba_tpu's ``engine.lr`` and ``plan_mxu``'s
+    out-of-band tables), or None: the CR block count ``m``, the out-of-band
+    blocks' indices ``ob_idx`` in the Hsc list and their pose rows and
+    columns ``obr`` / ``obc``, their indices ``ob_i`` / ``ob_j`` in the
+    loop-column set J, and J's scalar rows ``jrows``."""
+    if m < 2 or not ob_idx.size:
+        return None
+    obr = np.asarray(hsc_row, np.int64)[ob_idx]
+    obc = np.asarray(hsc_col, np.int64)[ob_idx]
+    J = np.unique(np.concatenate([obr, obc]))
+    if J.size > 64:
+        return None
+    return dict(m=m, ob_idx=ob_idx, obr=obr, obc=obc,
+                ob_i=np.searchsorted(J, obr).astype(np.int32),
+                ob_j=np.searchsorted(J, obc).astype(np.int32),
+                jrows=(J[:, None] * 6 + np.arange(6)).reshape(-1).astype(np.int32))
+
+
 def from_dense(A: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-tridiagonal storage (D, U) sliced out of a dense [m*B, m*B]
     matrix."""
@@ -59,6 +84,15 @@ def from_dense(A: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     U = torch.stack([A[k * B:(k + 1) * B, (k + 1) * B:(k + 2) * B] for k in range(m - 1)]
                     + [A.new_zeros((B, B))])
     return D, U
+
+
+def ob_from_dense(Dm: torch.Tensor, obr, obc) -> torch.Tensor:
+    """The out-of-band 6x6 blocks A[obr[k], obc[k]] [n_ob, 6, 6] gathered
+    from a dense Schur matrix (host pose-block indices)."""
+    rows = torch.as_tensor(np.asarray(obr, np.int64), device=Dm.device)[:, None] * 6
+    cols = torch.as_tensor(np.asarray(obc, np.int64), device=Dm.device)[:, None] * 6
+    six = torch.arange(6, device=Dm.device)
+    return Dm[(rows + six)[:, :, None], (cols + six)[:, None, :]]
 
 
 def _inv_spd_chol(M: torch.Tensor) -> torch.Tensor:
@@ -211,6 +245,63 @@ def cr_solve(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor, refinement_steps
     x = solve_with(b)
     for _ in range(refinement_steps):
         x2 = x + solve_with(b - matvec(D, U, x))
+        x = torch.where(torch.isfinite(x2.sum()), x2, x)
+    ok = torch.isfinite(x).all()
+    return torch.where(ok, x, torch.zeros_like(x)), ok, reads
+
+
+def cr_solve_woodbury(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor, Vob: torch.Tensor,
+                      ob_i: torch.Tensor, ob_j: torch.Tensor, jrows: torch.Tensor,
+                      refinement_steps: int = 0, inv: InvFn = _inv_spd_rs):
+    """Solve (B + P S P^T) x = b: the band (D, U) plus the out-of-band
+    blocks Vob [n_ob, 6, 6] = A[J[ob_i], J[ob_j]] over the loop-column set
+    J (jrows [6|J|] its scalar rows).  Returns (x, ok, host_reads) as
+    :func:`cr_solve`.
+
+    (B + P S P^T)^-1 = B^-1 - B^-1 P (I + S G)^-1 S P^T B^-1, G = P^T B^-1 P:
+    one multi-RHS CR solve with 6|J| + 1 columns, one [6|J|, 6|J|] dense
+    solve (``torch.linalg.solve_ex`` in the working dtype; a singular
+    capacitance gives NaN and ok False), then batched matvecs per
+    refinement sweep.  A Gershgorin shift moves diag(sum_k |S[j, k]|) from S
+    into B, which keeps B SPD for the CR factor."""
+    n, r6, dt = b.shape[0], jrows.shape[0], b.dtype
+    dev = b.device
+    six = torch.arange(6, device=dev)
+    n_ob = Vob.shape[0]
+    bi = (ob_i.long()[:, None, None] * 6 + six[None, :, None]).expand(n_ob, 6, 6).reshape(-1)
+    bj = (ob_j.long()[:, None, None] * 6 + six[None, None, :]).expand(n_ob, 6, 6).reshape(-1)
+    # the blocks and their mirrors land on distinct entries: placements
+    S = torch.zeros((r6, r6), dtype=dt, device=dev)
+    S[bi, bj] = Vob.reshape(-1)
+    S[bj, bi] = Vob.reshape(-1)
+    drow = S.abs().sum(1)
+    S = S - torch.diag(drow)
+    jr = jrows.long()
+    kb, off = jr // B, jr % B
+    D = D.clone()
+    D[kb, off, off] = D[kb, off, off] + drow
+
+    solve_with, reads = _factor_equilibrated(D, U, inv)
+    E = torch.zeros((n, r6), dtype=dt, device=dev)
+    E[jr, torch.arange(r6, device=dev)] = 1.0
+    Y = solve_with(torch.cat([b[:, None], E], dim=1))
+    y, Z = Y[:, 0], Y[:, 1:]
+    T = torch.eye(r6, dtype=dt, device=dev) + S @ Z[jr, :]
+    sol, info = torch.linalg.solve_ex(T, S)
+    sol = torch.where(info != 0, torch.full((), float("nan"), dtype=dt, device=dev), sol)
+    W2 = Z @ sol
+
+    def correct(yv):
+        return yv - W2 @ yv[jr]
+
+    def full_matvec(x):
+        extra = torch.zeros_like(x)
+        extra[jr] = S @ x[jr]
+        return matvec(D, U, x) + extra
+
+    x = correct(y)
+    for _ in range(refinement_steps):
+        x2 = x + correct(solve_with(b - full_matvec(x)))
         x = torch.where(torch.isfinite(x2.sum()), x2, x)
     ok = torch.isfinite(x).all()
     return torch.where(ok, x, torch.zeros_like(x)), ok, reads

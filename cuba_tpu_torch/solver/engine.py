@@ -1,7 +1,16 @@
-"""Block-solver engine: the Levenberg-Marquardt loop over the rows front end
-and the matrix-free PCG, the band (cyclic-reduction) or the dense
-(Cholesky) reduced solve (port of the PCG, band and dense paths of
+"""Block-solver engine: the Levenberg-Marquardt loop over every reduced
+solver and both of ``cuba_tpu``'s front ends (port of
 ``cuba_tpu/solver/engine.py``).
+
+Where ``cuba_tpu``'s window plans hold (``plan_mxu``'s ``ok``), the engine
+runs the rows front end (``solver/rows.py``) and the matrix-free PCG, the
+band (cyclic-reduction), the band + Woodbury loop-closure or the dense
+(Cholesky) reduced solve on the v2 or the v1 Schur formation.  Where they do
+not (scattered covisibility, pose-only and landmark-only problems, plans
+that fail), it runs the AoS path (``solver/assembly.py``, ``schur.py``,
+``pcg.py``) with the same four solvers, or the diagonal pose-only and
+landmark-only solves.  The route is the planner's decision, never a
+fallback from a kernel that failed.
 
 The loop runs eagerly in torch.  Accept/reject is a ``torch.where`` on the
 device; the host reads the device once per damped attempt (the gain ratio
@@ -17,23 +26,21 @@ build.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cuba_tpu_torch.config import BAConfig
-from cuba_tpu_torch.ops import se3
-from cuba_tpu_torch.solver import band_cr, dense_cholesky, edgerows, rows, trisolve
+from cuba_tpu_torch.ops import se3, smallmat
+from cuba_tpu_torch.solver import (assembly, band_cr, dense_cholesky, edgerows, pcg, rows,
+                                   schur, trisolve)
 from cuba_tpu_torch.solver.structure import BAStructure
 
 # "auto" takes the dense solver up to this many padded pose blocks
 # (cuba_tpu engine._DENSE_MAX_PB)
 _DENSE_MAX_PB = 4096
-_PORTED = ("pcg", "band_cr", "dense_cholesky")
-_UNPORTED = {
-    "band_lr": "the band + Woodbury loop-closure solver is ROADMAP queue 1 item 4",
-}
+_SOLVERS = ("pcg", "band_cr", "band_lr", "dense_cholesky")
 
 
 class State(NamedTuple):
@@ -60,16 +67,15 @@ def _set_exact_fp32() -> None:
 
 def resolve_solver(s: BAStructure, config: BAConfig):
     """Band certification and the solver choice, as cuba_tpu's engine makes
-    them: (solver, band_m, pad_blocks).  band_m is the CR block count of a
-    pure band, else 0."""
+    them: (solver, band_m, pad_blocks, lr).  band_m is the CR block count of
+    a pure band, else 0; lr is the host Woodbury plan
+    (:func:`band_cr.loop_plan`) of a band with loop closures, else None."""
     pad_blocks = rows.pad_blocks_of(s.num_p, config.pose_block_pad)
     m_lr, ob_idx = band_cr.certify_lr(s.hsc_row, s.hsc_col, pad_blocks)
     band_m = m_lr if ob_idx.size == 0 else 0
-    has_lr = False  # banded plus at most 64 loop-closure pose-block columns
-    if m_lr >= 2 and ob_idx.size:
-        J = np.unique(np.concatenate([np.asarray(s.hsc_row)[ob_idx],
-                                      np.asarray(s.hsc_col)[ob_idx]]))
-        has_lr = J.size <= 64
+    # banded plus at most 64 loop-closure pose-block columns
+    lr = band_cr.loop_plan(s.hsc_row, s.hsc_col, m_lr, ob_idx)
+    has_lr = lr is not None
     if config.solver == "band_cr" and not band_m:
         raise ValueError(
             "solver='band_cr' requires a band-certified Schur pattern "
@@ -98,24 +104,24 @@ def resolve_solver(s: BAStructure, config: BAConfig):
             solver = "pcg"
     if solver == "band_lr" and not has_lr:
         solver = "band_cr"  # a pure band after all
-    return solver, band_m, pad_blocks
+    return solver, band_m, pad_blocks, lr
 
 
 class BlockSolverEngine:
     """Owns the device tables of one problem structure and runs the LM loop."""
 
     def __init__(self, structure: BAStructure, kernels, config: BAConfig):
-        self.solver, self.band_m, self.pad_blocks = resolve_solver(structure, config)
-        if self.solver in _UNPORTED:
-            raise NotImplementedError(
-                f"solver={config.solver!r} resolves to {self.solver!r}, which is not "
-                f"ported: {_UNPORTED[self.solver]}"
-            )
-        if self.solver not in _PORTED:
+        self.device = config.resolve_device()
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"BAConfig.device is {str(config.device)!r} (the default is the card) but "
+                'torch.cuda.is_available() is False: pass BAConfig(device="cpu") to run '
+                "on the host")
+        self.solver, self.band_m, self.pad_blocks, lr = resolve_solver(structure, config)
+        if self.solver not in _SOLVERS:
             raise ValueError(f"unknown solver {config.solver!r}")
         self.structure = s = structure
         self.config = config
-        self.device = config.resolve_device()
         self.dtype = config.dtype
         self.chi_dtype = config.chi_dtype
         if self.device.type == "cuda":
@@ -129,31 +135,97 @@ class BlockSolverEngine:
         self.plan, self.rc = rows.plan_rows(
             s, self.device, self.dtype,
             pad_blocks=0 if self.solver == "pcg" else self.pad_blocks,
-            dense=self.solver == "dense_cholesky")
+            dense=self.solver == "dense_cholesky", lr=lr)
+        # the rows front end where cuba_tpu's plans hold, else the AoS path
+        self.use_rows = self.plan is not None
+        # band_lr's host Woodbury plan and its loop columns (ob_i, ob_j,
+        # jrows) on the device, for every formation
+        self.lr = lr if self.solver == "band_lr" else None
+        self.lr_dev = None if self.lr is None else tuple(
+            torch.from_numpy(self.lr[k]).to(self.device) for k in ("ob_i", "ob_j", "jrows"))
 
         def dev(a):
             return torch.as_tensor(a, dtype=self.dtype, device=self.device)
 
         self.cams = dev(s.cams)
         self.state = State(dev(s.qs), dev(s.ts), dev(s.Xws))
+        if not self.use_rows:
+            Em = s.mono.count
+            self.edges = tuple(
+                assembly.edge_consts(e.measurements, e.omegas, e.pose_idx, e.lm_idx, e2h,
+                                     s.num_p, s.num_l, s.n_hpl, self.device, self.dtype)
+                if e.count else None
+                for e, e2h in ((s.mono, s.edge2hpl[:Em]), (s.stereo, s.edge2hpl[Em:])))
+            self.sc = schur.schur_consts(s, self.device) if s.num_p and s.num_l else None
+
+    @property
+    def path(self) -> str:
+        """The route the planner chose: "v2" or "v1" (the rows front end
+        with that Schur formation), "rows" (the rows front end with PCG) or
+        "aos"."""
+        if not self.use_rows:
+            return "aos"
+        if self.plan.schur is None:
+            return "rows"
+        return "v2" if self.plan.v2 else "v1"
 
     # -- building blocks -------------------------------------------------
 
     def _residuals_and_chi(self, state: State):
-        """(pack_m, pack_s, chi) of the rows front end."""
+        """(pack_m, pack_s, chi): the rows front end's packs, or the AoS
+        path's (err [E, mdim], Xc [E, 3]); None for an absent edge type."""
         s = self.structure
-        return rows.edge_rows(
-            state.qs, state.ts, state.Xws, self.cams, self.kernels, self.chi_dtype,
-            (s.mono.count, s.stereo.count), self.plan, self.rc,
-        )
+        if self.use_rows:
+            return rows.edge_rows(
+                state.qs, state.ts, state.Xws, self.cams, self.kernels, self.chi_dtype,
+                (s.mono.count, s.stereo.count), self.plan, self.rc,
+            )
+        chi = torch.zeros((), dtype=self.chi_dtype, device=self.device)
+        packs = []
+        for ec, mdim, kern in zip(self.edges, (2, 3), self.kernels):
+            if ec is None:
+                packs.append(None)
+                continue
+            err, Xc = assembly.edge_residuals(state.qs, state.ts, self.cams, state.Xws, ec,
+                                              mdim)
+            chi = chi + assembly.chi_sum(err, ec.omega, kern, self.chi_dtype)
+            packs.append((err, Xc))
+        return packs[0], packs[1], chi
 
-    def _build(self, pack_m, pack_s):
-        return rows.build_system_rows(pack_m, pack_s, self.kernels, self.num_p,
-                                      self.num_l, self.plan, self.rc)
+    def _build(self, pack_m, pack_s, state: Optional[State] = None):
+        """The system: (HppT, HllT, HplT) on the rows front end, (Hpp, bp,
+        Hll, bl, Hpl) on the AoS path, whose Jacobians also read the poses
+        of ``state``, the state the packs were computed at."""
+        if self.use_rows:
+            return rows.build_system_rows(pack_m, pack_s, self.kernels, self.num_p,
+                                          self.num_l, self.plan, self.rc)
+        edges = tuple(None if pack is None else (ec, pack[0], pack[1], mdim)
+                      for ec, pack, mdim in zip(self.edges, (pack_m, pack_s), (2, 3)))
+        return assembly.build_system(state.qs, self.cams, self.num_p, self.num_l,
+                                     self.structure.n_hpl, edges, self.kernels)
+
+    def _refine(self) -> int:
+        return self.config.refinement_steps if self.dtype == torch.float32 else 0
+
+    def _reduced_rhs(self, bsc: torch.Tensor) -> torch.Tensor:
+        """The padded right-hand side [6PB] from bsc [P, 6]."""
+        rhs = bsc.new_zeros(6 * self.pad_blocks)
+        rhs[:6 * self.num_p] = bsc.reshape(-1)
+        return rhs
+
+    def _woodbury(self, Dm, rhs, refine):
+        """band_lr over a dense Schur matrix: its band, its out-of-band
+        blocks and the host Woodbury plan; at least one refinement sweep,
+        which recovers what the Gershgorin shift costs in conditioning."""
+        D, U = band_cr.from_dense(Dm, self.lr["m"])
+        Vob = band_cr.ob_from_dense(Dm, self.lr["obr"], self.lr["obc"])
+        return band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev, max(refine, 1))
 
     def _solve(self, sys, lam):
         """One damped trial solve.  Returns (xp [P, 6], xl [L, 3], ok,
         cg_steps, host_reads)."""
+        if not self.use_rows:
+            return self._solve_aos(sys, lam)
         HppT, HllT, HplT = sys
         plan, rc, P = self.plan, self.rc, self.num_p
         iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
@@ -165,20 +237,30 @@ class BlockSolverEngine:
             )
             xp, reads = xT.T, k + 1
         else:
-            n = 6 * self.pad_blocks
-            rhs = bscT.new_zeros(n)
-            rhs[:6 * P] = bscT.T.reshape(-1)
-            refine = self.config.refinement_steps if self.dtype == torch.float32 else 0
+            rhs = self._reduced_rhs(bscT.T)
+            refine = self._refine()
             if self.solver == "band_cr":
-                D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
+                if plan.v2:
+                    D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
+                else:
+                    D, U = band_cr.from_dense(rows.schur_dense(HppT, W, HplT, lam, P, plan, rc),
+                                              self.band_m)
                 x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
+            elif self.solver == "band_lr":
+                if plan.v2:
+                    D, U, Vob = rows.schur_band(HppT, W, HplT, lam, P, plan, rc, with_ob=True)
+                    x, ok, reads = band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev,
+                                                             max(refine, 1))
+                else:
+                    x, ok, reads = self._woodbury(
+                        rows.schur_dense(HppT, W, HplT, lam, P, plan, rc), rhs, refine)
             else:
                 Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
                 # the blocked trisolve kernels on the card (cuba_tpu takes
                 # them on the TPU), with one extra refinement sweep for the
                 # inverted-diagonal-block substitution's larger residual, as
                 # cuba_tpu does; elsewhere solve_triangular and A @ v
-                use_ts = self.device.type == "cuda" and trisolve.usable(n, self.dtype)
+                use_ts = self.device.type == "cuda" and trisolve.usable(rhs.shape[0], self.dtype)
                 if use_ts and refine > 0:
                     refine += 1
                 x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine,
@@ -186,6 +268,42 @@ class BlockSolverEngine:
             xp, k = x[:6 * P].reshape(P, 6), 0
         xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
         return xp, xl, ok, k, reads
+
+    def _solve_aos(self, sys, lam):
+        """The AoS path's trial solve (cuba_tpu's non-MXU branch): the Schur
+        reduction with any of the four solvers, or the diagonal pose-only
+        or landmark-only solve."""
+        Hpp, bp, Hll, bl, Hpl = sys
+        P, L, dt = self.num_p, self.num_l, self.dtype
+        if P and L:
+            Hpp_d = assembly.damp(Hpp, lam)
+            invHll, W, bsc = schur.prepare_factors(bp, assembly.damp(Hll, lam), bl, Hpl,
+                                                   self.sc, P)
+            k = 0
+            if self.solver == "pcg":
+                op = pcg.SchurOperator(Hpp_d, Hpl, W, self.sc, P, L)
+                xp, ok, k = pcg.pcg_solve(op, bsc, self.config.pcg_max_iterations,
+                                          self.config.pcg_tol)
+                reads = k + 1
+            else:
+                Dm = schur.assemble_dense(Hpp_d, W, Hpl, self.sc, P, self.pad_blocks)
+                rhs = self._reduced_rhs(bsc)
+                refine = self._refine()
+                if self.solver == "band_cr":
+                    D, U = band_cr.from_dense(Dm, self.band_m)
+                    x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
+                elif self.solver == "band_lr":
+                    x, ok, reads = self._woodbury(Dm, rhs, refine)
+                else:
+                    x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine)
+                xp = x[:6 * P].reshape(P, 6)
+            xl = schur.back_substitute(invHll, bl, Hpl, xp, self.sc, L)
+            return xp, xl, ok, k, reads
+        if P:
+            xp = smallmat.solve_sym6x6(assembly.damp(Hpp, lam), bp)
+            return xp, bp.new_zeros((0, 3)), torch.isfinite(xp).all(), 0, 0
+        xl = smallmat.solve_sym3x3(assembly.damp(Hll, lam), bl)
+        return bl.new_zeros((0, 6)), xl, torch.isfinite(xl).all(), 0, 0
 
     def _apply_update(self, state: State, xp, xl) -> State:
         """Left-compose the pose steps and add the landmark steps (active
@@ -198,11 +316,17 @@ class BlockSolverEngine:
             torch.cat([state.Xws[:L] + xl, state.Xws[L:]]),
         )
 
-    @staticmethod
-    def _rhs_of(sys):
+    def _rhs_of(self, sys):
         """(bp [P, 6], bl [L, 3])."""
+        if not self.use_rows:
+            return sys[1], sys[3]
         HppT, HllT, _ = sys
         return HppT[36:42].T, HllT[9:12].T
+
+    def _max_diag(self, sys):
+        if self.use_rows:
+            return rows.max_diagonal_T(sys[0], sys[1])
+        return assembly.max_diagonal(sys[0], sys[2])
 
     @staticmethod
     def _scale(xp, xl, bp, bl, lam):
@@ -228,10 +352,10 @@ class BlockSolverEngine:
         chis = []
         natt = cg = reads = 0
         for it in range(niterations):
-            sys = self._build(pack_m, pack_s)
+            sys = self._build(pack_m, pack_s, st)
             bp, bl = self._rhs_of(sys)
             if it == 0:
-                lam = cfg.tau * rows.max_diagonal_T(sys[0], sys[1]).to(dt)
+                lam = cfg.tau * self._max_diag(sys).to(dt)
             q = 0
             while True:
                 xp, xl, ok, k, solve_reads = self._solve(sys, lam)
@@ -275,13 +399,16 @@ class BlockSolverEngine:
         s = self.structure
         pack_m, pack_s, _ = self._residuals_and_chi(state)
         out = []
-        for pack, omegaT, count, perm in (
-            (pack_m, self.rc.omegaT_m, s.mono.count, s.mono_perm),
-            (pack_s, self.rc.omegaT_s, s.stereo.count, s.stereo_perm),
-        ):
+        for i, (pack, count, perm) in enumerate(((pack_m, s.mono.count, s.mono_perm),
+                                                 (pack_s, s.stereo.count, s.stereo_perm))):
             if pack is None:
                 continue
-            internal = edgerows.chi_per_edge(pack[1], omegaT)[:count].cpu().numpy()
+            if self.use_rows:
+                omegaT = (self.rc.omegaT_m, self.rc.omegaT_s)[i]
+                chis = edgerows.chi_per_edge(pack[1], omegaT)[:count]
+            else:
+                chis = assembly.chi_squares(pack[0], self.edges[i].omega)
+            internal = chis.cpu().numpy()
             original = np.empty_like(internal)
             original[perm] = internal
             out.append(original)

@@ -1,6 +1,6 @@
-"""The rows front end, the matrix-free PCG reduced solve and the v2 band
-and dense Schur formations (the PCG, band and dense subsets of
-``cuba_tpu/solver/mxu.py``), over transposed ``[D, N]`` tensors.
+"""The rows front end, the matrix-free PCG reduced solve and the v1 and v2
+Schur formations (port of ``cuba_tpu/solver/mxu.py``), over transposed
+``[D, N]`` tensors.
 
 Every index-driven step goes through the wrappers of ``ops/segmm.py``
 (hand-written CUDA kernels on the card); the per-slot 6x6/3x3 block algebra
@@ -11,6 +11,7 @@ this module                ``cuba_tpu/solver/mxu.py``
 =========================  ==================================
 ``plan_rows``              ``plan_mxu(wire_pack=False)`` (688-1116),
                            ``plan_schur_for`` (306) and ``pose_ranks`` (325)
+``plan_row_tables``        ``plan_mxu``'s host half and its ``ok`` gate
 ``edge_rows``              ``edge_rows_mxu`` (1428)
 ``_pose_accum``            ``_pose_accum`` (1478)
 ``build_system_rows``      ``build_system_rows`` (1488)
@@ -19,7 +20,7 @@ this module                ``cuba_tpu/solver/mxu.py``
 ``schur_band``             ``schur_band_mxu`` (1676)
 ``schur_compact``          ``schur_compact_mxu`` (1698)
 ``band_from_compact``      ``band_from_compact`` (1733)
-``schur_dense``            ``schur_dense_mxu``, v2 branch (1620-1638)
+``schur_dense``            ``schur_dense_mxu`` (1620-1673), both branches
 ``dense_from_compact``     ``dense_from_compact`` (1719)
 ``back_substitute``        ``back_substitute_mxu`` (1757)
 ``_hpp_matvec_rows``       ``_hpp_matvec_rows`` (1778)
@@ -28,6 +29,12 @@ this module                ``cuba_tpu/solver/mxu.py``
 ``pcg_solve_rows``         ``pcg_solve_rows`` (1839)
 ``max_diagonal_T``         ``max_diagonal_T`` (1904)
 =========================  ==================================
+
+The planner routes a structure as ``plan_mxu`` does: the v2 band-major
+formation where it plans, else the v1 formation (two combines into the
+dense block table [36, PB*PB] and ``band_transpose``) where its tile plans
+hold, else no plan at all, where ``cuba_tpu``'s ``plans.ok`` is False and
+the engine takes the AoS path (``solver/assembly.py``).
 
 Table layouts: HppT [42, P] (Hpp row-major 36, then bp 6), HllT [12, L]
 (Hll 9, then bl 3), HplT [18, hpl_pad] (Hpl row-major i*3+k per slot),
@@ -54,15 +61,15 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# band-major lanes per 64-row band at most (cuba_tpu mxu._WG_MAX)
+# band-major lanes per 64-row band at most (cuba_tpu mxu._WG_MAX); above
+# it the v2 formation does not plan.  Read at call time, as plan_mxu does.
 _WG_MAX = 2048
 # total grid steps of the v2 combine's tile plan (cuba_tpu
 # mxu._COMBINE_STEPS_MAX), which sets that plan's block cap
 _COMBINE_STEPS_MAX = 65536
-
-_FALLBACK = ("falls back to its dense formation there (the v1 MXU formation or the "
-             "XLA path), and that fallback path is ROADMAP queue 1 item 7, not "
-             "ported yet")
+# perm36[i*6+j] = j*6+i: row (i, j) of a mirrored block is row (j, i) of its
+# upper block
+_PERM36 = np.arange(36).reshape(6, 6).T.reshape(-1)
 
 
 def _pad_ids(ids, n, valid_mask=None):
@@ -112,12 +119,17 @@ class RowPlan:
     paw_b: AccumWindowPlan
     rg_m: Optional[AccumWindowPlan]  # None: the rank-ordered pose gather is off
     rg_s: Optional[AccumWindowPlan]
-    # v2 band and dense formations (None / 0 without need_dense)
+    # the Schur formations (None / 0 without need_dense)
     pad_blocks: int = 0  # PB: the reduced system in pose blocks
     schur: Optional[segmm.SchurPlan] = None
-    wg: int = 0  # band-major lanes per 64-row band
-    up2: Optional[TilePlan] = None  # the combine's tile plan over gkey_up2
-    wpad: int = 0  # padded width of schur_fused's output and of gkey_up2
+    v2: bool = False  # the band-major formation; else v1 (with need_dense)
+    wg: int = 0  # v2: band-major lanes per 64-row band
+    up2: Optional[TilePlan] = None  # v2: the combine's tile plan over gkey_up2
+    up: Optional[TilePlan] = None  # v1: the combines' tile plans over gkey_up / gkey_lo
+    lo: Optional[TilePlan] = None
+    wpad: int = 0  # padded width of schur_fused's output and of the combine keys
+    lr_k: int = 0  # v2 band + low rank: loop-column pose blocks |J|
+    lr_nob: int = 0  # and out-of-band blocks
 
 
 @dataclasses.dataclass
@@ -152,7 +164,7 @@ class RowConsts:
     csr_e2h_s: SegmentCSR
     csr_hpl_row: SegmentCSR
     csr_hpl_col: SegmentCSR
-    # v2 band and dense formations (None without need_dense)
+    # the Schur formations (None without need_dense)
     sc_sb: Optional[torch.Tensor] = None  # [C] schur_fused slot blocks
     sc_li: Optional[torch.Tensor] = None  # [C*chunk] local ids
     sc_lj: Optional[torch.Tensor] = None
@@ -166,6 +178,15 @@ class RowConsts:
     dense_table: Optional[torch.Tensor] = None  # [PB, PB] segmm.dense_table (dense only)
     csr_sc: Optional[SegmentCSR] = None  # schur_fused's per-lane order
     csr_up2: Optional[SegmentCSR] = None  # the combine's order
+    # v2 band + low rank: the out-of-band blocks' band slots (their loop
+    # columns are the engine's, from band_cr.loop_plan)
+    ob_rkey: Optional[torch.Tensor] = None  # [n_ob] band slot per out-of-band block
+    # v1 formation: dense block keys of the upper and the mirrored blocks
+    gkey_up: Optional[torch.Tensor] = None  # [wpad] r*PB + c per window lane
+    gkey_lo: Optional[torch.Tensor] = None  # [wpad] c*PB + r off the diagonal
+    occ: Optional[torch.Tensor] = None  # [PB/64 * PB/128] band_transpose's tiles
+    csr_up: Optional[SegmentCSR] = None
+    csr_lo: Optional[SegmentCSR] = None
 
 
 def pad_blocks_of(num_p: int, pad: int = 128) -> int:
@@ -185,11 +206,12 @@ def plan_schur_for(s: BAStructure) -> segmm.SchurPlan:
                             col=s.hpl_col)
 
 
-def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
+def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int, lr=None):
     """The v2 band-major tables of ``plan_mxu``'s need_dense branch: (wg,
-    up2, {gkey_up2, iru, icu, occ2, band_occ}), or None where cuba_tpu would
-    take the v1 fallback (Wg over _WG_MAX, no Hsc block or the combine plan
-    fails)."""
+    up2, {gkey_up2, iru, icu, occ2, band_occ} and, with the loop plan ``lr``
+    of a band with loop closures, the out-of-band blocks' band slots
+    {ob_rkey}), or None where cuba_tpu takes the v1 formation (Wg over
+    _WG_MAX, no Hsc block or the combine plan fails)."""
     i32 = np.int32
     n_hsc = s.n_hsc
     gid = sc.gid.astype(np.int64)
@@ -228,31 +250,58 @@ def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     adj = np.abs(tr - tc) == 1
     if adj.any():
         band_occ[np.minimum(tr[adj], tc[adj]) * 2 + 1] = 1
-    return wg, up2, dict(gkey_up2=gkey_up2, iru=iru, icu=icu, occ2=occ2.reshape(-1),
-                         band_occ=band_occ)
+    tables = dict(gkey_up2=gkey_up2, iru=iru, icu=icu, occ2=occ2.reshape(-1),
+                  band_occ=band_occ)
+    if lr is not None:
+        tables["ob_rkey"] = bslot[lr["ob_idx"]].astype(i32)
+    return wg, up2, tables
 
 
-def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
-    """The host half of :func:`plan_rows`: (RowPlan, {name: np.ndarray}).
-    Paddings, plans and tables equal ``cuba_tpu``'s ``plan_mxu(s,
-    pad_blocks, need_dense=pad_blocks > 0, wire_pack=False)``; with
-    ``pad_blocks`` the v2 band formation's plans and tables come too."""
+def _v1_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
+    """The v1 dense-key tables of ``plan_mxu``'s ``if not v2`` branch: (up,
+    lo, {gkey_up, gkey_lo, occ}), or None where either combine's tile plan
+    fails (cuba_tpu then takes its XLA path)."""
+    i32 = np.int32
+    gid = sc.gid.astype(np.int64)
+    hr = np.asarray(s.hsc_row, np.int64)
+    hc = np.asarray(s.hsc_col, np.int64)
+    r = np.where(gid >= 0, hr[np.maximum(gid, 0)], 0)
+    c = np.where(gid >= 0, hc[np.maximum(gid, 0)], 0)
+    gkey_up = np.where(gid >= 0, r * PB + c, -1).astype(i32)
+    gkey_lo = np.where((gid >= 0) & (r != c), c * PB + r, -1).astype(i32)
+    up = segmm.plan_tiles(gkey_up, PB * PB, block=128, max_blocks=64)
+    lo = segmm.plan_tiles(gkey_lo, PB * PB, block=128, max_blocks=64)
+    if not (up.ok and lo.ok):
+        return None
+    # 64x128-block tiles holding any dense block (uppers, mirrors, and the
+    # diagonal including the padding poses)
+    occ = np.zeros((PB // 64, PB // 128), i32)
+    v = gid >= 0
+    occ[r[v] // 64, c[v] // 128] = 1
+    occ[c[v] // 64, r[v] // 128] = 1
+    dd = np.arange(PB)
+    occ[dd // 64, dd // 128] = 1
+    return up, lo, dict(gkey_up=gkey_up, gkey_lo=gkey_lo, occ=occ.reshape(-1))
+
+
+def plan_row_tables(s: BAStructure, pad_blocks: int = 0, lr=None):
+    """The host half of :func:`plan_rows`: (RowPlan, {name: np.ndarray}),
+    or (None, None) where ``cuba_tpu``'s ``plan_mxu(s, pad_blocks,
+    need_dense=pad_blocks > 0, wire_pack=False)`` returns ``ok`` False
+    (pose-only or landmark-only structures, a tile or chunk plan that does
+    not hold, or neither Schur formation planning).  Paddings, plans and
+    tables equal ``plan_mxu``'s; with ``pad_blocks`` the Schur formation's
+    (v2 where it plans, else v1) come too, and with the structure's loop
+    plan ``lr`` (``band_cr.loop_plan``) v2's out-of-band tables."""
     num_p, num_l, n_hpl = s.num_p, s.num_l, s.n_hpl
     if num_p == 0 or num_l == 0 or n_hpl == 0:
-        raise NotImplementedError(
-            "pose-only and landmark-only problems need the fallback path "
-            "(ROADMAP queue 1, 'Fallback path'), which is not ported yet"
-        )
+        return None, None
     need_dense = pad_blocks > 0
     sc = None
     if need_dense:
         if pad_blocks % 128 != 0:
             raise ValueError(f"pad_blocks must be a positive multiple of 128, got {pad_blocks}")
         sc = plan_schur_for(s)
-        if not sc.ok:
-            raise NotImplementedError(
-                "the Schur chunk plan does not hold for this structure: cuba_tpu "
-                + _FALLBACK)
     Em, Es = s.mono.count, s.stereo.count
     e_pad_m = max(_round_up(Em, 1024), 1024)
     e_pad_s = max(_round_up(Es, 1024), 1024)
@@ -281,6 +330,10 @@ def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
         if (need_em, need_es, need_hpl) == (e_pad_m, e_pad_s, hpl_pad):
             break
         e_pad_m, e_pad_s, hpl_pad = need_em, need_es, need_hpl
+    ok = (all(p.ok for p in (hll_m, hll_s, hpl_m, hpl_s, ivs, xpg, cl))
+          and ivs.num_tiles * ivs.tile == hpl_pad == xpg.num_tiles * xpg.tile)
+    if not ok or (need_dense and not sc.ok):
+        return None, None
 
     total_p = int(s.qs.shape[0])
     total_l = int(s.Xws.shape[0])
@@ -310,17 +363,24 @@ def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
 
     band = {}
     if need_dense:
-        v2 = _band_tables(s, sc, pad_blocks)
-        if v2 is None:
-            raise NotImplementedError(
-                "the v2 band-major Schur formation does not plan for this structure: "
-                "cuba_tpu " + _FALLBACK)
-        wg, up2, v2_tables = v2
-        tables.update(v2_tables, sc_sb=np.asarray(sc.sb, np.int32),
+        n_win = sc.num_chunks * sc.kwin
+        v2 = _band_tables(s, sc, pad_blocks, lr)
+        if v2 is not None:
+            wg, up2, form = v2
+            band = dict(v2=True, wg=wg, up2=up2, wpad=_round_up(max(up2.n_pad, n_win), 1024))
+            if lr is not None:
+                band.update(lr_k=lr["jrows"].size // 6, lr_nob=lr["ob_idx"].size)
+        else:
+            v1 = _v1_tables(s, sc, pad_blocks)
+            if v1 is None:
+                return None, None
+            up, lo, form = v1
+            band = dict(v2=False, up=up, lo=lo,
+                        wpad=_round_up(max(up.n_pad, lo.n_pad, n_win), 1024))
+        tables.update(form, sc_sb=np.asarray(sc.sb, np.int32),
                       sc_li=np.asarray(sc.li, np.int32), sc_lj=np.asarray(sc.lj, np.int32),
                       sc_lk=np.asarray(sc.lk, np.int32))
-        band = dict(pad_blocks=pad_blocks, schur=sc, wg=wg, up2=up2,
-                    wpad=_round_up(max(up2.n_pad, sc.num_chunks * sc.kwin), 1024))
+        band.update(pad_blocks=pad_blocks, schur=sc)
 
     pacc_m = _pad_ids(s.mono.pose_idx, e_pad_m, s.mono.pose_idx < num_p)
     pacc_s = _pad_ids(s.stereo.pose_idx, e_pad_s, s.stereo.pose_idx < num_p)
@@ -340,11 +400,17 @@ def plan_row_tables(s: BAStructure, pad_blocks: int = 0):
     return plan, tables
 
 
-def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = False):
-    """Plan a structure and upload its tables: (RowPlan, RowConsts).  With
-    ``pad_blocks`` the band formation's tables, CSRs and placement table
-    come too, and with ``dense`` the dense formation's placement table."""
-    plan, t = plan_row_tables(s, pad_blocks)
+def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = False,
+              lr=None):
+    """Plan a structure and upload its tables: (RowPlan, RowConsts), or
+    (None, None) where :func:`plan_row_tables` finds no plan.  With
+    ``pad_blocks`` the Schur formation's tables and CSRs come too: for v2
+    the band placement table, with ``dense`` the dense one and with the
+    loop plan ``lr`` the out-of-band blocks' slots; for v1 the two
+    combines' keys and CSRs and ``band_transpose``'s occupancy."""
+    plan, t = plan_row_tables(s, pad_blocks, lr)
+    if plan is None:
+        return None, None
     Em, Es = s.mono.count, s.stereo.count
     measT_m = np.zeros((2, plan.e_pad_m))
     measT_m[:, :Em] = s.mono.measurements.T
@@ -377,21 +443,33 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
         csr_e2h_m=csr("e2h_m", plan.hpl_pad), csr_e2h_s=csr("e2h_s", plan.hpl_pad),
         csr_hpl_row=csr("hpl_row", s.num_p), csr_hpl_col=csr("hpl_col", s.num_l),
     )
-    if plan.schur is not None:
-        PB, sc = plan.pad_blocks, plan.schur
+    if plan.schur is None:
+        return plan, consts
+    PB, sc = plan.pad_blocks, plan.schur
+    consts = dataclasses.replace(
+        consts, **{name: ints(name) for name in ("sc_sb", "sc_li", "sc_lj", "sc_lk")},
+        csr_sc=segmm.schur_lane_csr(sc, device))
+    if plan.v2:
         gkey = _pad_ids(t["gkey_up2"], plan.wpad)
-        M_wg = PB // 64 * plan.wg
         consts = dataclasses.replace(
             consts, **{name: ints(name) for name in (
-                "sc_sb", "sc_li", "sc_lj", "sc_lk", "iru", "icu", "band_occ", "occ2")},
+                "iru", "icu", "band_occ", "occ2", "ob_rkey")},
             gkey_up2=torch.from_numpy(gkey).to(device),
             band_table=torch.from_numpy(segmm.band_table(t["iru"], t["icu"], PB)).to(device),
-            csr_sc=segmm.schur_lane_csr(sc, device),
-            csr_up2=segmm.segment_csr(gkey, M_wg, device),
+            csr_up2=segmm.segment_csr(gkey, PB // 64 * plan.wg, device),
         )
         if dense:
             consts.dense_table = torch.from_numpy(
                 segmm.dense_table(t["iru"], t["icu"], PB)).to(device)
+        return plan, consts
+    keys = {name: _pad_ids(t[name], plan.wpad) for name in ("gkey_up", "gkey_lo")}
+    consts = dataclasses.replace(
+        consts, occ=ints("occ"),
+        gkey_up=torch.from_numpy(keys["gkey_up"]).to(device),
+        gkey_lo=torch.from_numpy(keys["gkey_lo"]).to(device),
+        csr_up=segmm.segment_csr(keys["gkey_up"], PB * PB, device),
+        csr_lo=segmm.segment_csr(keys["gkey_lo"], PB * PB, device),
+    )
     return plan, consts
 
 
@@ -525,21 +603,28 @@ def damped_diagonal_T(HppT, lam, num_p: int, PB: int) -> torch.Tensor:
     return torch.cat([hpp_d, eye.expand(PB - num_p, 6, 6)]).reshape(PB, 36).T.contiguous()
 
 
-def band_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts):
+def band_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts, with_ob=False):
     """Damped diagonal + the compact table placed into block-tridiagonal
-    storage: (D [M, 384, 384], U [M, 384, 384]), U[k] = A[k, k+1]."""
+    storage: (D [M, 384, 384], U [M, 384, 384]), U[k] = A[k, k+1].
+    ``with_ob`` adds the out-of-band (loop-closure) blocks A[r, c] [n_ob, 6,
+    6] that the band storage drops, gathered from the table (the Schur block
+    is the negated table entry)."""
     PB = plan.pad_blocks
     band = segmm.compact_to_band(gT, rc.iru, rc.icu, damped_diagonal_T(HppT, lam, num_p, PB),
                                  rc.band_occ, PB, plan.wg, table=rc.band_table)
     arr = band.view(PB // 64, 384, 2, 384)
+    if with_ob:
+        Vob = -(gT.index_select(1, rc.ob_rkey).T.reshape(-1, 6, 6))
+        return arr[:, :, 0, :], arr[:, :, 1, :], Vob
     return arr[:, :, 0, :], arr[:, :, 1, :]
 
 
-def schur_band(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
+def schur_band(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts, with_ob=False):
     """The damped Schur complement in block-tridiagonal storage (D, U),
-    never formed densely."""
+    never formed densely (v2 formation only); ``with_ob`` as
+    :func:`band_from_compact`."""
     gT = schur_compact(W, HplT, plan, rc)
-    return band_from_compact(gT, HppT, lam, num_p, plan, rc)
+    return band_from_compact(gT, HppT, lam, num_p, plan, rc, with_ob)
 
 
 def dense_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts):
@@ -551,10 +636,44 @@ def dense_from_compact(gT, HppT, lam, num_p, plan: RowPlan, rc: RowConsts):
 
 
 def schur_dense(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
-    """The damped Schur complement as a dense [6PB, 6PB] matrix, formed
-    from the compact table (no scatter)."""
+    """The damped Schur complement as a dense [6PB, 6PB] matrix, with no
+    scatter: from the compact table (v2), or from the dense block table
+    (v1, :func:`schur_dense_v1`)."""
+    if not plan.v2:
+        return schur_dense_v1(HppT, W, HplT, lam, num_p, plan, rc)
     gT = schur_compact(W, HplT, plan, rc)
     return dense_from_compact(gT, HppT, lam, num_p, plan, rc)
+
+
+def dense_block_table(W, HplT, plan: RowPlan, rc: RowConsts):
+    """The v1 formation's damped-free block table m4 [36, PB, PB] = -(upper
+    + mirrored blocks): schur_fused's windows combined twice over the dense
+    block keys, gkey_up (r*PB + c) and gkey_lo (c*PB + r, transposed)."""
+    PB = plan.pad_blocks
+    win = segmm.schur_fused(W.contiguous(), HplT, plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj,
+                            rc.sc_lk, csr=rc.csr_sc)
+    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
+    m4 = segmm.tiled_segsum(win, rc.gkey_up, PB * PB, plan.up, plan.up.base_block,
+                            csr=rc.csr_up)
+    lo = segmm.tiled_segsum(win, rc.gkey_lo, PB * PB, plan.lo, plan.lo.base_block,
+                            csr=rc.csr_lo)
+    del win
+    # in place, row by row: each [36, PB*PB] table is 285 MB at PB = 1408
+    for k, pk in enumerate(_PERM36.tolist()):
+        m4[k] += lo[pk]
+    del lo
+    return m4.neg_().view(36, PB, PB)
+
+
+def schur_dense_v1(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
+    """The v1 dense formation (cuba_tpu schur_dense_mxu's ``not plans.v2``
+    branch): the block table of :func:`dense_block_table`, the damped
+    diagonal added on its block diagonal, interleaved by
+    ``band_transpose``."""
+    PB = plan.pad_blocks
+    m4 = dense_block_table(W, HplT, plan, rc)
+    m4.diagonal(dim1=1, dim2=2).add_(damped_diagonal_T(HppT, lam, num_p, PB))
+    return segmm.band_transpose(m4, rc.occ, PB)
 
 
 def back_substitute(iv9, HllT, HplT, g12, xp, num_l, plan: RowPlan, rc: RowConsts):

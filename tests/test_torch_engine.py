@@ -20,6 +20,7 @@ import cuba_tpu_torch
 from cuba_tpu.io import synthetic as tpu_synthetic
 from cuba_tpu.ops import robust as tpu_robust
 from cuba_tpu.solver import engine as tpu_engine
+from cuba_tpu.solver import mxu
 from cuba_tpu.solver import structure as tpu_structure
 from cuba_tpu_torch.io import synthetic
 from cuba_tpu_torch.models.types import MonoEdge
@@ -53,7 +54,7 @@ def test_fp64_trajectory_matches_xla_path(robust, fix_every):
                      cuba_tpu.BAConfig(dtype=jnp.float64, mxu="off", solver="pcg"),
                      robust, fix_every)
     ba, got = _run(cuba_tpu_torch, synthetic,
-                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="pcg"),
+                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="pcg", device="cpu"),
                    robust, fix_every)
     assert len(got) == len(want) >= 5
     np.testing.assert_allclose(got, want, rtol=1e-6)
@@ -71,7 +72,7 @@ def test_fp32_trajectory_matches_interpret_path():
     _, want = _run(cuba_tpu, tpu_synthetic,
                    cuba_tpu.BAConfig(dtype=jnp.float32, mxu="interpret", solver="pcg"))
     _, got = _run(cuba_tpu_torch, synthetic,
-                  cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="pcg"))
+                  cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="pcg", device="cpu"))
     n = min(len(got), len(want))
     assert n >= 5
     np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
@@ -79,7 +80,7 @@ def test_fp32_trajectory_matches_interpret_path():
 
 
 def test_optimize_before_initialize_raises():
-    ba = cuba_tpu_torch.BundleAdjustment(cuba_tpu_torch.BAConfig(solver="pcg"))
+    ba = cuba_tpu_torch.BundleAdjustment(cuba_tpu_torch.BAConfig(solver="pcg", device="cpu"))
     with pytest.raises(RuntimeError, match="initialize"):
         ba.optimize(1)
 
@@ -89,7 +90,8 @@ def test_fp64_band_cr_trajectory_matches_xla_path(robust):
     _, want = _run(cuba_tpu, tpu_synthetic,
                    cuba_tpu.BAConfig(dtype=jnp.float64, mxu="off", solver="band_cr"), robust)
     ba, got = _run(cuba_tpu_torch, synthetic,
-                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="band_cr"), robust)
+                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="band_cr",
+                                           device="cpu"), robust)
     assert ba._engine.solver == "band_cr" and ba._engine.band_m == 2
     assert ba.last_result.cg_steps == 0
     assert len(got) == len(want) >= 5
@@ -101,7 +103,7 @@ def test_fp32_band_cr_trajectory_matches_interpret_path():
     _, want = _run(cuba_tpu, tpu_synthetic,
                    cuba_tpu.BAConfig(dtype=jnp.float32, mxu="interpret", solver="band_cr"))
     ba, got = _run(cuba_tpu_torch, synthetic,
-                   cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="band_cr"))
+                   cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="band_cr", device="cpu"))
     n = min(len(got), len(want))
     assert n >= 5
     np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
@@ -117,7 +119,8 @@ def test_fp64_dense_trajectory_matches_xla_path(robust):
                    cuba_tpu.BAConfig(dtype=jnp.float64, mxu="off", solver="dense_cholesky"),
                    robust)
     ba, got = _run(cuba_tpu_torch, synthetic,
-                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="dense_cholesky"), robust)
+                   cuba_tpu_torch.BAConfig(dtype=torch.float64, solver="dense_cholesky",
+                                           device="cpu"), robust)
     assert ba._engine.solver == "dense_cholesky" and ba.last_result.cg_steps == 0
     assert len(got) == len(want) >= 5
     np.testing.assert_allclose(got, want, rtol=1e-6)
@@ -131,7 +134,7 @@ def test_fp32_dense_trajectory_matches_interpret_path():
     _, want = _run(cuba_tpu, tpu_synthetic,
                    cuba_tpu.BAConfig(dtype=jnp.float32, mxu="interpret", solver="dense_cholesky"))
     ba, got = _run(cuba_tpu_torch, synthetic,
-                   cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="auto"))
+                   cuba_tpu_torch.BAConfig(dtype=torch.float32, solver="auto", device="cpu"))
     assert ba._engine.solver == "dense_cholesky"
     n = min(len(got), len(want))
     assert n >= 5
@@ -158,11 +161,16 @@ def _chord_graph(config):
 
 @pytest.mark.parametrize("solver", ["band_lr"])
 def test_unported_solver_raises(solver):
-    """Solvers that are not ported yet raise at initialize(): 'band_lr' on a
-    banded graph with loop-closure blocks resolves to the Woodbury solver."""
-    ba = _chord_graph(cuba_tpu_torch.BAConfig(solver=solver))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ba.initialize()
+    """The solver that raised before it was ported now runs: 'band_lr' on a
+    banded graph with loop-closure blocks resolves to the Woodbury solver,
+    over the v2 band formation's out-of-band blocks."""
+    ba = _chord_graph(cuba_tpu_torch.BAConfig(solver=solver, device="cpu"))
+    ba.initialize()
+    ba.optimize(4)
+    chis = [s.chi2 for s in ba.batch_statistics()]
+    eng = ba._engine
+    assert eng.solver == "band_lr" and eng.path == "v2" and eng.plan.lr_nob > 0
+    assert np.all(np.isfinite(chis)) and chis[-1] < chis[0]
 
 
 @pytest.mark.parametrize("solver", ["auto", "dense_cholesky"])
@@ -170,7 +178,7 @@ def test_dense_solver_runs(solver):
     """The graphs that raised before the dense solver was ported: 'auto' on
     a graph under 8 CR blocks resolves to it."""
     ba = synthetic.build_graph(synthetic.generate(num_poses=6, num_landmarks=40, seed=1),
-                               cuba_tpu_torch.BAConfig(solver=solver))
+                               cuba_tpu_torch.BAConfig(solver=solver, device="cpu"))
     ba.initialize()
     ba.optimize(4)
     chis = [s.chi2 for s in ba.batch_statistics()]
@@ -226,18 +234,19 @@ def test_auto_resolves_as_cuba_tpu(case):
     port_s, ref_s = _both_structures(args)
     ref = tpu_engine.BlockSolverEngine(ref_s, KERNELS,
                                        cuba_tpu.BAConfig(dtype=jnp.float64, mxu="off"))
-    solver, band_m, pad_blocks = engine.resolve_solver(port_s, cuba_tpu_torch.BAConfig())
+    solver, band_m, pad_blocks, _lr = engine.resolve_solver(
+        port_s, cuba_tpu_torch.BAConfig(device="cpu"))
     assert (solver, band_m, pad_blocks) == (ref.solver, ref.band_m, ref.pad_blocks)
     assert solver == {"small": "dense_cholesky", "banded": "band_cr",
                       "unbanded": "dense_cholesky"}[case]
-    if case == "unbanded":
-        # scattered covisibility: the v2 band-major plan fails, where
-        # cuba_tpu takes its v1 dense formation (not ported)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            engine.BlockSolverEngine(port_s, KERNELS, cuba_tpu_torch.BAConfig())
-        return
-    eng = engine.BlockSolverEngine(port_s, KERNELS, cuba_tpu_torch.BAConfig())
+    eng = engine.BlockSolverEngine(port_s, KERNELS, cuba_tpu_torch.BAConfig(device="cpu"))
     assert eng.solver == solver and eng.band_m == ref.band_m
+    if case == "unbanded":
+        # scattered covisibility: neither the v2 nor the v1 formation plans
+        # (cuba_tpu's plan_mxu gives ok False), so both take the AoS path
+        plans, _ = mxu.plan_mxu(ref_s, pad_blocks, need_dense=True, wire_pack=False)
+        assert not plans.ok and eng.path == "aos" and eng.rc is None
+        return
     if solver == "band_cr":
         assert eng.band_m >= 8 and eng.rc.dense_table is None
     else:
@@ -247,7 +256,8 @@ def test_auto_resolves_as_cuba_tpu(case):
 def test_band_cr_rejects_unbanded():
     port_s, _ = _both_structures(_scattered())
     with pytest.raises(ValueError, match="band"):
-        engine.BlockSolverEngine(port_s, KERNELS, cuba_tpu_torch.BAConfig(solver="band_cr"))
+        engine.BlockSolverEngine(port_s, KERNELS,
+                                 cuba_tpu_torch.BAConfig(solver="band_cr", device="cpu"))
 
 
 def test_camelcase_aliases_exist():

@@ -268,3 +268,82 @@ def test_dense_slice_on_card_matches_plain(cuda):
     n = min(len(got), len(want))
     np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
     assert got[-1] < got[0]
+
+
+def test_band_transpose_kernel_matches_plain(cuda):
+    PB = 256
+    rng = np.random.default_rng(11)
+    m4 = torch.from_numpy(rng.standard_normal((36, PB, PB)).astype(np.float32)).to(cuda)
+    occ = torch.from_numpy((rng.random(PB // 64 * PB // 128) < 0.5).astype(np.int32)).to(cuda)
+    before = segmm.LAUNCHES["band_transpose"]
+    got = segmm.band_transpose(m4, occ, PB)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["band_transpose"] == before + 1
+    assert torch.equal(got, segmm.band_transpose_plain(m4, occ, PB))  # a copy: bit for bit
+    full = torch.ones_like(occ)
+    assert torch.equal(segmm.band_transpose(m4, full, PB),
+                       m4.view(6, 6, PB, PB).permute(2, 0, 3, 1).reshape(6 * PB, 6 * PB))
+
+
+def _graph_run(prob, config, niters=6, edit=None):
+    ba = synthetic.build_graph(prob, config)
+    if edit is not None:
+        edit(ba)
+    ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(5.991), EdgeType.MONOCULAR)
+    ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(7.815), EdgeType.STEREO)
+    ba.initialize()
+    ba.optimize(niters)
+    return ba, np.array([s.chi2 for s in ba.batch_statistics()])
+
+
+def _against_plain(prob, config, route, kernels, edit=None):
+    segmm.reset_launches()
+    ba, got = _graph_run(prob, config, edit=edit)
+    assert ba._engine.path == route
+    assert all(segmm.LAUNCHES[n] > 0 for n in kernels), dict(segmm.LAUNCHES)
+    with segmm.use_plain():
+        _, want = _graph_run(prob, config, edit=edit)
+    n = min(len(got), len(want))
+    np.testing.assert_allclose(got[:n], want[:n], rtol=5e-3)
+    assert got[-1] < got[0]
+
+
+def test_v1_slice_on_card_matches_plain(cuda, monkeypatch):
+    monkeypatch.setattr(rows, "_WG_MAX", 0)  # close the v2 gate
+    _against_plain(synthetic.generate(num_poses=150, num_landmarks=1400, seed=2),
+                   BAConfig(dtype=torch.float32, solver="band_cr", device="cuda"), "v1",
+                   ("schur_fused", "tiled_segsum", "band_transpose"))
+
+
+def _add_chords(ba):
+    """Three landmarks near pose 5 seen again from pose 150: loop-closure
+    blocks two CR blocks off the diagonal."""
+    from cuba_tpu_torch.models.types import MonoEdge
+
+    near5 = sorted({e.vertexL.id for e in ba.pose_vertex(5).edges})[:3]
+    for lm in near5:
+        ba.add_monocular_edge(MonoEdge(np.array([600.0, 180.0]), 1.0, ba.pose_vertex(150),
+                                       ba.landmark_vertex(lm)))
+
+
+def test_band_lr_slice_on_card_matches_plain(cuda):
+    _against_plain(synthetic.generate(num_poses=200, num_landmarks=1000, seed=4),
+                   BAConfig(dtype=torch.float32, solver="band_lr", device="cuda"), "v2",
+                   ("schur_fused", "compact_to_band"), edit=_add_chords)
+
+
+@pytest.mark.parametrize("fix", ["none", "landmarks"])
+def test_aos_slice_on_card_matches_plain(cuda, monkeypatch, fix):
+    """The AoS path on the card: a planned graph with the planner made to
+    find no plan, and a pose-only problem, which the planner sends there."""
+    if fix == "none":
+        monkeypatch.setattr(rows, "plan_row_tables", lambda s, pad_blocks=0, lr=None: (None, None))
+
+    def edit(ba):
+        if fix == "landmarks":
+            for j in range(ba.nlandmarks()):
+                ba.landmark_vertex(j).fixed = True
+
+    _against_plain(synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
+                   BAConfig(dtype=torch.float32, device="cuda"), "aos", ("accum_segsum",),
+                   edit=edit)

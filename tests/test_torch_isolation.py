@@ -28,7 +28,7 @@ import cuba_tpu_torch
 from cuba_tpu_torch import BAConfig, EdgeType, RobustKernelType
 from cuba_tpu_torch.io import synthetic
 ba = synthetic.build_graph(synthetic.generate(num_poses=6, num_landmarks=50, seed=2),
-                           BAConfig(solver="pcg"))
+                           BAConfig(solver="pcg", device="cpu"))
 ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(5.991), EdgeType.MONOCULAR)
 ba.initialize()
 ba.optimize(3)
@@ -58,8 +58,20 @@ def test_port_runs_without_jax():
 def test_dense_path_runs_without_jax():
     """The dense solver (``solver="auto"`` on a graph under 8 CR blocks)
     with its trisolve modules, in a process without JAX."""
-    drive = _DRIVE.replace('BAConfig(solver="pcg")', "BAConfig()").replace(
+    drive = _DRIVE.replace('BAConfig(solver="pcg", device="cpu")',
+                           'BAConfig(device="cpu")').replace(
         "ba.optimize(3)", 'ba.optimize(3)\nassert ba._engine.solver == "dense_cholesky"')
+    r = _python(drive, REPO)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
+def test_aos_path_runs_without_jax():
+    """The AoS path (here a pose-only problem, which the planner sends
+    there) with its assembly and small-solve modules, without JAX."""
+    drive = _DRIVE.replace("ba.initialize()", "for j in range(50):\n"
+                           "    ba.landmark_vertex(j).fixed = True\nba.initialize()").replace(
+        "ba.optimize(3)", 'ba.optimize(3)\nassert ba._engine.path == "aos"')
     r = _python(drive, REPO)
     assert r.returncode == 0, r.stderr
     assert "isolated" in r.stdout
@@ -67,19 +79,25 @@ def test_dense_path_runs_without_jax():
 
 def test_sources_import_no_jax():
     pkg = os.path.join(REPO, "cuba_tpu_torch")
+    seen = set()
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(pkg):
-        for f in files:
-            if f.endswith(".py"):
-                text = open(os.path.join(root, f)).read()
-                for bad in ("import jax", "from jax", "import cuba_tpu.", "from cuba_tpu.",
-                            "from cuba_tpu import", "torch.compile"):
-                    assert bad not in text, (f, bad)
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        seen.add(os.path.basename(path))
+        text = open(path).read()
+        for bad in ("import jax", "from jax", "import cuba_tpu.", "from cuba_tpu.",
+                    "from cuba_tpu import", "torch.compile", "import bench", "from bench"):
+            assert bad not in text, (path, bad)
+    assert {"assembly.py", "schur.py", "pcg.py", "projection.py", "jacobians.py",
+            "smallmat.py", "rows.py", "band_cr.py", "chip_smoke.py"} <= seen
 
 
 def test_kernel_source_and_binding_import_without_nvcc():
     for path, entries in (
             (segmm.KERNEL_SRC, ("cuba_gather_cols", "cuba_segsum_csr", "cuba_schur_fused",
-                                "cuba_compact_to_band", "cuba_compact_to_dense")),
+                                "cuba_compact_to_band", "cuba_compact_to_dense",
+                                "cuba_band_transpose")),
             (trisolve.KERNEL_SRC, ("cuba_extract_diag_blocks", "cuba_solve_lower",
                                    "cuba_solve_upper", "cuba_matvec"))):
         src = open(path).read()
@@ -104,6 +122,29 @@ def test_cuda_only_calls_raise_on_cpu():
         segmm.tiled_gather(meta, torch.zeros(8, dtype=torch.int32, device="meta"), None, None)
     with pytest.raises(ValueError, match="no kernel"):
         trisolve.matvec(torch.empty((8, 8), device="meta"), torch.empty(8, device="meta"))
+
+
+def test_default_device_is_the_card():
+    import cuba_tpu_torch
+
+    assert cuba_tpu_torch.BAConfig().resolve_device() == torch.device("cuda")
+    assert cuba_tpu_torch.BAConfig(device="cpu").resolve_device() == torch.device("cpu")
+
+
+def test_default_config_refuses_to_run_on_the_host():
+    """Without a CUDA device, a default config fails at initialize() and
+    names the way to the host; it never carries on there."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import cuba_tpu_torch
+    from cuba_tpu_torch.io import synthetic
+
+    ba = synthetic.build_graph(synthetic.generate(num_poses=6, num_landmarks=40, seed=1))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ba.initialize()
+    assert ba._engine is None
+    ba = cuba_tpu_torch.BundleAdjustment()
+    assert ba.config.device == "cuda"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -42,7 +42,7 @@ def engines():
     tpu = TpuEngine(s, KERNELS, TpuConfig(dtype=jnp.float32, mxu="interpret", solver="pcg"))
     assert tpu.use_rows
     port = BlockSolverEngine(structure_from_numpy(s), KERNELS,
-                             BAConfig(dtype=torch.float32, solver="pcg"))
+                             BAConfig(dtype=torch.float32, solver="pcg", device="cpu"))
     rr = tpu._residuals_and_chi(tpu.state, tpu.consts)
     sys_tpu = tpu._build(tpu.state, tpu.consts, *rr[:4])
     return tpu, port, rr, sys_tpu
