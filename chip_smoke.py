@@ -11,8 +11,12 @@ Phases (any failure exits non-zero, before the result line):
    symbolic pass (C++ or NumPy) the host runs.
 2. Kernels against their plain torch versions, on the slice's own plan and
    tensors (the problem below after ``initialize()``): gathers must be equal
-   bit for bit, segment sums within 1e-5 of each output's sum of |vals|.
-   Median CUDA-event times over 25 repeats of each.
+   bit for bit, segment sums within 1e-5 of each output's sum of |vals|,
+   and a second launch of every kernel equal bit for bit to the first.
+   The kernel, its plain version and its library call are timed in turns
+   in one loop of 25 rounds under ``torch.profiler``: the median
+   CUDA-event time of each call (``ms``: the wrapper's host work included)
+   and the median device time of the kernels it ran (``device_ms``).
 3. The main path through the public API: the matrix-free PCG problem of
    ``tools/bench_pcg_crossover.py`` at P = 4096 poses, 61,440 landmarks
    (~5 observations each, 25% stereo, seed 0, gentle initial noise), Huber
@@ -113,7 +117,13 @@ kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13;
 ``"site"`` names a second call site of one kernel).  ``launches`` is the
 kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
-path's comparisons.  The last line is ``{"ok": true, "device": {...}}``.
+path's comparisons: ``ms`` / ``plain_ms`` / ``library_ms`` event-timed
+calls, ``device_ms`` / ``plain_device_ms`` / ``library_device_ms`` the
+device time of the same calls, and for a segment sum the group width
+``group`` and rows per chunk ``rows`` the kernel picks there and its CSR's
+shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``).  A
+kernel call that raises, or device times the profiler cannot split, end
+the run.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -141,6 +151,7 @@ CHI2_REL_BAND = 5e-3
 HBM_BYTES_PER_MS = 3.35e9
 FP32_FLOPS_PER_MS = 67e9
 REPEATS = 25
+PROFILE_TRIES = 3  # profiler sessions interleaved_times may take to split its rounds
 SEGSUM_RTOL = 1e-5
 # the blocked sweeps against their plain versions: each entry within this
 # share of the largest |entry|.  Both sum in exact fp32 in other orders
@@ -164,6 +175,9 @@ SOLVER_RTOL = 2e-2
 # lanes of schur_fused in fp32, each within this share of max |A|
 FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
+# the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
+HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
+                "compact_to_dense", "band_transpose", "extract_diag", "rowdot", "coldot")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -229,6 +243,82 @@ def cuda_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
+def interleaved_times(fns, torch):
+    """{label: (call_ms, device_ms)} for the callables of ``fns`` ({label:
+    fn}), timed in turns in one loop of REPEATS rounds under
+    ``torch.profiler`` (device activity only): call_ms is the median of the
+    CUDA-event time around each call, host work of the wrapper included;
+    device_ms the median over the same calls of the summed durations of the
+    device kernels, copies and sets the call ran.
+
+    A ``torch.cuda._sleep`` kernel before each call marks where its device
+    work starts in the trace, and two in a row where a round starts.  The
+    trace can miss events (the first few of a profiler session, as seen on
+    an H100), so a round counts only where the marks split it into as many
+    calls as it made.  Where fewer than half the rounds count, the loop
+    runs again in a new profiler session, and the run fails after
+    PROFILE_TRIES sessions: every time it returns was measured."""
+    labels = list(fns)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        call_ms, whole = _profiled_rounds(fns, labels, torch)
+        if 2 * len(whole) >= REPEATS:
+            return {k: (statistics.median(call_ms[k]),
+                        statistics.median(r[i] for r in whole) / 1e3)
+                    for i, k in enumerate(labels)}
+        log(f"interleaved_times: {len(whole)} of {REPEATS} rounds whole in the trace")
+    fail(f"device time not measured: the trace split too few rounds in {PROFILE_TRIES} "
+         "profiler sessions")
+
+
+def _profiled_rounds(fns, labels, torch):
+    """One profiler session of :func:`interleaved_times`: ({label: call
+    ms per round}, [[device us per label] for each round the trace split
+    whole]).  A call that raises ends the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = {k: [] for k in labels}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPEATS):
+            torch.cuda._sleep(1)
+            for k in labels:
+                torch.cuda._sleep(1)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fns[k]()
+                b.record()
+                b.synchronize()
+                call_ms[k].append(a.elapsed_time(b))
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    segments, cur = [], None  # [events, device us] between consecutive marks
+    for start, end, name in spans:
+        if "spin_kernel" in name:
+            if cur is not None:
+                segments.append(cur)
+            cur = [0, 0.0]
+        elif cur is not None:
+            cur[0] += 1
+            cur[1] += end - start
+    if cur is not None:
+        segments.append(cur)
+    rounds, rnd = [], None
+    for n, us in segments:
+        if n == 0:  # two marks in a row: a round starts
+            if rnd is not None:
+                rounds.append(rnd)
+            rnd = []
+        elif rnd is not None:
+            rnd.append(us)
+    if rnd is not None:
+        rounds.append(rnd)
+    return call_ms, [r for r in rounds if len(r) == len(labels)]
+
+
 def bound(nbytes: float, flops: float):
     """(bound_ms, bound_by): the least time this card could take to move
     ``nbytes`` and do ``flops`` fp32 operations."""
@@ -248,10 +338,13 @@ def gather_case(call, kern, plain, src, ids, torch):
             lambda: src.index_select(1, safe))
 
 
-def segsum_case(call, kern, plain, vals, ids, num_out, torch):
+def segsum_case(call, kern, plain, vals, ids, num_out, csr, torch):
     """A segment sum's case: its ids, the columns with an id in range and
     its output; one add per summed value; the yardstick is ``index_add_``
-    into zeros."""
+    into zeros.  Notes: the group width G and rows per chunk the kernel
+    picks for the call, and the CSR's shape."""
+    from cuba_tpu_torch.ops import segmm
+
     valid = (ids >= 0) & (ids < num_out)
     nv = int(valid.sum())
     D, N = vals.shape
@@ -261,8 +354,12 @@ def segsum_case(call, kern, plain, vals, ids, num_out, torch):
         return torch.zeros((D, num_out), dtype=vals.dtype, device=vals.device).index_add_(
             1, idx, v)
 
+    lengths = torch.diff(csr.offs)
+    notes = dict(group=csr.group, rows=segmm.row_chunk(D, N, csr.group), D=D, segments=num_out,
+                 entries=nv, max_len=int(lengths.max()) if num_out else 0,
+                 empty=int((lengths == 0).sum()))
     return ((vals, ids, num_out), call, kern, plain, (4 * (N + D * nv + D * num_out), D * nv),
-            library)
+            library, notes)
 
 
 def check_kernels(engine, torch, segmm):
@@ -302,14 +399,15 @@ def check_kernels(engine, torch, segmm):
         "accum_segsum_windowed": segsum_case(
             lambda f: f(v42, rc.pose_acc_m, engine.num_p, paw, None, csr=rc.csr_pose_m),
             segmm.accum_segsum_windowed, segmm.accum_segsum_windowed_plain,
-            v42, rc.pose_acc_m, engine.num_p, torch),
+            v42, rc.pose_acc_m, engine.num_p, rc.csr_pose_m, torch),
         "tiled_segsum": segsum_case(
             lambda f: f(v18, rc.e2h_m, plan.hpl_pad, plan.hpl_m, None, csr=rc.csr_e2h_m),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain, v18, rc.e2h_m, plan.hpl_pad, torch),
+            segmm.tiled_segsum, segmm.tiled_segsum_plain, v18, rc.e2h_m, plan.hpl_pad,
+            rc.csr_e2h_m, torch),
         "accum_segsum": segsum_case(
             lambda f: f(v42, rc.pose_acc_m, engine.num_p, csr=rc.csr_pose_m),
             segmm.accum_segsum, segmm.accum_segsum_plain, v42, rc.pose_acc_m, engine.num_p,
-            torch),
+            rc.csr_pose_m, torch),
     }
     return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
 
@@ -321,13 +419,16 @@ def segsum_bound(segmm, vals, ids, num_out):
 
 def compare_cases(cases, torch, bound_of):
     """Each case's kernel against its plain version: equal bit for bit
-    ("exact"), or within ``bound_of(*kind)`` elementwise.  A case is (kind,
-    call, kernel, plain, (bytes, flops), library call or None); its label
-    is the wrapper's name, with ``:site`` where one wrapper has two call
-    sites.  Returns {label: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
-    library_ms}}."""
-    out = {}
-    for name, (kind, call, kern, plain, work, library) in cases.items():
+    ("exact"), or within ``bound_of(*kind)`` elementwise; and a second
+    launch equal bit for bit to the first.  A case is (kind, call, kernel,
+    plain, (bytes, flops), library call or None[, notes]); its label is the
+    wrapper's name, with ``:site`` where one wrapper has two call sites.
+    Then the kernel, the plain version and the library call of every case
+    are timed in turns in one loop (:func:`interleaved_times`).  Returns
+    {label: {max_abs_err, ms, device_ms, plain_ms, plain_device_ms,
+    bound_ms, bound_by, library_ms, library_device_ms, **notes}}."""
+    out, fns = {}, {}
+    for name, (kind, call, kern, plain, work, library, *notes) in cases.items():
         got = call(kern)
         torch.cuda.synchronize()
         ref = call(plain)
@@ -341,17 +442,34 @@ def compare_cases(cases, torch, bound_of):
         elif not bool((diff <= bound_of(*kind)).all()):
             fail(f"{name}: kernel and plain sums differ beyond the stated bound "
                  f"(max abs diff {float(diff.max())})")
+        again = call(kern)
+        if not bool((got.view(torch.int32) == again.view(torch.int32)).all()):
+            fail(f"{name}: two launches on the same input gave different bits")
         err = float(diff.max()) if diff.numel() else 0.0
-        del got, ref, diff
+        del got, ref, diff, again
         bound_ms, bound_by = bound(*work)
-        e = dict(max_abs_err=err, ms=cuda_ms(lambda: call(kern), torch),
-                 plain_ms=cuda_ms(lambda: call(plain), torch), bound_ms=bound_ms,
-                 bound_by=bound_by,
-                 library_ms=None if library is None else cuda_ms(library, torch))
-        out[name] = e
-        lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
-        log(f"kernel {name}: max_abs_err {err:.3e} kernel {e['ms']:.4f} ms plain "
-            f"{e['plain_ms']:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) library {lib}")
+        out[name] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                         **(notes[0] if notes else {}))
+        fns[(name, "kernel")] = lambda call=call, kern=kern: call(kern)
+        fns[(name, "plain")] = lambda call=call, plain=plain: call(plain)
+        if library is not None:
+            fns[(name, "library")] = library
+    times = interleaved_times(fns, torch)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    for name, e in out.items():
+        (e["ms"], e["device_ms"]), (e["plain_ms"], e["plain_device_ms"]) = (
+            times[(name, "kernel")], times[(name, "plain")])
+        e["library_ms"], e["library_device_ms"] = times.get((name, "library"), (None, None))
+        lib = ("none" if (name, "library") not in times else
+               f"{fmt(e['library_ms'])} (device {fmt(e['library_device_ms'])})")
+        group = f" G {e['group']} R {e['rows']}" if "group" in e else ""
+        log(f"kernel {name}:{group} max_abs_err {e['max_abs_err']:.3e} kernel {fmt(e['ms'])} "
+            f"(device {fmt(e['device_ms'])}) plain {fmt(e['plain_ms'])} (device "
+            f"{fmt(e['plain_device_ms'])}) bound {e['bound_ms']:.4f} ms ({e['bound_by']}) "
+            f"library {lib}")
     return out
 
 
@@ -402,7 +520,7 @@ def check_schur_kernels(engine, torch, segmm, HplT, W):
         cases[f"tiled_segsum:{site}"] = segsum_case(
             lambda f, keys=keys, num_out=num_out, tplan=tplan, csr=csr: f(
                 win, keys, num_out, tplan, tplan.base_block, csr=csr),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain, win, keys, num_out, torch)
+            segmm.tiled_segsum, segmm.tiled_segsum_plain, win, keys, num_out, csr, torch)
 
     def bound_of(*kind):
         if kind == ("schur",):
@@ -685,22 +803,19 @@ def profile_path(prob, config, torch, label, wall_s, fix=None):
     (device activity only): the device kernels and copies per damped
     attempt, the union of their device intervals, that union's share of
     the profiled wall and of ``wall_s`` (the same run's wall unprofiled),
-    and the five kernels with the most device time.  Logged, not gated."""
+    and the five kernels with the most device time.  Logged, not gated;
+    an error of the run (a kernel's included) ends the smoke test."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ba = make_graph(prob, config, fix)
     ba.initialize()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ba.optimize(ITERS)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-    except (RuntimeError, AssertionError) as e:
-        log(f"profile ({label}): the profiler failed ({e}): not measured")
-        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ba.optimize(ITERS)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     attempts = ba.last_result.nattempts
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
@@ -717,10 +832,17 @@ def profile_path(prob, config, torch, label, wall_s, fix=None):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    # the hand-written kernels' share, by the CUDA sources' kernel names
+    # ("segsum_": segsum_csr and its zero fill)
+    shares = {k: sum(us for name, us in by_name.items() if k in name) / busy_us
+              for k in ("segsum_", "gather_cols")}
+    ours = sum(us for name, us in by_name.items() if any(k in name for k in HAND_KERNELS))
     log(f"profile ({label}): {len(spans)} device kernels and copies over {attempts} attempts "
         f"({len(spans) / attempts:.1f} per attempt); device busy {busy_us / 1e3:.4f} ms of "
         f"{wall_ms:.4f} ms profiled wall ({busy_us / 10 / wall_ms:.1f}% busy) and of "
-        f"{1e3 * wall_s:.4f} ms unprofiled ({busy_us / 10 / (1e3 * wall_s):.1f}% busy); top: "
+        f"{1e3 * wall_s:.4f} ms unprofiled ({busy_us / 10 / (1e3 * wall_s):.1f}% busy); "
+        f"hand-written kernels {100 * ours / busy_us:.1f}% of busy ("
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items()) + "); top: "
         + "; ".join(f"{name[:60]} {us / 1e3:.4f} ms ({100 * us / busy_us:.1f}%)"
                     for name, us in top))
 
@@ -810,10 +932,10 @@ def check_aos_kernels(engine, torch, segmm):
     cases = {
         "accum_segsum": segsum_case(
             lambda f: f(v42, ec.pose_idx, P, csr=ec.csr_pose), segmm.accum_segsum,
-            segmm.accum_segsum_plain, v42, ec.pose_idx, P, torch),
+            segmm.accum_segsum_plain, v42, ec.pose_idx, P, ec.csr_pose, torch),
         "accum_segsum:triplets": segsum_case(
             lambda f: f(prod, sc.mul_k, n_hsc, csr=sc.csr_mul), segmm.accum_segsum,
-            segmm.accum_segsum_plain, prod, sc.mul_k, n_hsc, torch),
+            segmm.accum_segsum_plain, prod, sc.mul_k, n_hsc, sc.csr_mul, torch),
     }
     return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
 
@@ -1174,6 +1296,11 @@ def main() -> None:
                             "route": "cuda", "source": kernel_source(name),
                             "replaces": REPLACES[name], "launches": launches[name],
                             "attempts": attempts[path], **e})
+    unmeasured = [(e["name"], e["path"]) for e in entries
+                  if e["device_ms"] is None or e["plain_device_ms"] is None
+                  or (e["library_ms"] is not None and e["library_device_ms"] is None)]
+    if unmeasured:
+        fail(f"kernels without device times: {unmeasured}")
     names = {e["name"] for e in entries}
     if names != set(REPLACES):
         fail(f"the kernels line misses {sorted(set(REPLACES) - names)}")

@@ -28,20 +28,37 @@
 // load is cheap, so both kernels index directly and ignore the TPU plans.
 //
 // Both kernels do one or two flops per element loaded: they are bound by
-// device-memory bytes, not by arithmetic.
-//  * gather_cols: one thread per (row, output column), neighbouring threads
-//    on neighbouring output columns, so the id loads and the output stores
-//    coalesce.  The source reads are gathered; the ids the slice feeds are
+// device-memory bytes, not by arithmetic.  Their index arithmetic is int32
+// (the wrappers check that every [D, N] and [D, num_out] table fits).
+//  * gather_cols: one thread per output column, looping over the D rows:
+//    the id is loaded once, and each row's store is coalesced across the
+//    warp.  The source reads are gathered, from sources small enough to
+//    stay in L2 ([12, poses], [3, landmarks]); the ids the slice feeds are
 //    locally sorted (landmark-major edge order), so neighbouring threads
-//    mostly hit the same or adjacent source columns and share L2/L1 lines.
-//  * segsum_csr: one thread per (row, output segment), summing the segment
-//    in the fixed CSR order the host built once per structure (a stable
-//    sort of the valid ids).  No atomics: every run gives the same bits.
-//    Loads of offs and order are coalesced across neighbouring segments;
-//    the vals reads are gathered and, for segments of different length,
-//    uncoalesced and divergent.  The ids come from a locality-sorted edge
-//    stream, so most segments read a narrow, cache-resident range of
-//    columns.  Warp-per-segment reduction and vector loads are later work.
+//    mostly hit the same or adjacent source columns.
+//  * segsum_csr: one group of G lanes (G = 1, 2, ..., 32, chosen once per
+//    CSR by the host from its mean segment length) per output segment, for
+//    a chunk of up to 4 rows held in registers (the host picks the chunk:
+//    few accumulators keep enough threads resident to hide the walk's
+//    latency, which 12 did not); the row chunks run on blockIdx.y, consecutive
+//    segments on blockIdx.x, so groups that run together read neighbouring
+//    columns of the same rows and share the sectors that one segment's
+//    scattered columns waste.  offs[s], offs[s+1] are loaded once per
+//    group and chunk; lane k walks the segment's entries start+k,
+//    start+k+G, ... of the fixed CSR order the host built once per
+//    structure (a stable sort of the valid ids), loading order[j] once for
+//    all the chunk's rows; the G partial sums are combined by a fixed
+//    __shfl_xor_sync butterfly.  No atomics: the summation order alone
+//    fixes the bits, the same on every run (segsum_walk in ops/segmm.py is
+//    this order in NumPy).  Long segments (a pose's 100-500 edges) get 32
+//    lanes of independent loads, where one serial chain per (row, segment)
+//    left the card latency-bound.  Short and empty ones (an Hpl slot's 0-1
+//    edges) get G = 1, an empty segment reading only offs and writing its
+//    zeros, coalesced across neighbouring segments.  Where nearly all
+//    segments are empty and the others long enough to take a wider group
+//    (the v1 combines: 2 M blocks, 1 in 100 occupied, ~10 entries each,
+//    285 MB of output) the host also lists the occupied ones: the output
+//    is zeroed in 16-byte stores, and only the listed segments are summed.
 //
 //  * schur_fused: one thread per output lane (chunk c, lane l), summing the
 //    lane's triplets in the fixed order of a per-lane CSR the host built
@@ -90,32 +107,115 @@ namespace {
 
 constexpr int kThreads = 256;
 
+constexpr int32_t kInt32Max = 0x7fffffff;
+
 __global__ void gather_cols_kernel(const float* __restrict__ src,
                                    const int32_t* __restrict__ ids,
-                                   float* __restrict__ out,
-                                   int64_t D, int64_t S, int64_t N) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= D * N) return;
-  const int64_t d = i / N;
-  const int64_t n = i - d * N;
-  const int32_t id = ids[n];
-  out[i] = (id >= 0 && id < S) ? src[d * S + id] : 0.0f;
+                                   float* __restrict__ out, int D, int S, int N) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const int id = ids[n];
+  float* dst = out + n;
+  if (id >= 0 && id < S) {
+    const float* col = src + id;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) dst[d * N] = col[d * S];
+  } else {
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) dst[d * N] = 0.0f;
+  }
 }
 
+// rows (accumulators) per segsum_csr lane, at most: few registers, so many
+// threads resident to hide the latency of the walk
+constexpr int kRowChunk = 4;
+
+__device__ __forceinline__ void add_column(float (&acc)[kRowChunk], const float* rows,
+                                           int col, int N, int nr) {
+#pragma unroll
+  for (int r = 0; r < kRowChunk; ++r) {
+    if (r < nr) acc[r] += rows[r * N + col];
+  }
+}
+
+// Group g of G lanes sums segment live[g] (segment g where live is null)
+// for the row chunk blockIdx.y.
+template <int G>
 __global__ void segsum_csr_kernel(const float* __restrict__ vals,
                                   const int32_t* __restrict__ order,
                                   const int32_t* __restrict__ offs,
-                                  float* __restrict__ out,
-                                  int64_t D, int64_t N, int64_t num_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= D * num_out) return;
-  const int64_t d = i / num_out;
-  const int64_t s = i - d * num_out;
-  const float* row = vals + d * N;
-  const int32_t end = offs[s + 1];
-  float acc = 0.0f;
-  for (int32_t j = offs[s]; j < end; ++j) acc += row[order[j]];
-  out[i] = acc;
+                                  const int32_t* __restrict__ live, int count,
+                                  float* __restrict__ out, int D, int N, int num_out,
+                                  int rows_per_chunk) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = t / G;
+  const int lane = t & (G - 1);
+  const int d0 = blockIdx.y * rows_per_chunk;
+  const int nr = min(rows_per_chunk, D - d0);  // uniform across the block
+  // a group past the last segment walks nothing but still joins the
+  // butterfly: every lane of the warp takes part in each shuffle
+  const bool on = g < count;
+  int s = 0, j = 0, end = 0;
+  if (on) {
+    s = live != nullptr ? live[g] : g;
+    j = offs[s] + lane;
+    end = offs[s + 1];
+  }
+  const float* rows = vals + d0 * N;
+  float acc[kRowChunk];
+#pragma unroll
+  for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.0f;
+  if (G == 1) {  // segments of a few entries: unrolling costs more than it hides
+#pragma unroll 1
+    for (; j < end; ++j) add_column(acc, rows, order[j], N, nr);
+  } else {
+    // unrolled, the loads of several entries are in flight at once; each
+    // accumulator still adds its terms in entry order
+#pragma unroll 4
+    for (; j < end; j += G) add_column(acc, rows, order[j], N, nr);
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o /= 2) {
+#pragma unroll
+    for (int r = 0; r < kRowChunk; ++r) {
+      if (r < nr) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+    }
+  }
+  // after the butterfly every lane holds the same sums (a + b == b + a);
+  // lane r % G stores row r
+  if (!on) return;
+  float* dst = out + d0 * num_out + s;
+#pragma unroll
+  for (int r = 0; r < kRowChunk; ++r) {
+    if (r < nr && (r & (G - 1)) == lane) dst[r * num_out] = acc[r];
+  }
+}
+
+// out[0:n] = 0 in 16-byte stores (out from the caching allocator: aligned).
+__global__ void segsum_zero_kernel(float* __restrict__ out, int n) {
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i + 4 <= n) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    for (int k = i; k < n; ++k) out[k] = 0.0f;
+  }
+}
+
+template <int G>
+void launch_segsum(const float* vals, const int32_t* order, const int32_t* offs,
+                   const int32_t* live, int num_live, float* out, int D, int N, int num_out,
+                   int rows, cudaStream_t stream) {
+  const int count = live != nullptr ? num_live : num_out;
+  if (live != nullptr) {
+    const int n = D * num_out;
+    segsum_zero_kernel<<<(n / 4 + kThreads) / kThreads, kThreads, 0, stream>>>(out, n);
+  }
+  if (count == 0) return;
+  const dim3 grid(static_cast<unsigned int>((static_cast<int64_t>(count) * G + kThreads - 1) /
+                                            kThreads),
+                  static_cast<unsigned int>((D + rows - 1) / rows));
+  segsum_csr_kernel<G><<<grid, kThreads, 0, stream>>>(vals, order, offs, live, count, out, D,
+                                                       N, num_out, rows);
 }
 
 __global__ void schur_fused_kernel(const float* __restrict__ W,
@@ -258,24 +358,45 @@ unsigned int blocks_for(int64_t n) {
 
 extern "C" {
 
-// src [D, S], ids [N] int32, out [D, N]; all contiguous fp32/int32.
+// src [D, S], ids [N] int32, out [D, N]; all contiguous fp32/int32, with
+// D*S and D*N within int32.
 int cuba_gather_cols(const float* src, const int32_t* ids, float* out,
                      int64_t D, int64_t S, int64_t N, void* stream) {
+  if (D * S > kInt32Max || D * N > kInt32Max) return static_cast<int>(cudaErrorInvalidValue);
   if (D * N > 0) {
-    gather_cols_kernel<<<blocks_for(D * N), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(src, ids, out, D, S, N);
+    gather_cols_kernel<<<blocks_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        src, ids, out, static_cast<int>(D), static_cast<int>(S), static_cast<int>(N));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // vals [D, N], order [offs[num_out]] int32 (column of vals per CSR entry),
-// offs [num_out + 1] int32, out [D, num_out].
+// offs [num_out + 1] int32, out [D, num_out]; group G in {1, 2, 4, 8, 16,
+// 32} lanes per segment, rows (1 to 4) rows per chunk; D*N, D*num_out and
+// num_out*G within int32.  live (or null) lists the num_live non-empty
+// segments: then out is zeroed first and only those are summed.  Neither
+// the row chunking nor live changes any output's summation order, only how
+// the work is spread.
 int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs,
-                    float* out, int64_t D, int64_t N, int64_t num_out, void* stream) {
+                    const int32_t* live, int64_t num_live, float* out, int64_t D, int64_t N,
+                    int64_t num_out, int64_t group, int64_t rows, void* stream) {
+  if (D * N > kInt32Max || D * num_out > kInt32Max || num_out * group > kInt32Max - kThreads ||
+      rows < 1 || rows > kRowChunk || (D + rows - 1) / rows > 65535 || num_live > num_out) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (D * num_out > 0) {
-    segsum_csr_kernel<<<blocks_for(D * num_out), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(vals, order, offs, out,
-                                                             D, N, num_out);
+    const int d = static_cast<int>(D), n = static_cast<int>(N), m = static_cast<int>(num_out);
+    const int r = static_cast<int>(rows), c = static_cast<int>(num_live);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (group) {
+      case 1: launch_segsum<1>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 2: launch_segsum<2>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 4: launch_segsum<4>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 8: launch_segsum<8>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 16: launch_segsum<16>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 32: launch_segsum<32>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

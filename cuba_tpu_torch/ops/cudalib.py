@@ -117,6 +117,9 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built if missing or older
     than its source), with each entry point's argtypes set and an int
     (cudaError) return."""
+    lib = _libs.get(name)  # loaded: no lock on the per-call path
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -132,12 +135,26 @@ def library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
+def _raw_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# the current stream's handle without building a torch.cuda.Stream (CUDA
+# builds of torch have it; the public call above is the same value)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _raw_stream)
+
+
 def call(what: str, t: torch.Tensor, fn, *args) -> None:
     """Call entry point ``fn(*args, stream)`` on ``t``'s device and current
     stream; raise if it reports a CUDA error (a refused launch never runs,
-    and no later synchronise reports it)."""
-    with torch.cuda.device(t.device):
-        err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    and no later synchronise reports it).  The device is switched only
+    when ``t`` is not on the current one."""
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"{what}: launch failed (cudaError {err})")
 
@@ -154,6 +171,15 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return not _FORCE_PLAIN[0]
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def check_int32(what: str, *sizes: int) -> None:
+    """Raise unless every size fits the kernels' int32 index arithmetic."""
+    if max(sizes) > INT32_MAX:
+        raise ValueError(f"{what}: {max(sizes)} elements exceed the kernel's int32 indexing")
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -319,22 +319,100 @@ class SegmentCSR(NamedTuple):
 
     order: torch.Tensor  # [M] int32: input columns with a valid id, stably sorted by id
     offs: torch.Tensor  # [num_out + 1] int32: segment s is order[offs[s]:offs[s+1]]
+    group: int = 1  # lanes per segment in the CUDA kernel (group_width)
+    # [num_live] int32, the non-empty segments, where nearly all are empty
+    # (the kernel then zeroes the output and sums only these); else None
+    live: Optional[torch.Tensor] = None
+
+
+MAX_GROUP = 32  # one warp
+MAX_ROWS = 4  # accumulators per lane in the CUDA kernel
+SPARSE_EMPTY = 0.97  # the share of empty segments above which a CSR may list the others
+
+
+def group_width(mean: float) -> int:
+    """The segment sum's lanes per segment, for segments of ``mean``
+    entries on average: the smallest power of two at or above mean / 4,
+    capped at a warp, so that a lane walks about four entries.  Long
+    segments then get 32 lanes of independent loads, segments of 0-4
+    entries a lane each.  It fixes the summation order (:func:`segsum_walk`)."""
+    g = 1
+    while 4 * g < mean and g < MAX_GROUP:
+        g *= 2
+    return g
+
+
+L2_BYTES = 50 << 20  # the H100's L2
+
+
+def row_chunk(D: int, N: int, group: int) -> int:
+    """Rows per chunk of the CUDA segment sum (each chunk a grid row of its
+    own; the chunking leaves every output's summation order as it is).
+    Long segments (a full warp per segment) over values of more than half
+    the L2 take one row a chunk: their columns are scattered, and the row
+    that the resident groups read then stays in L2 while neighbouring
+    segments reuse its sectors.  Otherwise the fewest chunks of at most
+    MAX_ROWS rows, each column's id loaded once for as many rows as a lane
+    holds."""
+    if D == 0:
+        return 1
+    if group == MAX_GROUP and 4 * D * N > L2_BYTES // 2:
+        return 1
+    chunks = -(-D // MAX_ROWS)
+    return -(-D // chunks)
 
 
 def segment_csr(ids, num_out: int, device) -> SegmentCSR:
     """CSR of ``ids`` over ``num_out`` segments; ids outside [0, num_out)
-    are left out."""
+    are left out.  It lists its non-empty segments where more than
+    SPARSE_EMPTY of them are empty and the listed ones take a wider group
+    than all of them would; its group width is :func:`group_width` of the
+    mean length of the segments the kernel walks."""
     if isinstance(ids, torch.Tensor):
         ids = ids.cpu().numpy()
     ids = np.asarray(ids, np.int64)
     pos = np.flatnonzero((ids >= 0) & (ids < num_out))
     order = pos[np.argsort(ids[pos], kind="stable")]
+    counts = np.bincount(ids[pos], minlength=num_out)
     offs = np.zeros(num_out + 1, np.int64)
-    np.cumsum(np.bincount(ids[pos], minlength=num_out), out=offs[1:])
+    np.cumsum(counts, out=offs[1:])
+    live = np.flatnonzero(counts)
+    group = group_width(pos.size / num_out) if num_out else 1
+    listed = group_width(pos.size / live.size) if live.size else 1
+    sparse = live.size < (1 - SPARSE_EMPTY) * num_out and listed > group
     return SegmentCSR(
         torch.from_numpy(order.astype(np.int32)).to(device),
         torch.from_numpy(offs.astype(np.int32)).to(device),
+        listed if sparse else group,
+        torch.from_numpy(live.astype(np.int32)).to(device) if sparse else None,
     )
+
+
+def segsum_walk(vals: np.ndarray, csr: SegmentCSR, group: Optional[int] = None) -> np.ndarray:
+    """The CUDA segment sum's exact fp32 summation order, in NumPy (for
+    tests): lane k of segment s's group of G lanes (``group``, by default
+    the CSR's, as the kernel takes it) sums entries offs[s] + k,
+    offs[s] + k + G, ... in order, from 0; then, for o = G/2, ..., 1, every
+    lane adds lane (k xor o)'s partial.  Returns [D, num_out] fp32."""
+    vals = np.asarray(vals, np.float32)
+    order, offs = csr.order.cpu().numpy(), csr.offs.cpu().numpy()
+    G = csr.group if group is None else group
+    out = np.zeros((vals.shape[0], offs.size - 1), np.float32)
+    lanes = np.arange(G)
+    for s in np.flatnonzero(np.diff(offs)):
+        cols = order[offs[s]:offs[s + 1]]
+        part = np.zeros((G, vals.shape[0]), np.float32)
+        for k in range(min(G, cols.size)):
+            run = vals[:, cols[k::G]]
+            # cumsum adds left to right: the lane's serial chain, from +0
+            part[k] = np.cumsum(np.concatenate([part[k][:, None], run], axis=1), axis=1,
+                                dtype=np.float32)[:, -1]
+        o = G // 2
+        while o:
+            part = part + part[lanes ^ o]
+            o //= 2
+        out[:, s] = part[0]
+    return out
 
 
 def schur_lane_csr(plan: SchurPlan, device) -> SegmentCSR:
@@ -403,7 +481,7 @@ KERNEL_SRC = cudalib.SOURCES["segmm"]
 _i64, _vp = ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
     "cuba_gather_cols": [_vp, _vp, _vp, _i64, _i64, _i64, _vp],
-    "cuba_segsum_csr": [_vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp],
+    "cuba_segsum_csr": [_vp, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
     "cuba_schur_fused": [_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp],
     "cuba_compact_to_band": [_vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _vp],
     "cuba_compact_to_dense": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp],
@@ -420,10 +498,11 @@ def _launch_gather(name: str, src: torch.Tensor, ids: torch.Tensor) -> torch.Ten
     cudalib.check(ids, "ids", torch.int32, 1)
     D, S = src.shape
     N = ids.shape[0]
+    cudalib.check_int32(name, D * S, D * N)
     out = torch.empty((D, N), dtype=torch.float32, device=src.device)
     if D * N == 0:
         return out
-    cudalib.call(f"{name} (gather_cols)", src, _kernel_lib().cuba_gather_cols,
+    cudalib.call(name, src, _kernel_lib().cuba_gather_cols,
                  src.data_ptr(), ids.data_ptr(), out.data_ptr(), D, S, N)
     LAUNCHES[name] += 1
     return out
@@ -436,15 +515,20 @@ def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
     cudalib.check(csr.offs, "csr.offs", torch.int32, 1)
     if csr.offs.shape[0] != num_out + 1:
         raise ValueError(f"csr.offs has {csr.offs.shape[0]} entries, expected {num_out + 1}")
-    if csr.order.device != vals.device or csr.offs.device != vals.device:
-        raise ValueError("csr tensors must be on the device of vals")
+    if csr.live is not None:
+        cudalib.check(csr.live, "csr.live", torch.int32, 1)
+    for t in (csr.order, csr.offs, csr.live):
+        if t is not None and t.device != vals.device:
+            raise ValueError("csr tensors must be on the device of vals")
     D, N = vals.shape
+    cudalib.check_int32(name, D * N, D * num_out, num_out * MAX_GROUP)
     out = torch.empty((D, num_out), dtype=torch.float32, device=vals.device)
     if D * num_out == 0:
         return out
-    cudalib.call(f"{name} (segsum_csr)", vals, _kernel_lib().cuba_segsum_csr,
-                 vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(), out.data_ptr(),
-                 D, N, num_out)
+    live, num_live = (None, 0) if csr.live is None else (csr.live.data_ptr(), csr.live.numel())
+    cudalib.call(name, vals, _kernel_lib().cuba_segsum_csr,
+                 vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(), live, num_live,
+                 out.data_ptr(), D, N, num_out, csr.group, row_chunk(D, N, csr.group))
     LAUNCHES[name] += 1
     return out
 

@@ -34,11 +34,12 @@ def _ids(rng, n, num):
     return np.where(u < 0.1, -1, np.where(u > 0.95, num + 3, ids)).astype(np.int32)
 
 
+@pytest.mark.parametrize("D", [1, 3, 12])
 @pytest.mark.parametrize("name", ["resident_gather", "windowed_gather", "tiled_gather"])
-def test_gather_kernel_matches_plain(cuda, name):
-    rng = np.random.default_rng(0)
-    src = torch.from_numpy(rng.standard_normal((12, 5000)).astype(np.float32)).to(cuda)
-    ids = torch.from_numpy(_ids(rng, 70001, 5000)).to(cuda)
+def test_gather_kernel_matches_plain(cuda, name, D):
+    rng = np.random.default_rng(D)
+    src = torch.from_numpy(rng.standard_normal((D, 5000)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(_ids(rng, 70001, 5000)).to(cuda)  # N odd: no vector width divides it
     args = {"resident_gather": (), "windowed_gather": (None, None),
             "tiled_gather": (None, None)}[name]
     before = segmm.LAUNCHES[name]
@@ -49,20 +50,51 @@ def test_gather_kernel_matches_plain(cuda, name):
     assert torch.equal(got, want)
 
 
+def _segment_ids(rng, regime):
+    """(ids, num_out) of one segment-length regime, with -1 and past-the-end
+    ids mixed in: every segment empty, 99 of 100 empty and the others of
+    ~20 entries (the kernel then walks a list of those), every one of
+    length 1, mean 12, mean 400, or one segment of 100k entries between two
+    empty ones."""
+    if regime == "empty":
+        return np.where(rng.random(5000) < 0.5, -1, 3000 + 7).astype(np.int32), 3000
+    if regime == "sparse":
+        return _ids(rng, 8000, 40_000) // 100 * 100, 40_000
+    if regime == "length1":
+        ids = np.concatenate([np.arange(4000), np.full(300, -1), np.full(200, 4009)])
+        return rng.permutation(ids).astype(np.int32), 4000
+    if regime == "one100k":
+        ids = np.concatenate([np.ones(100_000), np.full(50, -1), np.full(50, 3)])
+        return rng.permutation(ids).astype(np.int32), 3
+    num_out = {"mean12": 2000, "mean400": 100}[regime]
+    return _ids(rng, num_out * int(regime[4:]), num_out), num_out
+
+
+@pytest.mark.parametrize("D", [1, 3, 9, 18, 36, 42])
+@pytest.mark.parametrize("regime", ["empty", "sparse", "length1", "mean12", "mean400",
+                                    "one100k"])
 @pytest.mark.parametrize("name", ["accum_segsum", "accum_segsum_windowed", "tiled_segsum"])
-def test_segsum_kernel_matches_plain(cuda, name):
+def test_segsum_kernel_matches_plain(cuda, name, regime, D):
     rng = np.random.default_rng(1)
-    vals = torch.from_numpy(rng.standard_normal((18, 70001)).astype(np.float32)).to(cuda)
-    ids = torch.from_numpy(_ids(rng, 70001, 3000)).to(cuda)
-    csr = segmm.segment_csr(ids, 3000, cuda)
+    ids_np, num_out = _segment_ids(rng, regime)
+    vals_np = rng.standard_normal((D, ids_np.size)).astype(np.float32)
+    vals, ids = torch.from_numpy(vals_np).to(cuda), torch.from_numpy(ids_np).to(cuda)
+    csr = segmm.segment_csr(ids, num_out, cuda)
+    assert (csr.live is not None) == (regime == "sparse")
     args = {"accum_segsum": (), "accum_segsum_windowed": (None, None),
             "tiled_segsum": (None, None)}[name]
-    got = getattr(segmm, name)(vals, ids, 3000, *args, csr=csr)
-    want = getattr(segmm, name + "_plain")(vals, ids, 3000, *args)
-    bound = segmm.accum_segsum_plain(vals.abs(), ids, 3000)
+    before = segmm.LAUNCHES[name]
+    got = getattr(segmm, name)(vals, ids, num_out, *args, csr=csr)
+    want = getattr(segmm, name + "_plain")(vals, ids, num_out, *args)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES[name] == before + 1
+    bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
     assert bool(((got - want).abs() <= 1e-5 * bound).all())
+    # the kernel's own summation order, walked in NumPy: the same bits
+    walk = segmm.segsum_walk(vals_np, csr)
+    assert np.array_equal(got.cpu().numpy().view(np.int32), walk.view(np.int32))
     # deterministic: a second launch gives the same bits
-    assert torch.equal(got, getattr(segmm, name)(vals, ids, 3000, *args, csr=csr))
+    assert torch.equal(got, getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
