@@ -14,9 +14,13 @@ Phases (any failure exits non-zero, before the result line):
    bit for bit, segment sums within 1e-5 of each output's sum of |vals|,
    and a second launch of every kernel equal bit for bit to the first.
    The kernel, its plain version and its library call are timed in turns
-   in one loop of 25 rounds under ``torch.profiler``: the median
-   CUDA-event time of each call (``ms``: the wrapper's host work included)
-   and the median device time of the kernels it ran (``device_ms``).
+   in one loop of 25 rounds under ``torch.profiler``, each call right after
+   an untimed run of itself (warm: it reads its inputs as far as the L2
+   holds them, whatever the order of the calls): the median CUDA-event
+   time of each call (``ms``: the wrapper's host work included) and the
+   median device time of the kernels it ran (``device_ms``).  A second loop
+   times each call after a 128 MB read instead (cold: an empty, clean L2;
+   ``cold_device_ms``).
 3. The main path through the public API: the matrix-free PCG problem of
    ``tools/bench_pcg_crossover.py`` at P = 4096 poses, 61,440 landmarks
    (~5 observations each, 25% stereo, seed 0, gentle initial noise), Huber
@@ -119,11 +123,17 @@ kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
 path's comparisons: ``ms`` / ``plain_ms`` / ``library_ms`` event-timed
 calls, ``device_ms`` / ``plain_device_ms`` / ``library_device_ms`` the
-device time of the same calls, and for a segment sum the group width
+device time of the same calls (warm), ``cold_device_ms`` /
+``plain_cold_device_ms`` / ``library_cold_device_ms`` the device time of
+each after the 128 MB read, and for a segment sum the group width
 ``group`` and rows per chunk ``rows`` the kernel picks there and its CSR's
-shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``).  A
-kernel call that raises, or device times the profiler cannot split, end
-the run.  The last line is ``{"ok": true, "device": {...}}``.
+shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``), for
+``extract_diag_blocks`` its ``grid`` and float4 ``loads`` per thread, for
+``matvec`` its ``slices`` S, accumulators ``accs`` U and ``float4`` loads.
+Each timing loop also logs its launch floor: the median device time of
+its ``torch.cuda._sleep`` marks.  A kernel call that raises, or device
+times the profiler cannot split, end the run.  The last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 import argparse
@@ -152,6 +162,7 @@ HBM_BYTES_PER_MS = 3.35e9
 FP32_FLOPS_PER_MS = 67e9
 REPEATS = 25
 PROFILE_TRIES = 3  # profiler sessions interleaved_times may take to split its rounds
+FLUSH_BYTES = 128 << 20  # read before every cold call: 2.5x the H100's 50 MB L2
 SEGSUM_RTOL = 1e-5
 # the blocked sweeps against their plain versions: each entry within this
 # share of the largest |entry|.  Both sum in exact fp32 in other orders
@@ -175,9 +186,13 @@ SOLVER_RTOL = 2e-2
 # lanes of schur_fused in fp32, each within this share of max |A|
 FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
+# the launch parameters a kernel entry may carry (trisolve.diag_launch,
+# trisolve.matvec_launch), logged beside its times
+LAUNCH_NOTES = ("grid", "loads", "slices", "accs", "float4")
 # the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
-                "compact_to_dense", "band_transpose", "extract_diag", "rowdot", "coldot")
+                "compact_to_dense", "band_transpose", "extract_diag", "rowdot", "coldot",
+                "matvec_kernel")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -243,7 +258,7 @@ def cuda_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def interleaved_times(fns, torch):
+def interleaved_times(fns, torch, cold=False):
     """{label: (call_ms, device_ms)} for the callables of ``fns`` ({label:
     fn}), timed in turns in one loop of REPEATS rounds under
     ``torch.profiler`` (device activity only): call_ms is the median of the
@@ -251,11 +266,16 @@ def interleaved_times(fns, torch):
     device_ms the median over the same calls of the summed durations of the
     device kernels, copies and sets the call ran.
 
-    A ``torch.cuda._sleep`` kernel before each call marks where its device
-    work starts in the trace, and two in a row where a round starts.  The
-    trace can miss events (the first few of a profiler session, as seen on
-    an H100), so a round counts only where the marks split it into as many
-    calls as it made.  Where fewer than half the rounds count, the loop
+    Every call starts from a cache of its own making, so that no call's time
+    depends on which call ran before it: an untimed run of the same call
+    (warm: its inputs in the L2 as far as they fit), or with ``cold`` a
+    read of FLUSH_BYTES (2.5x the L2), which leaves the L2 empty of its
+    inputs and clean.  A ``torch.cuda._sleep`` kernel before that run and
+    another before the call mark where each starts in the trace (the first
+    segment is dropped), and two in a row where a round starts.  The trace
+    can miss events (the first few of a profiler session, as seen on an
+    H100), so a round counts only where the marks split it into as many
+    segments as it made.  Where fewer than half the rounds count, the loop
     runs again in a new profiler session, and the run fails after
     PROFILE_TRIES sessions: every time it returns was measured."""
     labels = list(fns)
@@ -263,8 +283,10 @@ def interleaved_times(fns, torch):
         fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        call_ms, whole = _profiled_rounds(fns, labels, torch)
+        call_ms, whole, marks = _profiled_rounds(fns, labels, torch, cold)
         if 2 * len(whole) >= REPEATS:
+            log(f"launch floor: median device time of this session's {len(marks)} "
+                f"spin_kernel marks {statistics.median(marks) / 1e3:.4f} ms")
             return {k: (statistics.median(call_ms[k]),
                         statistics.median(r[i] for r in whole) / 1e3)
                     for i, k in enumerate(labels)}
@@ -273,18 +295,27 @@ def interleaved_times(fns, torch):
          "profiler sessions")
 
 
-def _profiled_rounds(fns, labels, torch):
+def _profiled_rounds(fns, labels, torch, cold):
     """One profiler session of :func:`interleaved_times`: ({label: call
     ms per round}, [[device us per label] for each round the trace split
-    whole]).  A call that raises ends the run."""
+    whole], [device us of each mark]).  A mark is a ``torch.cuda._sleep(1)``
+    kernel, whose device time is the floor of one launch in this session.
+    A call that raises ends the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call_ms = {k: [] for k in labels}
+    if cold:
+        flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+        prepare = {k: flush.sum for k in labels}
+    else:
+        prepare = fns
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(REPEATS):
             torch.cuda._sleep(1)
             for k in labels:
+                torch.cuda._sleep(1)
+                prepare[k]()
                 torch.cuda._sleep(1)
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
@@ -296,8 +327,10 @@ def _profiled_rounds(fns, labels, torch):
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     segments, cur = [], None  # [events, device us] between consecutive marks
+    marks = []
     for start, end, name in spans:
         if "spin_kernel" in name:
+            marks.append(end - start)
             if cur is not None:
                 segments.append(cur)
             cur = [0, 0.0]
@@ -316,7 +349,8 @@ def _profiled_rounds(fns, labels, torch):
             rnd.append(us)
     if rnd is not None:
         rounds.append(rnd)
-    return call_ms, [r for r in rounds if len(r) == len(labels)]
+    # each call's segment follows its preparation's
+    return call_ms, [r[1::2] for r in rounds if len(r) == 2 * len(labels)], marks
 
 
 def bound(nbytes: float, flops: float):
@@ -424,9 +458,11 @@ def compare_cases(cases, torch, bound_of):
     plain, (bytes, flops), library call or None[, notes]); its label is the
     wrapper's name, with ``:site`` where one wrapper has two call sites.
     Then the kernel, the plain version and the library call of every case
-    are timed in turns in one loop (:func:`interleaved_times`).  Returns
-    {label: {max_abs_err, ms, device_ms, plain_ms, plain_device_ms,
-    bound_ms, bound_by, library_ms, library_device_ms, **notes}}."""
+    are timed in turns in one loop (:func:`interleaved_times`), warm, and
+    in a second loop cold.  Returns {label: {max_abs_err, ms, device_ms,
+    plain_ms, plain_device_ms, bound_ms, bound_by, library_ms,
+    library_device_ms, cold_device_ms, plain_cold_device_ms,
+    library_cold_device_ms, **notes}}."""
     out, fns = {}, {}
     for name, (kind, call, kern, plain, work, library, *notes) in cases.items():
         got = call(kern)
@@ -455,6 +491,7 @@ def compare_cases(cases, torch, bound_of):
         if library is not None:
             fns[(name, "library")] = library
     times = interleaved_times(fns, torch)
+    cold = interleaved_times(fns, torch, cold=True)
 
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
@@ -463,12 +500,18 @@ def compare_cases(cases, torch, bound_of):
         (e["ms"], e["device_ms"]), (e["plain_ms"], e["plain_device_ms"]) = (
             times[(name, "kernel")], times[(name, "plain")])
         e["library_ms"], e["library_device_ms"] = times.get((name, "library"), (None, None))
+        e["cold_device_ms"], e["plain_cold_device_ms"] = (
+            cold[(name, "kernel")][1], cold[(name, "plain")][1])
+        e["library_cold_device_ms"] = cold.get((name, "library"), (None, None))[1]
         lib = ("none" if (name, "library") not in times else
-               f"{fmt(e['library_ms'])} (device {fmt(e['library_device_ms'])})")
+               f"{fmt(e['library_ms'])} (device {fmt(e['library_device_ms'])}, cold "
+               f"{fmt(e['library_cold_device_ms'])})")
         group = f" G {e['group']} R {e['rows']}" if "group" in e else ""
+        group += "".join(f" {k} {e[k]}" for k in LAUNCH_NOTES if k in e)
         log(f"kernel {name}:{group} max_abs_err {e['max_abs_err']:.3e} kernel {fmt(e['ms'])} "
-            f"(device {fmt(e['device_ms'])}) plain {fmt(e['plain_ms'])} (device "
-            f"{fmt(e['plain_device_ms'])}) bound {e['bound_ms']:.4f} ms ({e['bound_by']}) "
+            f"(device {fmt(e['device_ms'])}, cold {fmt(e['cold_device_ms'])}) plain "
+            f"{fmt(e['plain_ms'])} (device {fmt(e['plain_device_ms'])}, cold "
+            f"{fmt(e['plain_cold_device_ms'])}) bound {e['bound_ms']:.4f} ms ({e['bound_by']}) "
             f"library {lib}")
     return out
 
@@ -617,7 +660,8 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
             "exact", lambda f: f(L), trisolve.extract_diag_blocks,
             trisolve.extract_diag_blocks_plain, (8 * K * trisolve.BLOCK ** 2, 0),
             lambda: torch.diagonal(L.reshape(K, trisolve.BLOCK, K, trisolve.BLOCK), dim1=0,
-                                   dim2=2).permute(2, 0, 1).contiguous()),
+                                   dim2=2).permute(2, 0, 1).contiguous(),
+            trisolve.diag_launch(K)),
         "solve_lower": (
             ("solve", y), lambda f: f(L, invd, b), trisolve.solve_lower,
             trisolve.solve_lower_plain, (tri_bytes, n * n),
@@ -628,7 +672,8 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
             lambda: torch.linalg.solve_triangular(L.mT, y[:, None], upper=True)),
         "matvec": (
             ("matvec",), lambda f: f(A, x), trisolve.matvec, trisolve.matvec_plain,
-            (4 * (n * n + 2 * n), 2 * n * n), lambda: torch.mv(A, x)),
+            (4 * (n * n + 2 * n), 2 * n * n), lambda: torch.mv(A, x),
+            trisolve.matvec_launch(A, x)),
     }
 
     def bound_of(*kind):
@@ -1297,8 +1342,10 @@ def main() -> None:
                             "replaces": REPLACES[name], "launches": launches[name],
                             "attempts": attempts[path], **e})
     unmeasured = [(e["name"], e["path"]) for e in entries
-                  if e["device_ms"] is None or e["plain_device_ms"] is None
-                  or (e["library_ms"] is not None and e["library_device_ms"] is None)]
+                  if None in (e["device_ms"], e["plain_device_ms"], e["cold_device_ms"],
+                              e["plain_cold_device_ms"])
+                  or (e["library_ms"] is not None
+                      and None in (e["library_device_ms"], e["library_cold_device_ms"]))]
     if unmeasured:
         fail(f"kernels without device times: {unmeasured}")
     names = {e["name"] for e in entries}

@@ -26,26 +26,40 @@ under ``cudalib.use_plain()``; a CUDA tensor launches the hand-written
 kernel of ``csrc/trisolve.cu`` (one host call per sweep, 2K launches).  The
 port's sweeps run in exact fp32, where the TPU's ran their stripe updates at
 the MXU's default bf16-pass precision.
+
+The launches of the diagonal copy (:func:`diag_launch`) and the matvec
+(:func:`matvec_launch`, with its one rule, :func:`matvec_slices`) live here,
+with their kernels' index arithmetic and summation order in NumPy
+(:func:`extract_diag_walk`, :func:`matvec_walk`) for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cuba_tpu_torch.ops import cudalib
 from cuba_tpu_torch.ops.cudalib import LAUNCHES
 
 BLOCK = 256  # stripe width; n (= 6 * pad_blocks) is a multiple of 768
+SMS = 132  # the H100's streaming multiprocessors
+THREADS = 256  # threads a block of the diagonal copy and of the matvec
+QUADS = BLOCK // 4  # float4 per row of a diagonal block
+DIAG_PASS = THREADS // QUADS  # rows of a diagonal block one load of a block covers
+DIAG_LOADS = 2  # float4 a thread of the copy moves (kLoads in csrc/trisolve.cu)
+MATVEC_WARPS_PER_SM = 32  # the matvec's slices fill the card to this many warps an SM
+MAX_SLICES = 8  # a block's 8 warps
+MATVEC_ACCS = 4  # accumulators a lane, U (kAccs in csrc/trisolve.cu)
 
 KERNEL_SRC = cudalib.SOURCES["trisolve"]
-_i64, _vp = ctypes.c_int64, ctypes.c_void_p
+_i32, _i64, _vp = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
-    "cuba_extract_diag_blocks": [_vp, _i64, _i64, _vp, _vp],
+    "cuba_extract_diag_blocks": [_vp, _i64, _vp, _vp],
     "cuba_solve_lower": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
     "cuba_solve_upper": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
-    "cuba_matvec": [_vp, _vp, _vp, _i64, _vp],
+    "cuba_matvec": [_vp, _vp, _vp, _i64, _i32, _i32, _vp],
 }
 
 
@@ -80,15 +94,49 @@ def extract_diag_blocks_plain(L, block: int = BLOCK):
         .contiguous()
 
 
+def diag_launch(K: int) -> dict:
+    """The diagonal copy's launch for K blocks of 256: ``loads`` float4 a
+    thread (each thread issues both before its first store) and the
+    ``grid`` [row groups, K] of THREADS-thread blocks: 192 blocks at
+    kitti07's K = 6, at least one per SM."""
+    return dict(grid=[BLOCK // (DIAG_PASS * DIAG_LOADS), K], loads=DIAG_LOADS)
+
+
+def extract_diag_walk(L: np.ndarray):
+    """The diagonal copy's index arithmetic in NumPy (for tests): block (x,
+    k) of the grid, thread t and load i < DIAG_LOADS copy float4 number
+    r * n/4 + k * QUADS + t % QUADS of L to number r * QUADS + t % QUADS of
+    the output, r = k * BLOCK + x * DIAG_PASS * DIAG_LOADS + t // QUADS + i
+    * DIAG_PASS.  Returns ([K, B, B], the times each output float4 was
+    written)."""
+    n = L.shape[0]
+    K = n // BLOCK
+    gx = diag_launch(K)["grid"][0]
+    k, x, t, i = np.meshgrid(np.arange(K), np.arange(gx), np.arange(THREADS),
+                             np.arange(DIAG_LOADS), indexing="ij")
+    c = t % QUADS
+    r = k * BLOCK + x * (DIAG_PASS * DIAG_LOADS) + t // QUADS + i * DIAG_PASS
+    src, dst = (r * (n // 4) + k * QUADS + c).ravel(), (r * QUADS + c).ravel()
+    out = np.zeros((K * BLOCK * QUADS, 4), L.dtype)
+    out[dst] = np.asarray(L).reshape(-1, 4)[src]
+    return out.reshape(K, BLOCK, BLOCK), np.bincount(dst, minlength=out.shape[0])
+
+
 def extract_diag_blocks(L, block: int = BLOCK):
-    """[K, B, B] copy of L's diagonal B x B blocks."""
+    """[K, B, B] copy of L's diagonal B x B blocks.  On the card: B = 256
+    and L 16-byte aligned (the kernel's float4 loads), else it raises."""
     K = _stripes(L, block)
     if not cudalib.use_kernel(L):
         return extract_diag_blocks_plain(L, block)
     cudalib.check(L, "L", torch.float32, 2)
-    out = torch.empty((K, block, block), dtype=torch.float32, device=L.device)
+    if block != BLOCK:
+        raise ValueError(f"extract_diag_blocks: the kernel copies blocks of {BLOCK}, not {block}")
+    if L.data_ptr() % 16:
+        raise ValueError("extract_diag_blocks: L must be 16-byte aligned (float4 loads)")
+    cudalib.check_int32("extract_diag_blocks", L.numel())
+    out = torch.empty((K, BLOCK, BLOCK), dtype=torch.float32, device=L.device)
     cudalib.call("extract_diag_blocks", L, _lib().cuba_extract_diag_blocks,
-                 L.data_ptr(), L.shape[0], block, out.data_ptr())
+                 L.data_ptr(), L.shape[0], out.data_ptr())
     LAUNCHES["extract_diag_blocks"] += 1
     return out
 
@@ -163,9 +211,91 @@ def matvec_plain(A, x, block: int = BLOCK):
     return A @ x
 
 
+def matvec_slices(n: int) -> int:
+    """S, the slices (one warp each) a row of the matvec is cut into: the
+    smallest power of two with n * S warps at or above MATVEC_WARPS_PER_SM
+    an SM, at most MAX_SLICES.  It fixes the summation order
+    (:func:`matvec_walk`)."""
+    S = 1
+    while n * S < SMS * MATVEC_WARPS_PER_SM and S < MAX_SLICES:
+        S *= 2
+    return S
+
+
+def matvec_launch(A, x) -> dict:
+    """The matvec's launch: ``slices`` S, ``accs`` U, and ``float4`` where
+    n % 4 == 0 and A and x are 16-byte aligned (four scalar loads a quad
+    otherwise, in the same order)."""
+    return dict(slices=matvec_slices(A.shape[0]), accs=MATVEC_ACCS, float4=_float4(A, x))
+
+
+def _float4(A, x) -> bool:
+    return A.shape[0] % 4 == 0 and A.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+
+
+def fma32(a, b, c):
+    """fp32 fused multiply-add rounded once, as the card's ``fmaf``: the
+    product of two fp32 values is exact in fp64; the fp64 sum is rounded to
+    odd (its error from TwoSum), which an fp32 rounding then takes to the
+    correctly rounded result."""
+    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32).astype(np.float64)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def matvec_walk(A, x, slices: int = None) -> np.ndarray:
+    """The CUDA matvec's exact fp32 summation order, in NumPy (for tests).
+    A row's n columns form q = ceil(n/4) quads (a partial last one padded
+    with zero terms), cut into ``slices`` S (by default :func:`matvec_slices`)
+    of w = ceil(q/S) quads.  Lane l < 32 of slice s adds quads s*w + l + 32t,
+    t = 0, 1, ..., below min(q, (s+1)*w), into accumulator t % MATVEC_ACCS,
+    the quad's four terms by :func:`fma32` in column order, from 0; its
+    partial is acc[0] + acc[1] + ... in index order; for o = 16, ..., 1
+    every lane adds lane (l xor o)'s partial; the row's sum is the slices'
+    partials added in slice order.  Returns [n] fp32."""
+    A, x = np.asarray(A, np.float32), np.asarray(x, np.float32)
+    n = A.shape[0]
+    S = matvec_slices(n) if slices is None else slices
+    q = -(-n // 4)
+    w = -(-q // S)
+    Ap = np.zeros((n, 4 * q), np.float32)
+    Ap[:, :n] = A
+    xp = np.zeros(4 * q, np.float32)
+    xp[:n] = x
+    lanes = np.arange(32)
+    parts = []
+    for s in range(S):
+        lo, hi = s * w, min(q, (s + 1) * w)
+        acc = np.zeros((MATVEC_ACCS, n, 32), np.float32)
+        for t in range(-(-max(hi - lo, 0) // 32)):
+            j = lo + 32 * t + lanes
+            live = j < hi
+            j = np.where(live, j, 0)
+            for c in range(4):
+                acc[t % MATVEC_ACCS] = np.where(live, fma32(Ap[:, 4 * j + c], xp[4 * j + c],
+                                                     acc[t % MATVEC_ACCS]), acc[t % MATVEC_ACCS])
+        p = acc[0]
+        for u in range(1, MATVEC_ACCS):
+            p = p + acc[u]
+        o = 16
+        while o:
+            p = p + p[:, lanes ^ o]
+            o //= 2
+        parts.append(p[:, 0])
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    return y
+
+
 def matvec(A, x, block: int = BLOCK):
-    """y = A x in exact fp32, one fixed summation order per row (the
-    iterative-refinement residual)."""
+    """y = A x in exact fp32, one fixed summation order per row
+    (:func:`matvec_walk`; the iterative-refinement residual)."""
     n = A.shape[0]
     if A.dim() != 2 or A.shape[1] != n or tuple(x.shape) != (n,):
         raise ValueError(f"A {tuple(A.shape)} and x {tuple(x.shape)} do not fit")
@@ -173,9 +303,20 @@ def matvec(A, x, block: int = BLOCK):
         return matvec_plain(A, x, block)
     cudalib.check(A, "A", torch.float32, 2)
     cudalib.check(x, "x", torch.float32, 1)
-    y = torch.empty_like(x)
-    cudalib.call("matvec", A, _lib().cuba_matvec, A.data_ptr(), x.data_ptr(), y.data_ptr(), n)
+    cudalib.check_int32("matvec", A.numel())
+    if n == 0:
+        return torch.empty_like(x)
+    y = _matvec_kernel(A, x, matvec_slices(n))
     LAUNCHES["matvec"] += 1
+    return y
+
+
+def _matvec_kernel(A, x, slices: int):
+    """The matvec's kernel at ``slices`` S (the wrapper passes the rule's;
+    the probe and the card's tests sweep it)."""
+    y = torch.empty_like(x)
+    cudalib.call("matvec", A, _lib().cuba_matvec, A.data_ptr(), x.data_ptr(), y.data_ptr(),
+                 A.shape[0], slices, int(_float4(A, x)))
     return y
 
 

@@ -267,6 +267,77 @@ def test_matvec_kernel_matches_plain(spd_factor):
     assert torch.equal(got, trisolve.matvec(A, b))  # deterministic
 
 
+@pytest.mark.parametrize("n", [512, 1536, 8448])
+def test_extract_diag_blocks_kernel_is_a_copy(cuda, n):
+    """Bit for bit the plain version at the dense path's sizes (K = 2, the
+    kitti07 6 and kitti00's 33)."""
+    L = torch.from_numpy(np.random.default_rng(n).standard_normal((n, n)).astype(
+        np.float32)).to(cuda)
+    want = trisolve.extract_diag_blocks_plain(L)
+    before = segmm.LAUNCHES["extract_diag_blocks"]
+    got = trisolve.extract_diag_blocks(L)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["extract_diag_blocks"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_extract_diag_blocks_refuses_a_misaligned_L(cuda):
+    n = 512
+    L = torch.zeros(n * n + 1, device=cuda)[1:].view(n, n)  # contiguous, 4 bytes off
+    assert L.is_contiguous() and L.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        trisolve.extract_diag_blocks(L)
+
+
+def _matvec_problem(n, device):
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    x = (rng.standard_normal(n) * np.exp(rng.uniform(-3, 3, n))).astype(np.float32)
+    return A, x, torch.from_numpy(A).to(device), torch.from_numpy(x).to(device)
+
+
+def _bits(t):
+    return t.cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 1536, 8448])
+def test_matvec_kernel_follows_its_walk(cuda, n):
+    """Within 1e-6 of each row's sum of |A_ij x_j| of ``matvec_walk`` and, the
+    walk being the kernel's order, its bits; the same bits on a relaunch."""
+    A_np, x_np, A, x = _matvec_problem(n, cuda)
+    before = segmm.LAUNCHES["matvec"]
+    got = trisolve.matvec(A, x)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["matvec"] == before + 1
+    walk = trisolve.matvec_walk(A_np, x_np)
+    bound = np.abs(A_np).astype(np.float64) @ np.abs(x_np).astype(np.float64)
+    assert np.all(np.abs(got.cpu().numpy().astype(np.float64) - walk) <= 1e-6 * bound)
+    assert np.array_equal(_bits(got), walk.view(np.int32))
+    assert np.array_equal(_bits(got), _bits(trisolve.matvec(A, x)))
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1001, 1536])
+def test_matvec_kernel_every_launch_follows_its_walk(cuda, n, slices):
+    """Every S the probe sweeps, with scalar loads (n = 1001, a partial last
+    quad) and float4 loads (1536): the walk's bits."""
+    A_np, x_np, A, x = _matvec_problem(n, cuda)
+    got = trisolve._matvec_kernel(A, x, slices)
+    want = trisolve.matvec_walk(A_np, x_np, slices)
+    assert np.array_equal(_bits(got), want.view(np.int32))
+
+
+def test_matvec_kernel_misaligned_takes_the_scalar_loads(cuda):
+    """A view 4 bytes off takes the scalar loads, in the same order: the
+    same bits as the float4 launch."""
+    n = 1536
+    _A_np, _x_np, A, x = _matvec_problem(n, cuda)
+    Am = torch.empty(n * n + 1, device=cuda)[1:].view(n, n)
+    Am.copy_(A)
+    assert trisolve.matvec_launch(A, x)["float4"] and not trisolve.matvec_launch(Am, x)["float4"]
+    assert np.array_equal(_bits(trisolve.matvec(Am, x)), _bits(trisolve.matvec(A, x)))
+
+
 def test_cholesky_solve_kernels_match_plain(spd_factor):
     A, _L, _invd, b = spd_factor
     x, ok, reads = dense_cholesky.cholesky_solve(A, b, 2, use_kernels=True)

@@ -1,0 +1,118 @@
+"""The CUDA diagonal copy's and matvec's design, checked on the CPU: the
+launch rules, the copy's index arithmetic and the matvec's summation order.
+
+The kernels (``csrc/trisolve.cu`` ``extract_diag_kernel``, ``matvec_kernel``)
+cannot run here.  ``trisolve.extract_diag_walk`` is the copy's grid
+arithmetic in NumPy: every output float4 written once, bit for bit the plain
+version and cuba_tpu's Pallas ``_extract_diag_blocks`` in interpret mode.
+``trisolve.matvec_walk`` is the matvec's order (slices, lanes, accumulators,
+fp32 FMAs); the card's tests hold the kernel to it.  Here it is held within
+1e-6 of each row's sum of |A_ij x_j| of the plain version and of cuba_tpu's
+Pallas ``matvec`` in interpret mode (``tests/test_torch_dense.py``'s bar).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cuba_tpu.solver import trisolve as tpu_trisolve
+from cuba_tpu_torch.solver import trisolve
+
+torch.set_num_threads(1)
+
+SUM_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("n,slices", [(768, 8), (1536, 4), (3072, 2), (8448, 1)])
+def test_matvec_slice_rule(n, slices):
+    assert trisolve.matvec_slices(n) == slices
+    # the rule's point fills the card to at least MATVEC_WARPS_PER_SM an SM
+    # where the cap allows
+    assert n * slices >= trisolve.SMS * trisolve.MATVEC_WARPS_PER_SM
+
+
+@pytest.mark.parametrize("K,grid", [(2, [32, 2]), (6, [32, 6]), (8, [32, 8]), (9, [32, 9]),
+                                    (33, [32, 33])])
+def test_diag_launch_rule(K, grid):
+    launch = trisolve.diag_launch(K)
+    assert launch == dict(grid=grid, loads=trisolve.DIAG_LOADS)
+    if K >= 6:  # kitti07 (K = 6) and up: at least one block per SM
+        assert grid[0] * grid[1] >= trisolve.SMS
+
+
+def test_fma32_rounds_once():
+    """(1 + 2^-12)^2 + 2^-80 lies just above an fp32 midpoint: one rounding
+    goes up, an fp64 sum rounded again to fp32 lands on the midpoint and
+    goes down to even."""
+    a, c = np.float32(1 + 2 ** -12), np.float32(2 ** -80)
+    assert trisolve.fma32(a, a, c) == np.float32(1 + 2 ** -11 + 2 ** -23)
+    assert np.float32(np.float64(a) * np.float64(a) + np.float64(c)) == np.float32(1 + 2 ** -11)
+    rng = np.random.default_rng(3)
+    x, y, z = (rng.standard_normal(1000).astype(np.float32) for _ in range(3))
+    exact = x.astype(np.float64) * y + z  # exact here: no rounding to fp64 beyond 53 bits
+    np.testing.assert_array_equal(trisolve.fma32(x, y, z), exact.astype(np.float32))
+
+
+def _problem(n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    x = (rng.standard_normal(n) * np.exp(rng.uniform(-3, 3, n))).astype(np.float32)
+    return A, x, np.abs(A).astype(np.float64) @ np.abs(x).astype(np.float64)
+
+
+@pytest.mark.parametrize("n", [768, 1536])
+def test_matvec_walk_matches_plain_and_pallas(n):
+    A, x, bound = _problem(n, n)
+    walk = trisolve.matvec_walk(A, x)
+    assert walk.dtype == np.float32 and walk.shape == (n,)
+    plain = trisolve.matvec_plain(torch.from_numpy(A), torch.from_numpy(x)).numpy()
+    pallas = np.asarray(tpu_trisolve.matvec(jnp.asarray(A), jnp.asarray(x), interpret=True))
+    for want in (plain, pallas):
+        assert np.all(np.abs(walk.astype(np.float64) - want) <= SUM_RTOL * bound)
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 1001])
+def test_matvec_walk_any_n_matches_plain(n):
+    """n % 4 != 0 (and n below a warp): the partial last quad and the empty
+    slices."""
+    A, x, bound = _problem(n, n + 17)
+    walk = trisolve.matvec_walk(A, x)
+    plain = trisolve.matvec_plain(torch.from_numpy(A), torch.from_numpy(x)).numpy()
+    assert walk.shape == (n,)
+    assert np.all(np.abs(walk.astype(np.float64) - plain) <= SUM_RTOL * bound)
+
+
+def test_matvec_walk_follows_its_order():
+    """One row whose fp32 sum depends on the order, at S = 1 (U = 4): quad 0
+    (lane 0, t = 0) into acc 0, quad 32 (lane 0, t = 1) into acc 1, every
+    other quad zero; the row is acc0 + acc1 and the butterfly adds zeros."""
+    n = 4 * 33
+    A = np.zeros((n, n), np.float32)
+    A[0, 0:4] = [1e8, 1.0, -1e8, 1.0]  # serial FMAs: ((1e8 + 1) - 1e8) + 1 = 1
+    A[0, 128] = 1.0
+    x = np.ones(n, np.float32)
+    assert trisolve.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
+    # with S = 2, quad 32 is lane 15 of slice 1 (w = 17): the same terms
+    assert trisolve.matvec_walk(A, x, slices=2)[0] == np.float32(2.0)
+    A[0, 1] = 0.5  # 1e8 + 0.5 rounds to 1e8 in fp32: the chain loses it
+    assert trisolve.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
+    assert float(trisolve.matvec_plain(torch.from_numpy(A.astype(np.float64)),
+                                       torch.from_numpy(x.astype(np.float64)))[0]) == 2.5
+
+
+@pytest.mark.parametrize("triangle", ["lower", "full"])
+@pytest.mark.parametrize("n", [256, 512, 768, 1536])
+def test_extract_diag_walk_matches_plain_and_pallas(n, triangle):
+    """L's lower triangle (as the factor gives it) and a full matrix (every
+    entry of a diagonal block non-zero)."""
+    rng = np.random.default_rng(n)
+    L = rng.standard_normal((n, n)).astype(np.float32)
+    if triangle == "lower":
+        L = np.tril(L)
+    pallas = np.asarray(tpu_trisolve._extract_diag_blocks(jnp.asarray(L), trisolve.BLOCK, True))
+    got, writes = trisolve.extract_diag_walk(L)
+    assert np.all(writes == 1)  # every output float4 written exactly once
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(
+        torch.from_numpy(L)).numpy())
