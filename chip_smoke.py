@@ -129,7 +129,8 @@ each after the 128 MB read, and for a segment sum the group width
 ``group`` and rows per chunk ``rows`` the kernel picks there and its CSR's
 shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``), for
 ``extract_diag_blocks`` its ``grid`` and float4 ``loads`` per thread, for
-``matvec`` its ``slices`` S, accumulators ``accs`` U and ``float4`` loads.
+``solve_upper`` its ``tile`` width and ``grid``, for ``matvec`` its ``slices`` S,
+accumulators ``accs`` U and ``float4`` loads.
 Each timing loop also logs its launch floor: the median device time of
 its ``torch.cuda._sleep`` marks.  A kernel call that raises, or device
 times the profiler cannot split, end the run.  The last line is ``{"ok":
@@ -187,12 +188,12 @@ SOLVER_RTOL = 2e-2
 FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
 # the launch parameters a kernel entry may carry (trisolve.diag_launch,
-# trisolve.matvec_launch), logged beside its times
-LAUNCH_NOTES = ("grid", "loads", "slices", "accs", "float4")
+# trisolve.solve_upper_launch, trisolve.matvec_launch), logged beside its times
+LAUNCH_NOTES = ("grid", "loads", "tile", "slices", "accs", "float4")
 # the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
-                "compact_to_dense", "band_transpose", "extract_diag", "rowdot", "coldot",
-                "matvec_kernel")
+                "compact_to_dense", "band_transpose", "extract_diag", "rowdot",
+                "solve_upper_kernel", "matvec_kernel")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -649,7 +650,9 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     x = (s * z).contiguous()
     K = n // trisolve.BLOCK
     n_slots = int((rc.iru >= 0).sum())
-    tri_bytes = 4 * (n * (n + 1) // 2 + K * trisolve.BLOCK ** 2 + 2 * n)
+    # a sweep reads L's strictly-lower blocks (invd takes the place of its
+    # diagonal blocks), invd and the vector, and writes its result
+    tri_bytes = 4 * ((n * n - K * trisolve.BLOCK ** 2) // 2 + K * trisolve.BLOCK ** 2 + 2 * n)
     cases = {
         "compact_to_dense": (
             "exact", lambda f: f(*dense_args, table=rc.dense_table),
@@ -669,7 +672,8 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
         "solve_upper": (
             ("solve", z), lambda f: f(L, invd, y), trisolve.solve_upper,
             trisolve.solve_upper_plain, (tri_bytes, n * n),
-            lambda: torch.linalg.solve_triangular(L.mT, y[:, None], upper=True)),
+            lambda: torch.linalg.solve_triangular(L.mT, y[:, None], upper=True),
+            trisolve.solve_upper_launch(n)),
         "matvec": (
             ("matvec",), lambda f: f(A, x), trisolve.matvec, trisolve.matvec_plain,
             (4 * (n * n + 2 * n), 2 * n * n), lambda: torch.mv(A, x),

@@ -11,29 +11,63 @@
 //
 // The TPU kernels walk K = n/B stripes (B = 256) as a sequential grid with
 // the running update d resident in VMEM; step k of the forward sweep is
-// y_k = invd[k] (b_k + d_k), then d -= L[:, stripe k] y_k.  On the GPU the
-// grid is not sequential and blocks cannot carry d from one step to the
-// next, so each step is two launches on the caller's stream, with d in
-// device memory (the stream orders them):
-//   1. the diagonal step: y_k = invd[k] (b_k + d_k), a 256x256 product;
-//   2. the update: d_r -= L[r, stripe k] . y_k for the rows r >= (k+1)B
-//      only.  The TPU kernel also updates the diagonal block's own rows
-//      after reading them (harmless in a sequential grid); here those rows
-//      are never written after step 1 of their stripe has read them.
-// The backward sweep is the same over ROW stripes of L (no transpose is
-// formed): x_k = invd[k]^T (y_k + d_k), then d_c -= L[stripe k, c] . x_k
-// for the columns c < kB.  2K launches per solve, all from one host call.
+// y_k = invd[k] (b_k + d_k), then d -= L[:, stripe k] y_k.
 //
-// Two reduction shapes serve the sweeps, each summing in one fixed order
-// (no atomics: every run gives the same bits):
-//  * rowdot: out[r] (=, or -=) sum_c M[r, c] v[c]; one warp per row, lane l
-//    summing columns l, l+32, ... in order (coalesced 128-byte reads of the
-//    row), then a butterfly of shuffles (every lane ends with the same sum).
-//    The forward sweep's steps.
-//  * coldot: out[c] (=, or -=) sum_a M[a, c] v[a]; a block of 8 warps
-//    covers 32 columns, lane on the column (coalesced reads along a row of
-//    M), warp w summing rows w, w+8, ... in order; the 8 partial sums are
-//    added in warp order through shared memory.  The backward sweep's steps.
+// The forward sweep (solve_lower): on the GPU the grid is not sequential
+// and blocks cannot carry d from one step to the next, so each step is two
+// launches on the caller's stream, with d in device memory (the stream
+// orders them): the diagonal step y_k = invd[k] (b_k + d_k), then the
+// update d_r -= L[r, stripe k] . y_k for the rows r >= (k+1)B only.  Both
+// are rowdot: out[r] (=, or -=) sum_c M[r, c] v[c], one warp per row, lane
+// l summing columns l, l+32, ... in order, then a butterfly of shuffles.
+// 2K launches per solve, all from one host call.
+//
+// The backward sweep (solve_upper_kernel) is one launch.  It is written
+// left-looking, for x = L^-T y directly, over ROW stripes of L (no
+// transpose is formed):
+//   x_i = invd[i]^T r_i,  r_i = y_i - sum_{j > i} L[stripe j, stripe i]^T x_j.
+// What bounded the 2K-launch version was not bytes: 2K dependent launches
+// (66 at n = 8448, 6.5 us each against ~1.3 us of bytes a step), a 256x256
+// diagonal step on 8 blocks of a 132-SM card, late updates on lo/32 blocks,
+// and scalar loads with one row a warp in flight.  Here:
+//  * A tile is (stripe i, kTile = 32 consecutive columns of it), one block
+//    each, K * 256/32 blocks in all.  It reads its column block
+//    L[(i+1)B : n, cols] once as float4 (128 contiguous bytes a row), kRows
+//    = 8 rows a thread a stripe, the next stripe's rows loaded into
+//    registers before it waits for the current stripe's x (L does not
+//    depend on x: a tile waits only for x_j itself, 32 KB a block in
+//    flight).  It stages invd[i][:, cols] (B*32 floats) in shared memory
+//    first, so its diagonal step reads no device memory.  What bounds it is
+//    then the chain of two hand-offs a stripe (on an H100 ~3.5 us a stripe
+//    at K = 6, ~5.2 us at K = 33), not the bytes (L's strictly-lower
+//    blocks once).  Tiles of 16 columns were no faster.
+//  * Order of work without a deadlock: a block takes its tile from an
+//    atomic ticket, stripe K-1's tiles first, then K-2's, ...  A tile waits
+//    only on tiles of higher stripes (smaller tickets) and on the other
+//    tiles of its own stripe; tickets go only to running blocks, so every
+//    wait ends once 256/32 blocks can be resident at once.  Any grid size
+//    works; no cooperative launch.
+//  * Hand-off, two flags a stripe (int32 counters in a zeroed workspace,
+//    each on a 128-byte line of its own): a tile writes r for its 32
+//    columns to rbuf and adds one to cnt[i], waits for cnt[i] = 8, reads all
+//    of r_i, writes its 32 entries of x_i = invd[i][:, cols]^T r_i and adds
+//    one to ready[i]; a consumer of x_j waits for ready[j] = 8.
+//  * Memory ordering (the usual fault of such kernels).  Publish: every
+//    writing thread writes, runs __threadfence(), then __syncthreads(), then
+//    one thread adds to the flag.  Wait: one thread spins on a volatile
+//    read of the flag, runs __threadfence(), then __syncthreads().  x and
+//    rbuf, written by other blocks during the kernel, are read only with
+//    __ldcg (through the L2), never through __ldg or a const __restrict__
+//    pointer: the non-coherent path may return stale lines.  L, invd and y
+//    are read-only and use __ldg.
+//  * Every wait is bounded: past kSpinCycles (~0.5 s, far above any real
+//    wait) the spinning thread calls __trap(), and the fault surfaces as a
+//    CUDA error at the caller's next synchronise.
+//  * Deterministic sums, no float atomics: a thread adds its terms in one
+//    fixed order (j from K-1 down to i+1, its rows in row order), the row
+//    groups are combined through shared memory in group order, and r_i =
+//    y_i - that sum.  The diagonal step has the same shape over invd[i]'s
+//    rows.  trisolve.solve_upper_walk is that order in NumPy.
 //
 // The matvec has a kernel of its own (matvec_kernel): one warp per row
 // would leave 1,536 warps at n = 1536, too few loads in flight to hide the
@@ -55,10 +89,12 @@
 // error to iterative refinement; the port does not lower precision.
 //
 // All four are bound by device-memory bytes, one FMA per element of L or A
-// read: a sweep reads the lower triangle of L once (n^2/2 * 4 bytes, 4.7 MB
-// at n = 1536, 143 MB at n = 8448), the matvec all of A, the copy the K
-// diagonal blocks twice (read and write).  At small n the 2K launches of a
-// sweep, not the bytes, set its time.
+// read: a sweep reads the strictly-lower blocks of L once (invd stands for
+// the diagonal ones: (n^2 - K B^2)/2 * 4 bytes, 3.9 MB at n = 1536, 138 MB
+// at n = 8448), the matvec all of A, the copy the K
+// diagonal blocks twice (read and write).  At small n the forward sweep's
+// 2K launches, and the backward sweep's K stripe hand-offs, not the bytes,
+// set their time.
 //
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns the first cudaGetLastError() that is not cudaSuccess,
@@ -76,6 +112,13 @@ constexpr int kQuads = kBlock / 4;          // float4 per row of a block
 constexpr int kPass = kThreads / kQuads;    // rows a block copies per load
 constexpr int kLoads = 2;                   // float4 a thread of the copy moves
 constexpr int kAccs = 4;                    // accumulators a lane of the matvec
+constexpr int kTile = 32;                   // columns a block of the backward sweep takes
+constexpr int kTileQuads = kTile / 4;       // float4 a row of a tile
+constexpr int kGroups = kThreads / kTileQuads;  // row groups of a tile
+constexpr int kRows = kBlock / kGroups;     // rows of a stripe a thread of a tile takes
+constexpr int kTiles = kBlock / kTile;      // tiles a stripe
+constexpr int kLine = 32;                   // int32s between two flags: a 128-byte line
+constexpr long long kSpinCycles = 1LL << 30;  // ~0.54 s at 1.98 GHz: a wait past it traps
 
 // out[k] = L[kB:(k+1)B, kB:(k+1)B] for B = 256, in float4 (n4 = n / 4).
 // Block (x, k) copies rows x*kPass*kLoads + t/kQuads + i*kPass, i < kLoads,
@@ -208,33 +251,133 @@ __global__ void rowdot_kernel(const float* __restrict__ M, int64_t ld, int64_t n
   if (lane == 0) out[r] = subtract ? out[r] - acc : acc;
 }
 
-// out[c] = s or out[c] - s, s = sum_{a < nrows} M[a * ld + c] * (v1[a] + v2[a])
-// (v2 may be null); a block of kWarps warps per 32 columns.
-__global__ void coldot_kernel(const float* __restrict__ M, int64_t ld, int64_t nrows,
-                              int64_t ncols, const float* __restrict__ v1,
-                              const float* __restrict__ v2, float* __restrict__ out,
-                              int subtract) {
-  __shared__ float part[kWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * 32 + lane;
-  const bool valid = c < ncols;
-  float acc = 0.0f;
-  if (valid) {
-    for (int64_t a = warp; a < nrows; a += kWarps) {
-      const float va = v2 != nullptr ? v1[a] + v2[a] : v1[a];
-      acc = fmaf(M[a * ld + c], va, acc);
+// One thread's wait for *flag >= target (a flag only grows): a volatile
+// read (not cached in L1) in a bounded spin, then the acquire fence.  Past
+// kSpinCycles it traps: a lost hand-off fails the launch instead of hanging.
+__device__ __forceinline__ void wait_flag(const int* flag, int target) {
+  const volatile int* f = flag;
+  if (*f < target) {
+    const long long start = clock64();
+    while (*f < target) {
+      if (clock64() - start > kSpinCycles) __trap();
+      __nanosleep(32);
     }
   }
-  part[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && valid) {
-    float s = part[0][lane];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += part[w][lane];
-    out[c] = subtract ? out[c] - s : s;
-  }
+  __threadfence();
 }
+
+// acc.{x,y,z,w} = fmaf(v.{x,y,z,w}, s, acc.{x,y,z,w})
+__device__ __forceinline__ void fma4(float4& acc, const float4 v, float s) {
+  acc.x = fmaf(v.x, s, acc.x);
+  acc.y = fmaf(v.y, s, acc.y);
+  acc.z = fmaf(v.z, s, acc.z);
+  acc.w = fmaf(v.w, s, acc.w);
+}
+
+// rows row0 + kGroups*m (m < kRows) of a column quad: float4 number p +
+// row * n4
+__device__ __forceinline__ void load_rows(float4 (&v)[kRows], const float4* __restrict__ p,
+                                          int n4, int row0) {
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) v[m] = __ldg(p + (row0 + kGroups * m) * n4);
+}
+
+// The sum over the row groups of the tile's partials, in group order, for
+// column threadIdx.x < kTile: part holds group g's kTile sums at g*kTile.
+__device__ __forceinline__ float combine(const float* part) {
+  float s = part[threadIdx.x];
+#pragma unroll
+  for (int h = 1; h < kGroups; ++h) s += part[h * kTile + threadIdx.x];
+  return s;
+}
+
+// x = L^-T y (the header's backward sweep), one tile of kTile columns a
+// block.  Thread t takes column quad q = t % kTileQuads of the tile and row
+// group g = t / kTileQuads: rows g + kGroups*m (m < kRows) of every stripe.
+// work: the ticket at 0, cnt[k] at (1 + k) * kLine, ready[k] at (1 + K + k)
+// * kLine, all zero on entry; rbuf [n] the stripes' r.  L row-major [n, n],
+// 16-byte aligned, as is invd [K, 256, 256]; int32 indices (n*n < 2^31).
+__global__ void __launch_bounds__(kThreads)
+solve_upper_kernel(const float* __restrict__ L, const float* __restrict__ invd,
+                   const float* __restrict__ y, float* x, int* work, float* rbuf, int n,
+                   int K) {
+  static_assert(kThreads == kBlock, "one thread an entry of r_i");
+  __shared__ float4 dinv[kBlock * kTileQuads];  // invd[i][:, the tile's columns], by row
+  __shared__ float4 part4[kThreads];     // the row groups' partial sums
+  __shared__ float r[kBlock];            // r_i
+  __shared__ int ticket;
+  const float* part = reinterpret_cast<const float*>(part4);
+  const int q = threadIdx.x % kTileQuads;
+  const int g = threadIdx.x / kTileQuads;
+  if (threadIdx.x == 0) ticket = atomicAdd(work, 1);
+  __syncthreads();
+  const int i = K - 1 - ticket / kTiles;           // the tile's stripe
+  const int col = (ticket % kTiles) * kTile;       // its first column in the stripe
+  const int c0 = i * kBlock + col;                 // ... in L
+  {
+    const float4* src = reinterpret_cast<const float4*>(invd + i * kBlock * kBlock + col) + q;
+    float4 v[kRows];
+    load_rows(v, src, kBlock / 4, g);
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) dinv[(g + kGroups * m) * kTileQuads + q] = v[m];
+  }
+  if (i + 1 < K) {
+    // r for the tile's columns: y - sum_{j > i} L[stripe j, cols]^T x_j
+    const float4* Lq = reinterpret_cast<const float4*>(L + c0) + q;
+    const int n4 = n / 4;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 cur[kRows], nxt[kRows];
+    load_rows(cur, Lq, n4, (K - 1) * kBlock + g);
+    for (int j = K - 1; j > i; --j) {
+      if (j - 1 > i) load_rows(nxt, Lq, n4, (j - 1) * kBlock + g);
+      if (threadIdx.x == 0) wait_flag(work + (1 + K + j) * kLine, kTiles);
+      __syncthreads();
+      float xa[kRows];
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) xa[m] = __ldcg(x + j * kBlock + g + kGroups * m);
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) fma4(acc, cur[m], xa[m]);
+      if (j - 1 > i) {
+#pragma unroll
+        for (int m = 0; m < kRows; ++m) cur[m] = nxt[m];
+      }
+    }
+    part4[threadIdx.x] = acc;
+    __syncthreads();
+    if (threadIdx.x < kTile) {
+      rbuf[c0 + threadIdx.x] = __ldg(y + c0 + threadIdx.x) - combine(part);
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicAdd(work + (1 + i) * kLine, 1);
+      wait_flag(work + (1 + i) * kLine, kTiles);
+    }
+    __syncthreads();
+    r[threadIdx.x] = __ldcg(rbuf + i * kBlock + threadIdx.x);
+  } else {
+    r[threadIdx.x] = __ldg(y + i * kBlock + threadIdx.x);  // y - 0: no stripe below
+  }
+  __syncthreads();
+  // the diagonal step: x[cols] = invd[i][:, cols]^T r_i, from shared memory
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    fma4(acc, dinv[(g + kGroups * m) * kTileQuads + q], r[g + kGroups * m]);
+  }
+  part4[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < kTile) {
+    x[c0 + threadIdx.x] = combine(part);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(work + (1 + K + i) * kLine, 1);
+}
+
+// Where rbuf starts in solve_upper_kernel's workspace of int32 words: after
+// the ticket's line and the K cnt and K ready lines.
+int64_t upper_rbuf_at(int64_t K) { return (1 + 2 * K) * kLine; }
 
 unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -244,14 +387,6 @@ int rowdot(const float* M, int64_t ld, int64_t nrows, int64_t ncols, const float
            const float* v2, float* out, int subtract, cudaStream_t stream) {
   rowdot_kernel<<<blocks_for(nrows * 32), kThreads, 0, stream>>>(M, ld, nrows, ncols, v1,
                                                                    v2, out, subtract);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int coldot(const float* M, int64_t ld, int64_t nrows, int64_t ncols, const float* v1,
-           const float* v2, float* out, int subtract, cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((ncols + 31) / 32);
-  coldot_kernel<<<blocks, kThreads, 0, stream>>>(M, ld, nrows, ncols, v1, v2, out,
-                                                 subtract);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,19 +424,27 @@ int cuba_solve_lower(const float* L, const float* invd, const float* b, float* y
   return 0;
 }
 
-// L, invd as for cuba_solve_lower; y [n]; x [n] out; d [n] zero on entry.
-int cuba_solve_upper(const float* L, const float* invd, const float* y, float* x, float* d,
-                     int64_t n, int64_t B, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t K = n / B;
-  for (int64_t k = K - 1; k >= 0; --k) {
-    const int64_t lo = k * B;
-    int err = coldot(invd + k * B * B, B, B, B, y + lo, d + lo, x + lo, 0, s);
-    if (err == 0 && lo > 0) err = coldot(L + lo * n, n, B, lo, x + lo, nullptr, d, 1, s);
-    if (err != 0) return err;
+// L [n, n] lower triangular and invd [n/256, 256, 256], both 16-byte
+// aligned, n a multiple of 256; y [n]; x [n] out; work
+// [cuba_solve_upper_work(n)] int32 zeros.  One launch of K * 256/kTile
+// blocks.
+int cuba_solve_upper(const float* L, const float* invd, const float* y, float* x, int* work,
+                     int64_t n, void* stream) {
+  if (n % kBlock != 0 || !aligned16(L) || !aligned16(invd)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  const int K = static_cast<int>(n / kBlock);
+  if (K == 0) return static_cast<int>(cudaGetLastError());
+  float* rbuf = reinterpret_cast<float*>(work + upper_rbuf_at(K));
+  solve_upper_kernel<<<static_cast<unsigned int>(K * kTiles), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(L, invd, y, x, work, rbuf,
+                                                            static_cast<int>(n), K);
+  return static_cast<int>(cudaGetLastError());
 }
+
+// The int32 words of cuba_solve_upper's workspace for n (the flags' lines,
+// then rbuf [n]); the caller zeroes them before each call.
+int cuba_solve_upper_work(int64_t n) { return static_cast<int>(upper_rbuf_at(n / kBlock) + n); }
 
 // A [n, n], x [n]; y [n] out; `slices` S of 1, 2, 4 or 8; `vec` the float4
 // loads (n % 4 == 0, A and x 16-byte aligned).

@@ -23,14 +23,16 @@ this module                ``cuba_tpu/solver/trisolve.py``
 Each kernel wrapper has a ``*_plain`` twin, the blocked algorithm itself in
 torch (``torch.matmul`` on stripes, ``A @ x``), taken for CPU tensors and
 under ``cudalib.use_plain()``; a CUDA tensor launches the hand-written
-kernel of ``csrc/trisolve.cu`` (one host call per sweep, 2K launches).  The
-port's sweeps run in exact fp32, where the TPU's ran their stripe updates at
-the MXU's default bf16-pass precision.
+kernel of ``csrc/trisolve.cu`` (one host call per sweep: 2K launches for
+``solve_lower``, one for ``solve_upper``).  The port's sweeps run in exact
+fp32, where the TPU's ran their stripe updates at the MXU's default
+bf16-pass precision.
 
-The launches of the diagonal copy (:func:`diag_launch`) and the matvec
-(:func:`matvec_launch`, with its one rule, :func:`matvec_slices`) live here,
-with their kernels' index arithmetic and summation order in NumPy
-(:func:`extract_diag_walk`, :func:`matvec_walk`) for the tests.
+The launches of the diagonal copy (:func:`diag_launch`), the backward sweep
+(:func:`solve_upper_launch`) and the matvec (:func:`matvec_launch`, with its
+one rule, :func:`matvec_slices`) live here, with their kernels' index
+arithmetic and summation order in NumPy (:func:`extract_diag_walk`,
+:func:`solve_upper_walk`, :func:`matvec_walk`) for the tests.
 """
 
 from __future__ import annotations
@@ -45,20 +47,22 @@ from cuba_tpu_torch.ops.cudalib import LAUNCHES
 
 BLOCK = 256  # stripe width; n (= 6 * pad_blocks) is a multiple of 768
 SMS = 132  # the H100's streaming multiprocessors
-THREADS = 256  # threads a block of the diagonal copy and of the matvec
+THREADS = 256  # threads a block of the diagonal copy, the backward sweep and the matvec
 QUADS = BLOCK // 4  # float4 per row of a diagonal block
 DIAG_PASS = THREADS // QUADS  # rows of a diagonal block one load of a block covers
 DIAG_LOADS = 2  # float4 a thread of the copy moves (kLoads in csrc/trisolve.cu)
 MATVEC_WARPS_PER_SM = 32  # the matvec's slices fill the card to this many warps an SM
 MAX_SLICES = 8  # a block's 8 warps
 MATVEC_ACCS = 4  # accumulators a lane, U (kAccs in csrc/trisolve.cu)
+UPPER_TILE = 32  # columns of one stripe a block of solve_upper_kernel takes (kTile)
 
 KERNEL_SRC = cudalib.SOURCES["trisolve"]
 _i32, _i64, _vp = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
     "cuba_extract_diag_blocks": [_vp, _i64, _vp, _vp],
     "cuba_solve_lower": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
-    "cuba_solve_upper": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "cuba_solve_upper": [_vp, _vp, _vp, _vp, _vp, _i64, _vp],
+    "cuba_solve_upper_work": [_i64],
     "cuba_matvec": [_vp, _vp, _vp, _i64, _i32, _i32, _vp],
 }
 
@@ -193,17 +197,96 @@ def solve_upper_plain(L, invd, y, block: int = BLOCK):
 
 
 def solve_upper(L, invd, y, block: int = BLOCK):
-    """x = L^-T y, backward over ROW stripes of L (no transpose is formed):
-    x_k = invd[k]^T (y_k + d_k), then d -= L[k, :]^T x_k left of the
-    diagonal block."""
+    """x = L^-T y, backward over ROW stripes of L (no transpose is formed).
+    The plain version: x_k = invd[k]^T (y_k + d_k), then d -= L[k, :]^T x_k
+    left of the diagonal block.  On the card: one launch of
+    ``solve_upper_kernel`` (:func:`solve_upper_launch`,
+    :func:`solve_upper_walk`) after one zeroing of its workspace; B = 256,
+    and L and invd 16-byte aligned, else it raises."""
     if not _check_sweep(L, invd, y, block):
         return solve_upper_plain(L, invd, y, block)
+    if block != BLOCK:
+        raise ValueError(f"solve_upper: the kernel walks stripes of {BLOCK}, not {block}")
+    if L.data_ptr() % 16 or invd.data_ptr() % 16:
+        raise ValueError("solve_upper: L and invd must be 16-byte aligned (float4 loads)")
+    cudalib.check_int32("solve_upper", L.numel())
     n = L.shape[0]
     x = torch.empty_like(y)
-    d = torch.zeros_like(y)
-    cudalib.call("solve_upper", L, _lib().cuba_solve_upper, L.data_ptr(), invd.data_ptr(),
-                 y.data_ptr(), x.data_ptr(), d.data_ptr(), n, block)
+    lib = _lib()
+    work = torch.zeros(lib.cuba_solve_upper_work(n), dtype=torch.int32, device=L.device)
+    cudalib.call("solve_upper", L, lib.cuba_solve_upper, L.data_ptr(), invd.data_ptr(),
+                 y.data_ptr(), x.data_ptr(), work.data_ptr(), n)
     LAUNCHES["solve_upper"] += 1
+    return x
+
+
+def solve_upper_launch(n: int) -> dict:
+    """``solve_upper_kernel``'s launch for n = K * 256: the ``tile`` width T
+    (columns of one stripe a block takes) and the ``grid`` of K * 256/T
+    blocks, one ticket each (stripe K-1's tiles first, then K-2's, ...:
+    :func:`solve_upper_tile`).  Every wait ends once a stripe's 256/T
+    blocks can be resident at once."""
+    return dict(tile=UPPER_TILE, grid=[n // BLOCK * (BLOCK // UPPER_TILE)])
+
+
+def solve_upper_tile(ticket: int, K: int):
+    """(stripe, first column in the stripe) of ``ticket``: stripe K-1's
+    256/T tiles hold tickets 0 .. 256/T - 1, stripe K-2's the next, ..."""
+    per = BLOCK // UPPER_TILE
+    return K - 1 - ticket // per, ticket % per * UPPER_TILE
+
+
+def solve_upper_walk(L, invd, y) -> np.ndarray:
+    """``solve_upper_kernel``'s order in NumPy (for tests), over flat memory
+    as the kernel addresses it.  Tiles in ticket order; a tile of stripe i
+    and T = UPPER_TILE columns is THREADS threads, thread (g, q) taking
+    column quad q < T/4 and rows g + G*m (m < R) of a stripe, G = THREADS /
+    (T/4) groups, R = 256 / G.  It adds L[row, c] x[row] into its
+    accumulator for stripes j = K-1 down to i+1, its rows in order; the
+    groups' sums are added in group order and r = y - that sum goes to
+    rbuf.  Once every tile of the stripe has written rbuf (``cnt``), each
+    reads r_i and takes its T entries of x_i = invd[i]^T r_i in the same
+    shape over invd[i]'s rows.  The top stripe reads r = y.  fp32 input is
+    walked with :func:`fma32` (each FMA rounded once: the card's bits), fp64
+    with fp64 FMAs."""
+    L, invd, y = np.asarray(L), np.asarray(invd), np.asarray(y)
+    dt = L.dtype
+    fma = fma32 if dt == np.float32 else (lambda a, b, c: a * b + c)
+    n = L.shape[0]
+    K = n // BLOCK
+    T = UPPER_TILE
+    G = THREADS // (T // 4)
+    R = BLOCK // G
+    Lf, invf = L.reshape(-1), invd.reshape(-1)
+    x, rbuf = np.zeros(n, dt), np.zeros(n, dt)
+    g, c = np.arange(G)[:, None], np.arange(T)[None, :]  # row group, tile column
+
+    def combine(acc):
+        s = acc[0]
+        for h in range(1, G):
+            s = s + acc[h]
+        return s
+
+    per = BLOCK // T
+    for first in range(0, K * per, per):  # a stripe's tickets
+        tiles = [solve_upper_tile(t, K) for t in range(first, first + per)]
+        i = tiles[0][0]
+        for _i, col in tiles:  # up to the cnt wait
+            c0 = i * BLOCK + col
+            if i + 1 < K:
+                acc = np.zeros((G, T), dt)
+                for j in range(K - 1, i, -1):
+                    for m in range(R):
+                        rows = j * BLOCK + g + G * m
+                        acc = fma(Lf[rows * n + c0 + c], x[rows], acc)
+                rbuf[c0 + c[0]] = y[c0 + c[0]] - combine(acc)
+        r = rbuf[i * BLOCK:(i + 1) * BLOCK] if i + 1 < K else y[i * BLOCK:(i + 1) * BLOCK]
+        for _i, col in tiles:  # the diagonal step, from rbuf
+            acc = np.zeros((G, T), dt)
+            for m in range(R):
+                a = g + G * m
+                acc = fma(invf[i * BLOCK * BLOCK + a * BLOCK + col + c], r[a], acc)
+            x[i * BLOCK + col + c[0]] = combine(acc)
     return x
 
 

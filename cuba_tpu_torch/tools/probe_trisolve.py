@@ -13,11 +13,11 @@ prints one ``probe`` JSON line per kernel, n and cache regime
 (``chip_smoke.interleaved_times``: ``warm``, each call after an untimed run
 of itself; ``cold``, after a 128 MB read): the device and event-timed call
 time of the wrapper and of its torch call (``torch.mv``, the strided
-diagonal copy, ``solve_triangular``), and the kernel's bound
-(``chip_smoke.bound``).  Where DIR holds the sliced matvec
-(``trisolve.matvec_slices``), the matvec line also times the kernel at
-every S (``S4``: slices a row), with the S the wrapper's rule picks
-(``rule``) and the fastest (``best``).
+diagonal copy, ``solve_triangular``), of the sweeps' plain versions
+(``plain``), and the kernel's bound (``chip_smoke.bound``).  Where DIR
+holds the sliced matvec (``trisolve.matvec_slices``), the matvec line also
+times the kernel at every S (``S4``: slices a row), with the S the
+wrapper's rule picks (``rule``) and the fastest (``best``).
 """
 
 import argparse
@@ -78,7 +78,8 @@ def main():
         K = n // B
         invd = trisolve.prepare(L)
         y = trisolve.solve_lower(L, invd, x)
-        tri_bytes = 4 * (n * (n + 1) // 2 + K * B * B + 2 * n)
+        # L's strictly-lower blocks (invd stands for the diagonal ones), invd, in and out
+        tri_bytes = 4 * ((n * n - K * B * B) // 2 + K * B * B + 2 * n)
 
         fns, rule_key = {"wrapper": lambda: trisolve.matvec(A, x)}, None
         if sweep:
@@ -95,10 +96,12 @@ def main():
             (8 * K * B * B, 0))
         report("solve_lower", n, {
             "wrapper": lambda: trisolve.solve_lower(L, invd, x),
+            "plain": lambda: trisolve.solve_lower_plain(L, invd, x),
             "solve_triangular": lambda: torch.linalg.solve_triangular(
                 L, x[:, None], upper=False)}, (tri_bytes, n * n))
         report("solve_upper", n, {
             "wrapper": lambda: trisolve.solve_upper(L, invd, y),
+            "plain": lambda: trisolve.solve_upper_plain(L, invd, y),
             "solve_triangular": lambda: torch.linalg.solve_triangular(
                 L.mT, y[:, None], upper=True)}, (tri_bytes, n * n))
         del A, L, x, invd, y

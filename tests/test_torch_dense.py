@@ -228,20 +228,12 @@ def _rowdot(M, m0, ld, nrows, ncols, v1, v2, out, o0, subtract):
     out[o0:o0 + nrows] = out[o0:o0 + nrows] - acc if subtract else acc
 
 
-def _coldot(M, m0, ld, nrows, ncols, v1, v2, out, o0, subtract):
-    """csrc/trisolve.cu's coldot: out[o0 + c] (=, -=) sum_a M[m0 + a*ld + c]
-    (v1[a] + v2[a])."""
-    idx = m0 + np.arange(nrows)[:, None] * ld + np.arange(ncols)[None, :]
-    v = v1[:nrows] if v2 is None else v1[:nrows] + v2[:nrows]
-    acc = (M[idx] * v[:, None]).sum(axis=0)
-    out[o0:o0 + ncols] = out[o0:o0 + ncols] - acc if subtract else acc
-
-
 @pytest.mark.parametrize("name", ["solve_lower", "solve_upper", "extract_diag_blocks"])
 def test_sweep_kernel_walk_matches_plain(factor, name):
     """The entry points of csrc/trisolve.cu (launch order, pointer offsets,
     row and column ranges) walked in numpy over flat fp64 memory give the
-    plain versions."""
+    plain versions.  ``solve_upper``'s one launch: its tiles in ticket
+    order (``trisolve.solve_upper_walk``)."""
     _A, L64, b64, _L, _b, _invd = factor
     n, B = L64.shape[0], trisolve.BLOCK
     K = n // B
@@ -253,20 +245,16 @@ def test_sweep_kernel_walk_matches_plain(factor, name):
         assert np.all(writes == 1)
         np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(_t(L64)).numpy())
         return
-    out, d = np.empty(n), np.zeros(n)
     if name == "solve_lower":  # cuba_solve_lower
+        out, d = np.empty(n), np.zeros(n)
         for k in range(K):
             lo, hi = k * B, (k + 1) * B
             _rowdot(invf, k * B * B, B, B, B, b64[lo:], d[lo:], out, lo, False)
             if hi < n:
                 _rowdot(Lf, hi * n + lo, n, n - hi, B, out[lo:], None, d, hi, True)
         want = trisolve.solve_lower_plain(_t(L64), _t(invd), _t(b64)).numpy()
-    else:  # cuba_solve_upper
-        for k in reversed(range(K)):
-            lo = k * B
-            _coldot(invf, k * B * B, B, B, B, b64[lo:], d[lo:], out, lo, False)
-            if lo > 0:
-                _coldot(Lf, lo * n, n, B, lo, out[lo:], None, d, 0, True)
+    else:  # cuba_solve_upper: one launch of solve_upper_kernel
+        out = trisolve.solve_upper_walk(L64, invd, b64)
         want = trisolve.solve_upper_plain(_t(L64), _t(invd), _t(b64)).numpy()
     np.testing.assert_allclose(out, want, rtol=0, atol=1e-12 * np.abs(want).max())
 

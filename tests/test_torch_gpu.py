@@ -256,6 +256,87 @@ def test_triangular_sweep_kernel_matches_plain(spd_factor, name):
     assert torch.equal(got, getattr(trisolve, name)(L, invd, b))  # deterministic
 
 
+def _upper_problem(n, device):
+    """A seeded SPD matrix's row-major Cholesky factor at n = 256 K, its
+    inverted diagonal blocks and a right-hand side, made on the card."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    M = torch.randn((n, n), generator=gen, device=device)
+    L = torch.linalg.cholesky(M @ M.T / n + torch.eye(n, device=device)).contiguous()
+    del M
+    with segmm.use_plain():
+        invd = trisolve.prepare(L)
+    return L, invd, torch.randn(n, generator=gen, device=device)
+
+
+@pytest.mark.parametrize("n", [512, 1536, 8448])
+def test_solve_upper_kernel_matches_plain(cuda, n):
+    """K = 2, 6 (kitti07) and 33 (kitti00 built dense): one launch a call,
+    within 1e-5 of max |x| of the plain version (fp32 sums in other
+    orders), the same bits over 20 calls, each with a workspace of its
+    own."""
+    L, invd, y = _upper_problem(n, cuda)
+    before = segmm.LAUNCHES["solve_upper"]
+    got = trisolve.solve_upper(L, invd, y)
+    want = trisolve.solve_upper_plain(L, invd, y)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["solve_upper"] == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for _ in range(20):
+        assert torch.equal(got, trisolve.solve_upper(L, invd, y))
+    assert segmm.LAUNCHES["solve_upper"] == before + 21
+
+
+@pytest.mark.parametrize("n", [512, 1536])
+def test_solve_upper_kernel_follows_its_walk(cuda, n):
+    """Bit for bit ``solve_upper_walk`` (the kernel's order, each FMA
+    rounded once)."""
+    L, invd, y = _upper_problem(n, cuda)
+    got = trisolve.solve_upper(L, invd, y)
+    want = trisolve.solve_upper_walk(L.cpu().numpy(), invd.cpu().numpy(), y.cpu().numpy())
+    assert np.array_equal(_bits(got), want.view(np.int32))
+
+
+def test_solve_upper_is_one_kernel_launch(cuda):
+    """The device trace of a call: one solve_upper_kernel, and at most one
+    more operation (the workspace's zeroing).  Calls are split by
+    ``torch.cuda._sleep`` marks; the trace can miss a session's first
+    events, so a call counts between two marks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    L, invd, y = _upper_problem(1536, cuda)
+    trisolve.solve_upper(L, invd, y)  # built and loaded outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            torch.cuda._sleep(1)
+            trisolve.solve_upper(L, invd, y)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    calls, cur = [], None
+    for _start, name in spans:
+        if "spin_kernel" in name:
+            if cur is not None:
+                calls.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(name)
+    assert len(calls) >= 3, spans
+    for names in calls:
+        assert sum("solve_upper_kernel" in s for s in names) == 1 and len(names) <= 2, names
+
+
+def test_solve_upper_refuses_a_misaligned_L(cuda):
+    n = 512
+    L, invd, y = _upper_problem(n, cuda)
+    Lm = torch.empty(n * n + 1, device=cuda)[1:].view(n, n)  # contiguous, 4 bytes off
+    Lm.copy_(L)
+    with pytest.raises(ValueError, match="aligned"):
+        trisolve.solve_upper(Lm, invd, y)
+
+
 def test_matvec_kernel_matches_plain(spd_factor):
     A, _L, _invd, b = spd_factor
     before = segmm.LAUNCHES["matvec"]

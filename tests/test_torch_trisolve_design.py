@@ -1,8 +1,13 @@
-"""The CUDA diagonal copy's and matvec's design, checked on the CPU: the
-launch rules, the copy's index arithmetic and the matvec's summation order.
+"""The CUDA diagonal copy's, backward sweep's and matvec's design, checked
+on the CPU: the launch rules, the copy's index arithmetic, the sweep's
+ticket order and the matvec's summation order.
 
-The kernels (``csrc/trisolve.cu`` ``extract_diag_kernel``, ``matvec_kernel``)
-cannot run here.  ``trisolve.extract_diag_walk`` is the copy's grid
+The kernels (``csrc/trisolve.cu`` ``extract_diag_kernel``,
+``solve_upper_kernel``, ``matvec_kernel``) cannot run here.  The sweep's
+blocks wait on each other's flags: a scheduler with only R blocks resident
+shows every tile finishing with tickets, down to R = 8 (a stripe's tiles),
+and the blockIdx order stalling (its NumPy walk is held to the plain version in
+``tests/test_torch_dense.py``).  ``trisolve.extract_diag_walk`` is the copy's grid
 arithmetic in NumPy: every output float4 written once, bit for bit the plain
 version and cuba_tpu's Pallas ``_extract_diag_blocks`` in interpret mode.
 ``trisolve.matvec_walk`` is the matvec's order (slices, lanes, accumulators,
@@ -99,6 +104,80 @@ def test_matvec_walk_follows_its_order():
     assert trisolve.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
     assert float(trisolve.matvec_plain(torch.from_numpy(A.astype(np.float64)),
                                        torch.from_numpy(x.astype(np.float64)))[0]) == 2.5
+
+
+@pytest.mark.parametrize("K,grid", [(2, 16), (6, 48), (33, 264)])
+def test_solve_upper_launch_rule(K, grid):
+    """Tiles of 32 columns, one block each; a stripe's 8 tiles must be
+    resident at once (far below the card's 132 SMs); every tile of every
+    stripe held by exactly one ticket, stripe K-1's first."""
+    launch = trisolve.solve_upper_launch(K * trisolve.BLOCK)
+    assert launch == dict(tile=32, grid=[grid])
+    assert trisolve.BLOCK // launch["tile"] == 8 <= trisolve.SMS
+    tiles = [trisolve.solve_upper_tile(t, K) for t in range(grid)]
+    assert sorted(tiles) == [(i, c) for i in range(K) for c in range(0, 256, 32)]
+    assert [i for i, _c in tiles] == sorted((i for i, _c in tiles), reverse=True)
+
+
+def _schedule(K, resident, tickets=True):
+    """solve_upper_kernel's blocks on a card that holds ``resident`` of them
+    at once, a new block starting (in blockIdx order) when one exits.  A
+    block takes its tile from the ticket (``tickets``) or from its blockIdx,
+    stripe 0 first; a tile of stripe i < K-1 adds one to cnt[i] once every
+    ready[j > i] is full, then waits for cnt[i] to fill; it then adds one to
+    ready[i] and exits (the top stripe reads y and exits at once).  Returns
+    the tiles that finished before no block could move."""
+    per = trisolve.BLOCK // trisolve.UPPER_TILE
+    total = K * per
+    cnt, ready = [0] * K, [0] * K
+    running, started, done = [], 0, 0
+    while True:
+        while len(running) < resident and started < total:
+            stripe = trisolve.solve_upper_tile(started, K)[0] if tickets else started // per
+            running.append([stripe, 0])  # [stripe, stage: 0 before cnt, 1 after]
+            started += 1
+        moved = False
+        for blk in list(running):
+            i, stage = blk
+            if stage == 0 and i + 1 < K and all(ready[j] == per for j in range(i + 1, K)):
+                cnt[i] += 1
+                blk[1] = stage = 1
+                moved = True
+            if (i + 1 == K and stage == 0) or (stage == 1 and cnt[i] == per):
+                ready[i] += 1
+                running.remove(blk)
+                done += 1
+                moved = True
+        if not moved:
+            return done
+
+
+@pytest.mark.parametrize("resident", [8, trisolve.SMS])
+@pytest.mark.parametrize("K", [2, 6, 33])
+def test_solve_upper_tickets_never_stall(K, resident):
+    """With tickets every tile finishes once a stripe's 8 blocks fit on the
+    card (the least the argument needs) and on 132 SMs; handed out by
+    blockIdx, stripe 0 first, the resident blocks all wait on stripes that
+    have no block yet, unless the whole grid fits at once."""
+    total = trisolve.solve_upper_launch(K * trisolve.BLOCK)["grid"][0]
+    assert _schedule(K, resident) == total
+    assert (_schedule(K, resident, tickets=False) == total) == (total <= resident)
+
+
+def test_solve_upper_walk_fp32_follows_its_order():
+    """The fp32 walk (the kernel's order, each FMA rounded once) lies within
+    a few fp32 roundings of the plain version through six stripes (the
+    card's tests hold the kernel to the walk bit for bit)."""
+    n = 1536
+    rng = np.random.default_rng(5)
+    G = rng.standard_normal((n, n))
+    L = np.linalg.cholesky(G @ G.T / n + np.eye(n)).astype(np.float32)
+    y = rng.standard_normal(n).astype(np.float32)
+    invd = trisolve.prepare(torch.from_numpy(L))
+    want = trisolve.solve_upper_plain(torch.from_numpy(L), invd, torch.from_numpy(y)).numpy()
+    got = trisolve.solve_upper_walk(L, invd.numpy(), y)
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("triangle", ["lower", "full"])
