@@ -130,7 +130,10 @@ each after the 128 MB read, and for a segment sum the group width
 shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``), for
 ``extract_diag_blocks`` its ``grid`` and float4 ``loads`` per thread, for
 ``solve_upper`` its ``tile`` width and ``grid``, for ``matvec`` its ``slices`` S,
-accumulators ``accs`` U and ``float4`` loads.
+accumulators ``accs`` U and ``float4`` loads, for ``schur_fused`` and
+``compact_to_band`` their ``grid``, ``threads`` a block, shared bytes
+``smem`` with the build's
+``registers`` and ``spill_bytes`` a thread and ``blocks_per_sm``.
 Each timing loop also logs its launch floor: the median device time of
 its ``torch.cuda._sleep`` marks.  A kernel call that raises, or device
 times the profiler cannot split, end the run.  The last line is ``{"ok":
@@ -188,8 +191,11 @@ SOLVER_RTOL = 2e-2
 FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
 # the launch parameters a kernel entry may carry (trisolve.diag_launch,
-# trisolve.solve_upper_launch, trisolve.matvec_launch), logged beside its times
-LAUNCH_NOTES = ("grid", "loads", "tile", "slices", "accs", "float4")
+# trisolve.solve_upper_launch, trisolve.matvec_launch,
+# segmm.schur_fused_launch, segmm.compact_to_band_launch, and the build's
+# segmm.kernel_attributes), logged beside its times
+LAUNCH_NOTES = ("grid", "threads", "smem", "registers", "spill_bytes", "blocks_per_sm",
+                "loads", "tile", "slices", "accs", "float4")
 # the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
                 "compact_to_dense", "band_transpose", "extract_diag", "rowdot",
@@ -531,16 +537,47 @@ def first_attempt(engine):
 
 
 def schur_case(W, G, plan, sc, csr, segmm, torch):
-    """schur_fused's case: the W and G columns its triplets read, its index
-    streams and its output; 3 multiply-adds for each of the 36 outputs of a
-    triplet.  No single PyTorch call computes it."""
+    """schur_fused's case (:func:`schur_work`), with its launch and the
+    build's attributes as notes.  No single PyTorch call computes it."""
+    launch = segmm.schur_fused_launch(plan)
+    return (("schur",), lambda f: f(W, G, *sc, csr=csr), segmm.schur_fused,
+            segmm.schur_fused_plain, schur_work(plan, sc, csr, torch), None,
+            {**launch, **segmm.kernel_attributes("schur_fused", launch)})
+
+
+def schur_work(plan, sc, csr, torch):
+    """schur_fused's (bytes, flops): the W and G columns its triplets read;
+    the index tables its kernel reads, one int a CSR entry (``csr.pairs``,
+    the size of ``csr.order``), the lane offsets, one lane order entry an
+    output lane, and sb; and its output; 3 multiply-adds for each of the 36
+    outputs of a triplet."""
     sb, li, lj, _lk = sc[1:]
     base = (sb.long() * plan.slot_block).repeat_interleave(plan.chunk)
     valid = (li >= 0) & (lj >= 0)
     cols = sum(int(torch.unique((base + x.long())[valid]).numel()) for x in (li, lj))
-    nbytes = 4 * (18 * cols + 3 * li.numel() + sb.numel() + 36 * plan.num_chunks * plan.kwin)
-    return (("schur",), lambda f: f(W, G, *sc, csr=csr), segmm.schur_fused,
-            segmm.schur_fused_plain, (nbytes, 216 * int(valid.sum())), None)
+    lanes = plan.num_chunks * plan.kwin
+    index = csr.order.numel() + csr.offs.numel() + lanes + sb.numel()
+    return 4 * (18 * cols + index + 36 * lanes), 216 * int(valid.sum())
+
+
+def band_case(gT, dbT, plan, rc, segmm):
+    """compact_to_band's case (:func:`band_work`).  Exact: a placement.  No
+    single PyTorch call computes it."""
+    args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, plan.pad_blocks, plan.wg)
+    launch = segmm.compact_to_band_launch(plan.pad_blocks)
+    return ("exact", lambda f: f(*args, table=rc.band_table), segmm.compact_to_band,
+            segmm.compact_to_band_plain, band_work(plan, rc), None,
+            {**launch, **segmm.kernel_attributes("compact_to_band", launch)})
+
+
+def band_work(plan, rc):
+    """compact_to_band's (bytes, flops): the table entries it places (36
+    floats a filled slot), the slot ids, the diagonal, the occupancy and its
+    output; one add per diagonal element."""
+    PB = plan.pad_blocks
+    M = PB // 64
+    n_slots = int((rc.iru >= 0).sum())
+    return 4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + 2 * M + M * 384 * 768), 36 * PB
 
 
 def check_schur_kernels(engine, torch, segmm, HplT, W):
@@ -587,16 +624,10 @@ def check_band_kernels(engine, torch, segmm, cr_timings=True):
     HppT, HplT, lam, W, bscT = first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W)
     PB = plan.pad_blocks
-    M = PB // 64
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
-    band_args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
-    n_slots = int((rc.iru >= 0).sum())
-    nbytes = 4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + 2 * M + M * 384 * 768)
-    out.update(compare_cases({"compact_to_band": (
-        "exact", lambda f: f(*band_args, table=rc.band_table),
-        segmm.compact_to_band, segmm.compact_to_band_plain, (nbytes, 36 * PB), None)},
-        torch, None))
+    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, plan, rc, segmm)},
+                             torch, None))
     if not cr_timings:
         return out
 

@@ -49,7 +49,7 @@
 //    structure (a stable sort of the valid ids), loading order[j] once for
 //    all the chunk's rows; the G partial sums are combined by a fixed
 //    __shfl_xor_sync butterfly.  No atomics: the summation order alone
-//    fixes the bits, the same on every run (segsum_walk in ops/segmm.py is
+//    fixes the bits, the same on every run (segsum_walk in ops/walks.py is
 //    this order in NumPy).  Long segments (a pose's 100-500 edges) get 32
 //    lanes of independent loads, where one serial chain per (row, segment)
 //    left the card latency-bound.  Short and empty ones (an Hpl slot's 0-1
@@ -60,20 +60,46 @@
 //    285 MB of output) the host also lists the occupied ones: the output
 //    is zeroed in 16-byte stores, and only the listed segments are summed.
 //
-//  * schur_fused: one thread per output lane (chunk c, lane l), summing the
-//    lane's triplets in the fixed order of a per-lane CSR the host built
-//    once per structure (ascending triplet position), with the 36 sums in
-//    registers.  No atomics: deterministic.  The TPU kernel builds one-hot
-//    matrices because the TPU gathers and scatters slowly; here the W and
-//    G columns are read by index.  Bound by those reads (2 x 18 floats per
-//    triplet, from a 2*SB-slot window per chunk that stays in L1/L2) and
-//    their latency; the 36 stores per lane coalesce across lanes.
+//  * schur_fused: one block of 256 threads per chunk.  Every read of chunk
+//    c falls in the 512-slot windows W[:, sb[c]*SB : +512] and G[...] (the
+//    TPU kernel's W0|W1, G0|G1): the block stages both in shared memory,
+//    slot-major (a slot's 18 values contiguous, padded to 20 floats, so
+//    that a thread reads them as float4), from 16-byte loads, rows
+//    fastest across threads; with them three tables the host built once
+//    per structure (schur_lane_csr): the chunk's (li, lj) pairs in the order of the
+//    per-lane CSR (ascending triplet position), the lanes' offsets into it,
+//    and the lane order (each group of 128 lanes longest first, so a warp
+//    takes lanes of about one length).  After that no triplet reads device
+//    memory.  Every output (lane, a*6+b) is its lane's triplets in CSR
+//    order, from 0, each triplet's three products added by three FMAs in m
+//    order (schur_fused_walk in ops/walks.py).  Six threads share a lane,
+//    one block row a each (six sums).  The sums go through a [36, 132]
+//    shared tile and out as float4 rows.  Shared memory (107 KB at kwin
+//    256) and 128 registers a thread allow two blocks an SM.  The first
+//    design, a thread per lane reading W and G by index from device
+//    memory, ran at 4.4x the bound; row-major windows (six 4-byte shared
+//    loads per three FMAs), pairs read through order, li and lj (three
+//    dependent loads), a thread a lane (36 sums), 2 or 3 block rows a
+//    thread, 512 threads a block (64 registers), two threads a 32-byte
+//    sector in the staging (16 bytes spilled), and persistent blocks that
+//    load the next chunk's windows into registers during the sums (208
+//    bytes spilled) were each no faster (tools/probe_schur.py; PERF.md).  Bound by the bytes: the columns of
+//    W and G the triplets read, the pair table, lane offsets and lane
+//    order, and the [36, C*kwin] output; the windows of neighbouring
+//    chunks overlap, and the L2 serves the overlap.
 //  * compact_to_band: every 6x6 output block has at most one source (an
 //    upper block, a mirrored one, and/or the damped diagonal), so this is a
-//    placement, not a sum.  One thread per output element reads the host's
-//    [PB, 128] slot table (upper slot, or mirror slot with bit 30 set) and
-//    writes every element, zeros included, with coalesced stores.  Bound by
-//    the writes (M*384*768*4 bytes, 26 MB at M = 22).
+//    placement, not a sum.  One block per (pose row p, tile column e) writes
+//    that row's six output rows of the tile, zeros included, as float4
+//    stores: it reads occ once (an unoccupied tile stores only zeros), its
+//    64 entries of the host's [PB, 128] slot table (upper slot, or mirror
+//    slot with bit 30 set) once, and places the blocks into a [6, 384]
+//    shared strip with threads over (i*6 + j, q), q fastest, so that the
+//    reads of a row's consecutive upper slots coalesce.  int32 index
+//    arithmetic, no division by a runtime value.  (The first design, a
+//    thread per element with four 64-bit divisions, its own table and occ
+//    loads and 4-byte stores, moved 0.86 TB/s.)  Bound by the writes
+//    (M*384*768*4 bytes, 26 MB at M = 22).
 //  * compact_to_dense: the same placement over the whole [6PB, 6PB] matrix,
 //    from a host [PB, PB] slot table; one thread per element, every element
 //    written (zeros included) with coalesced stores, the six threads of one
@@ -218,78 +244,169 @@ void launch_segsum(const float* vals, const int32_t* order, const int32_t* offs,
                                                        N, num_out, rows);
 }
 
-__global__ void schur_fused_kernel(const float* __restrict__ W,
-                                   const float* __restrict__ G, int64_t S,
-                                   const int32_t* __restrict__ sb,
-                                   const int32_t* __restrict__ li,
-                                   const int32_t* __restrict__ lj,
-                                   const int32_t* __restrict__ order,
-                                   const int32_t* __restrict__ offs,
-                                   int64_t slot_block, int64_t kwin, int64_t lanes,
-                                   float* __restrict__ out) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const int64_t base = static_cast<int64_t>(sb[lane / kwin]) * slot_block;
-  float acc[36];
+// ---- schur_fused: one block per chunk, its windows staged in shared memory
+
+constexpr int kScWin = 512;     // 2 * slot_block: the slots a chunk reads from W and G
+constexpr int kScSlot = 20;     // floats of a staged slot: its 18 values, padded to 5 float4
+constexpr int kScThreads = 256;
+constexpr int kScLoads = 36 * (kScWin / 4) / kScThreads;  // float4 of the windows a thread
+constexpr int kScPass = 128;    // lanes of one pass (a group of the lane order; kwin % 128 == 0)
+constexpr int kScTileStride = kScPass + 4;
+
+// Dynamic shared memory of one block: the W and G windows slot-major
+// [2][512][kScSlot], the chunk's (li, lj) pairs in CSR order [chunk], its
+// lane offsets [kwin + 1] and lane order [kwin] (padded to 4 ints), and the
+// output tile [36][kScTileStride] (segmm.schur_fused_launch computes the
+// same bytes).
+size_t schur_smem_bytes(int64_t chunk, int64_t kwin) {
+  const int64_t ints = (chunk + 2 * kwin + 1 + 3) / 4 * 4;
+  return static_cast<size_t>(4 * (2 * kScWin * kScSlot + ints + 36 * kScTileStride));
+}
+
+// Block c stages W[:, base : base + 512] and G[:, ...] (base = sb[c] *
+// slot_block) slot-major from 16-byte loads, window rows fastest across
+// the block's threads (a warp's 32 loads are 16 bytes of 32 rows; the
+// other half of each 32-byte sector is the load 36 threads on), and the
+// chunk's pairs (pairs[q] = li | lj << 16 of CSR entry q, -1 for a dropped
+// triplet), its lane offsets relative to its first CSR entry, and its lane
+// order.  Then, a pass for each group of 128 lanes: six threads share a
+// lane, each summing the six outputs (a, b) of its block row a over the
+// lane's triplets in CSR order, from 0; the sums go through the shared
+// tile so that the stores to out are float4 rows.
+__global__ void __launch_bounds__(kScThreads, 2)
+schur_fused_kernel(const float* __restrict__ W, const float* __restrict__ G, int64_t S,
+                   const int32_t* __restrict__ sb, const int32_t* __restrict__ pairs,
+                   const int32_t* __restrict__ offs, const int32_t* __restrict__ lane_order,
+                   int slot_block, int chunk, int kwin, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* wwin = smem;                     // [512][kScSlot]
+  float* gwin = smem + kScWin * kScSlot;  // [512][kScSlot]
+  int32_t* pair = reinterpret_cast<int32_t*>(smem + 2 * kScWin * kScSlot);
+  int32_t* loff = pair + chunk;
+  int32_t* lord = loff + kwin + 1;
+  float* tile = smem + 2 * kScWin * kScSlot + (chunk + 2 * kwin + 1 + 3) / 4 * 4;
+  const int c = blockIdx.x;
+  const int t = threadIdx.x;
+  const int64_t lanes = static_cast<int64_t>(gridDim.x) * kwin;
+  const int64_t base = static_cast<int64_t>(sb[c]) * slot_block;
+  // every load of the prologue is issued before any store to shared memory
+  float4 buf[kScLoads];
 #pragma unroll
-  for (int r = 0; r < 36; ++r) acc[r] = 0.0f;
-  const int32_t end = offs[lane + 1];
-  for (int32_t q = offs[lane]; q < end; ++q) {
-    const int32_t t = order[q];
-    const int64_t i = base + li[t];
-    const int64_t j = base + lj[t];
-    if (li[t] < 0 || lj[t] < 0 || i >= S || j >= S) continue;
-    float w[18], g[18];
+  for (int u = 0; u < kScLoads; ++u) {
+    const int v = t + u * kScThreads, r = v % 36, q4 = v / 36;
+    const float* src = (r < 18 ? W + r * S : G + (r - 18) * S) + base + 4 * q4;
+    buf[u] = __ldg(reinterpret_cast<const float4*>(src));
+  }
+  const int64_t lane0 = static_cast<int64_t>(c) * kwin;
+  const int q0 = offs[lane0];
+  const int n = offs[lane0 + kwin] - q0;  // at most chunk: the chunk's own triplets
+  for (int k = t; k < n; k += kScThreads) pair[k] = pairs[q0 + k];
+  for (int l = t; l <= kwin; l += kScThreads) loff[l] = offs[lane0 + l] - q0;
+  for (int l = t; l < kwin; l += kScThreads) lord[l] = lane_order[lane0 + l];
 #pragma unroll
-    for (int r = 0; r < 18; ++r) {
-      w[r] = W[r * S + i];
-      g[r] = G[r * S + j];
-    }
+  for (int u = 0; u < kScLoads; ++u) {
+    const int v = t + u * kScThreads, r = v % 36, q4 = v / 36;
+    float* dst = (r < 18 ? wwin + r : gwin + (r - 18)) + 4 * q4 * kScSlot;
+    dst[0] = buf[u].x;
+    dst[kScSlot] = buf[u].y;
+    dst[2 * kScSlot] = buf[u].z;
+    dst[3 * kScSlot] = buf[u].w;
+  }
+  __syncthreads();
+
+  for (int p0 = 0; p0 < kwin; p0 += kScPass) {
+    __syncthreads();  // the previous pass's tile is stored
+    for (int item = t; item < 6 * kScPass; item += kScThreads) {
+      const int k = item / 6, a = item - 6 * k;
+      const int l = lord[p0 + k];  // a lane of this pass's 128
+      float s[6];
 #pragma unroll
-    for (int a = 0; a < 6; ++a) {
+      for (int b = 0; b < 6; ++b) s[b] = 0.0f;
+      const int end = loff[l + 1];
+#pragma unroll 2
+      for (int q = loff[l]; q < end; ++q) {
+        const int pr = pair[q];
+        if (pr >= 0) {
+          const float* w = wwin + (pr & 0xffff) * kScSlot + 3 * a;
+          const float4* g4 = reinterpret_cast<const float4*>(gwin + (pr >> 16) * kScSlot);
+          const float w0 = w[0], w1 = w[1], w2 = w[2];
+          float g[kScSlot];
 #pragma unroll
-      for (int b = 0; b < 6; ++b) {
-        acc[a * 6 + b] += w[3 * a] * g[3 * b] + w[3 * a + 1] * g[3 * b + 1] +
-                          w[3 * a + 2] * g[3 * b + 2];
+          for (int j = 0; j < kScSlot / 4; ++j) {
+            const float4 f = g4[j];
+            g[4 * j] = f.x;
+            g[4 * j + 1] = f.y;
+            g[4 * j + 2] = f.z;
+            g[4 * j + 3] = f.w;
+          }
+#pragma unroll
+          for (int b = 0; b < 6; ++b) {
+            float x = __fmaf_rn(w0, g[3 * b], s[b]);
+            x = __fmaf_rn(w1, g[3 * b + 1], x);
+            s[b] = __fmaf_rn(w2, g[3 * b + 2], x);
+          }
+        }
       }
+#pragma unroll
+      for (int b = 0; b < 6; ++b) tile[(a * 6 + b) * kScTileStride + l - p0] = s[b];
+    }
+    __syncthreads();
+    for (int v = t; v < 36 * (kScPass / 4); v += kScThreads) {
+      const int r = v / (kScPass / 4), c4 = v - r * (kScPass / 4);
+      *reinterpret_cast<float4*>(out + r * lanes + lane0 + p0 + 4 * c4) =
+          *reinterpret_cast<const float4*>(tile + r * kScTileStride + 4 * c4);
     }
   }
-#pragma unroll
-  for (int r = 0; r < 36; ++r) out[r * lanes + lane] = acc[r];
 }
+
+// ---- compact_to_band: one block per (pose row, band tile column)
 
 constexpr int kBandTile = 64;            // pose blocks per CR block
 constexpr int kBandRows = 6 * kBandTile;  // 384 scalars
 constexpr int32_t kMirror = 1 << 30;
+constexpr int kCbThreads = 192;
+constexpr int kCbQuads = kBandRows / 4;  // float4 per output row of a tile: 96
 
-__global__ void compact_to_band_kernel(const float* __restrict__ gT, int64_t MWg,
-                                       const int32_t* __restrict__ table,
-                                       const float* __restrict__ dbT, int64_t PB,
-                                       const int32_t* __restrict__ occ, int64_t M,
-                                       float* __restrict__ out) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t width = 2 * kBandRows;
-  if (idx >= M * kBandRows * width) return;
-  const int64_t row = idx / width;
-  const int col = static_cast<int>(idx - row * width);
-  const int64_t k = row / kBandRows;
-  const int rl = static_cast<int>(row - k * kBandRows);
-  const int pr = rl / 6, i = rl - 6 * (rl / 6);
-  const int e = col / kBandRows;
-  const int cl = col - e * kBandRows;
-  const int lq = e * kBandTile + cl / 6, j = cl - 6 * (cl / 6);
-  const int64_t p = k * kBandTile + pr;
-  float v = 0.0f;
-  if (occ[2 * k + e] > 0) {
-    const int32_t ent = table[p * (2 * kBandTile) + lq];
-    if (ent >= 0) {
-      const int64_t slot = ent & (kMirror - 1);
-      const int r = (ent & kMirror) ? j * 6 + i : i * 6 + j;
-      v = -gT[r * MWg + slot];
+// Block (p, e) writes rows 6p .. 6p+5 of tile column e (384 floats each):
+// zeros where tile (p / 64, e) is unoccupied; else its 64 table entries are
+// read once, threads over (r = i*6 + j, q) with q fastest place -gT[r or
+// its transpose, slot] (+ the damped diagonal where e == 0 and q == p % 64)
+// into a [6, 384] shared strip, and the strip goes out as float4 rows.
+__global__ void __launch_bounds__(kCbThreads)
+compact_to_band_kernel(const float* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
+                       const float* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
+                       float* __restrict__ out) {
+  __shared__ __align__(16) float strip[6 * kBandRows];
+  __shared__ int32_t ent[kBandTile];
+  const int p = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
+  const int k = p / kBandTile, pr = p - k * kBandTile;
+  float4* dst = reinterpret_cast<float4*>(out + (k * kBandRows + 6 * pr) * (2 * kBandRows) +
+                                          e * kBandRows);
+  // the occupancy and the table row are loaded together (one latency)
+  const int en_t = t < kBandTile ? table[p * (2 * kBandTile) + e * kBandTile + t] : -1;
+  if (occ[2 * k + e] <= 0) {  // uniform across the block
+    for (int v = t; v < 6 * kCbQuads; v += kCbThreads) {
+      const int i = v / kCbQuads;
+      dst[i * (2 * kCbQuads) + v - i * kCbQuads] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    if (lq == pr) v += dbT[(i * 6 + j) * PB + p];
+    return;
   }
-  out[idx] = v;
+  if (t < kBandTile) ent[t] = en_t;
+  __syncthreads();
+  for (int v = t; v < 36 * kBandTile; v += kCbThreads) {
+    const int r = v / kBandTile, q = v - r * kBandTile;
+    const int i = r / 6, j = r - 6 * i;
+    const int en = ent[q];
+    float val = 0.0f;
+    if (en >= 0) val = -gT[((en & kMirror) ? j * 6 + i : r) * MWg + (en & (kMirror - 1))];
+    if (e == 0 && q == pr) val += dbT[r * PB + p];
+    strip[i * kBandRows + 6 * q + j] = val;
+  }
+  __syncthreads();
+  for (int v = t; v < 6 * kCbQuads; v += kCbThreads) {
+    const int i = v / kCbQuads;
+    dst[i * (2 * kCbQuads) + v - i * kCbQuads] = reinterpret_cast<const float4*>(strip)[v];
+  }
 }
 
 constexpr int kDenseTileP = 64;   // occupancy tile rows, pose blocks
@@ -401,30 +518,50 @@ int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs
   return static_cast<int>(cudaGetLastError());
 }
 
-// W, G [18, S]; sb [C]; li, lj [C*chunk]; order/offs: the per-lane CSR of
-// triplet positions (offs [C*kwin + 1]); out [36, C*kwin].
+// W, G [18, S], 16-byte aligned, S % 4 == 0, S >= (max sb + 2) * slot_block;
+// sb [C]; pairs/offs: the per-lane CSR (offs [C*kwin + 1]) with pairs[q] =
+// li | lj << 16 of entry q's triplet, -1 where it is dropped; lane_order
+// [C*kwin]: a permutation of each chunk's lanes within groups of 128; out
+// [36, C*kwin], 16-byte aligned.  slot_block 256 (a 512-slot window), chunk
+// the plan's (at least the entries of a chunk's lanes), kwin a multiple of
+// 128.
 int cuba_schur_fused(const float* W, const float* G, int64_t S, const int32_t* sb,
-                     const int32_t* li, const int32_t* lj, const int32_t* order,
-                     const int32_t* offs, int64_t slot_block, int64_t kwin, int64_t C,
-                     float* out, void* stream) {
-  const int64_t lanes = C * kwin;
-  if (lanes > 0) {
-    schur_fused_kernel<<<blocks_for(lanes), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        W, G, S, sb, li, lj, order, offs, slot_block, kwin, lanes, out);
+                     const int32_t* pairs, const int32_t* offs, const int32_t* lane_order,
+                     int64_t slot_block, int64_t chunk, int64_t kwin, int64_t C, float* out,
+                     void* stream) {
+  const size_t smem = schur_smem_bytes(chunk, kwin);
+  if (2 * slot_block != kScWin || kwin % kScPass != 0 || chunk <= 0 || C > kInt32Max ||
+      smem > 232448) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const void* fn = reinterpret_cast<const void*>(schur_fused_kernel);
+  if (C * kwin == 0) return static_cast<int>(cudaGetLastError());
+  // above 48 KB only after this opt-in; cheap, and idempotent
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sbk = static_cast<int>(slot_block), ck = static_cast<int>(chunk),
+      kw = static_cast<int>(kwin);
+  void* args[] = {&W, &G, &S, &sb, &pairs, &offs, &lane_order, &sbk, &ck, &kw, &out};
+  err = cudaLaunchKernel(fn, dim3(static_cast<unsigned int>(C)), dim3(kScThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// gT [36, MWg]; table [PB, 128]; dbT [36, PB]; occ [2M]; out [M*384, 768].
+// gT [36, MWg]; table [PB, 128]; dbT [36, PB]; occ [2M]; out [M*384, 768],
+// 16-byte aligned; PB = 64 M; M*384*768 and 36*MWg within int32.
 int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
                          const float* dbT, int64_t PB, const int32_t* occ, int64_t M,
                          float* out, void* stream) {
-  const int64_t n = M * kBandRows * 2 * kBandRows;
-  if (n > 0) {
-    compact_to_band_kernel<<<blocks_for(n), kThreads, 0,
+  if (PB != M * kBandTile || M * kBandRows * 2 * kBandRows > kInt32Max ||
+      36 * MWg > kInt32Max) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M > 0) {
+    compact_to_band_kernel<<<dim3(static_cast<unsigned int>(PB), 2), kCbThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-        gT, MWg, table, dbT, PB, occ, M, out);
+        gT, static_cast<int>(MWg), table, dbT, static_cast<int>(PB), occ, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -452,6 +589,33 @@ int cuba_band_transpose(const float* m4, const int32_t* occ, int64_t PB, float* 
         m4, occ, PB, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the build made of a kernel: out = {registers a thread, local
+// (spilled) bytes a thread, static shared bytes, blocks an SM can hold at
+// `smem` dynamic shared bytes}.  which: 0 compact_to_band, 1 schur_fused.
+int cuba_segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
+  if (which != 0 && which != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = which == 0 ? reinterpret_cast<const void*>(compact_to_band_kernel)
+                              : reinterpret_cast<const void*>(schur_fused_kernel);
+  const int threads = which == 0 ? kCbThreads : kScThreads;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                        static_cast<size_t>(smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int64_t>(attr.localSizeBytes);
+  out[2] = static_cast<int64_t>(attr.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // extern "C"

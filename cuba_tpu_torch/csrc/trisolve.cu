@@ -67,7 +67,7 @@
 //    fixed order (j from K-1 down to i+1, its rows in row order), the row
 //    groups are combined through shared memory in group order, and r_i =
 //    y_i - that sum.  The diagonal step has the same shape over invd[i]'s
-//    rows.  trisolve.solve_upper_walk is that order in NumPy.
+//    rows.  walks.solve_upper_walk is that order in NumPy.
 //
 // The matvec has a kernel of its own (matvec_kernel): one warp per row
 // would leave 1,536 warps at n = 1536, too few loads in flight to hide the
@@ -76,7 +76,7 @@
 // that small n still fills the card), loads a quad as one float4 where n
 // % 4 == 0 and A, x are 16-byte aligned (four scalar loads otherwise, in
 // the same order), and keeps kAccs = 4 accumulators per lane with 4 quads'
-// loads issued before their FMAs.  trisolve.matvec_walk is its order in
+// loads issued before their FMAs.  walks.matvec_walk is its order in
 // NumPy.
 //
 // The diagonal copy (extract_diag_kernel) has no division: blockIdx.y is

@@ -323,6 +323,11 @@ class SegmentCSR(NamedTuple):
     # [num_live] int32, the non-empty segments, where nearly all are empty
     # (the kernel then zeroes the output and sums only these); else None
     live: Optional[torch.Tensor] = None
+    # schur_lane_csr only: [M] int32, li | lj << 16 of entry q's triplet
+    # (-1 where it is dropped), what schur_fused's kernel reads per entry;
+    # and [num_out] int32, the order its threads take the lanes in
+    pairs: Optional[torch.Tensor] = None
+    lane_order: Optional[torch.Tensor] = None
 
 
 MAX_GROUP = 32  # one warp
@@ -335,7 +340,7 @@ def group_width(mean: float) -> int:
     entries on average: the smallest power of two at or above mean / 4,
     capped at a warp, so that a lane walks about four entries.  Long
     segments then get 32 lanes of independent loads, segments of 0-4
-    entries a lane each.  It fixes the summation order (:func:`segsum_walk`)."""
+    entries a lane each.  It fixes the summation order (``walks.segsum_walk``)."""
     g = 1
     while 4 * g < mean and g < MAX_GROUP:
         g *= 2
@@ -388,40 +393,42 @@ def segment_csr(ids, num_out: int, device) -> SegmentCSR:
     )
 
 
-def segsum_walk(vals: np.ndarray, csr: SegmentCSR, group: Optional[int] = None) -> np.ndarray:
-    """The CUDA segment sum's exact fp32 summation order, in NumPy (for
-    tests): lane k of segment s's group of G lanes (``group``, by default
-    the CSR's, as the kernel takes it) sums entries offs[s] + k,
-    offs[s] + k + G, ... in order, from 0; then, for o = G/2, ..., 1, every
-    lane adds lane (k xor o)'s partial.  Returns [D, num_out] fp32."""
-    vals = np.asarray(vals, np.float32)
-    order, offs = csr.order.cpu().numpy(), csr.offs.cpu().numpy()
-    G = csr.group if group is None else group
-    out = np.zeros((vals.shape[0], offs.size - 1), np.float32)
-    lanes = np.arange(G)
-    for s in np.flatnonzero(np.diff(offs)):
-        cols = order[offs[s]:offs[s + 1]]
-        part = np.zeros((G, vals.shape[0]), np.float32)
-        for k in range(min(G, cols.size)):
-            run = vals[:, cols[k::G]]
-            # cumsum adds left to right: the lane's serial chain, from +0
-            part[k] = np.cumsum(np.concatenate([part[k][:, None], run], axis=1), axis=1,
-                                dtype=np.float32)[:, -1]
-        o = G // 2
-        while o:
-            part = part + part[lanes ^ o]
-            o //= 2
-        out[:, s] = part[0]
-    return out
-
-
 def schur_lane_csr(plan: SchurPlan, device) -> SegmentCSR:
     """schur_fused's summation order: for every output lane c*kwin + l, the
-    chunk's triplet positions t with lk[t] == l, in ascending t."""
+    chunk's triplet positions t with lk[t] == l, in ascending t; its
+    ``pairs``, li[t] | lj[t] << 16 of each entry (-1 where li or lj lies
+    outside [0, 2*slot_block)), so that the kernel reads one coalesced
+    table, not order, li and lj in turn; and its ``lane_order``
+    (:func:`schur_lane_order`).  Built once per structure."""
     lk = np.asarray(plan.lk, np.int64)
     chunk_of = np.arange(lk.size, dtype=np.int64) // plan.chunk
     lanes = np.where(lk >= 0, chunk_of * plan.kwin + lk, -1)
-    return segment_csr(lanes, plan.num_chunks * plan.kwin, device)
+    csr = segment_csr(lanes, plan.num_chunks * plan.kwin, "cpu")
+    t = csr.order.numpy()
+    li, lj = np.asarray(plan.li, np.int64)[t], np.asarray(plan.lj, np.int64)[t]
+    win = 2 * plan.slot_block
+    keep = (li >= 0) & (lj >= 0) & (li < win) & (lj < win)
+    pairs = np.where(keep, li | (lj << 16), -1).astype(np.int32)
+    order = schur_lane_order(np.diff(csr.offs.numpy()), plan.kwin)
+    return csr._replace(order=csr.order.to(device), offs=csr.offs.to(device),
+                        live=None if csr.live is None else csr.live.to(device),
+                        pairs=torch.from_numpy(pairs).to(device),
+                        lane_order=torch.from_numpy(order).to(device))
+
+
+SCHUR_PASS = 128  # lanes of one group of the lane order and of one pass of the kernel
+
+
+def schur_lane_order(lengths: np.ndarray, kwin: int) -> np.ndarray:
+    """The order schur_fused's threads take a chunk's lanes in: within each
+    group of SCHUR_PASS consecutive lanes, by descending length (ties by
+    lane), as local lane ids [C*kwin] int32, so that a warp walks lanes of
+    about one length and the longest start first.  It moves no sum: each
+    output keeps its lane's order."""
+    g = np.asarray(lengths, np.int64).reshape(-1, SCHUR_PASS)
+    local = np.argsort(-g, axis=1, kind="stable")
+    base = (np.arange(g.shape[0]) * SCHUR_PASS % kwin)[:, None]
+    return (local + base).reshape(-1).astype(np.int32)
 
 
 BAND_TILE = 64  # pose blocks per CR block: 384 = 64 * 6 scalars
@@ -482,8 +489,9 @@ _i64, _vp = ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
     "cuba_gather_cols": [_vp, _vp, _vp, _i64, _i64, _i64, _vp],
     "cuba_segsum_csr": [_vp, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _i64, _i64, _i64, _vp],
-    "cuba_schur_fused": [_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _vp, _vp],
+    "cuba_schur_fused": [_vp, _vp, _i64, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp, _vp],
     "cuba_compact_to_band": [_vp, _i64, _vp, _vp, _i64, _vp, _i64, _vp, _vp],
+    "cuba_segmm_attributes": [_i64, _i64, _vp],
     "cuba_compact_to_dense": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp],
     "cuba_band_transpose": [_vp, _vp, _i64, _vp, _vp],
 }
@@ -651,13 +659,44 @@ def schur_fused_plain(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr=None):
     return out.index_add_(1, lane[valid], prod[:, valid])
 
 
+SCHUR_WINDOW = 512  # slots a chunk reads from W and from G (2 * slot_block; kScWin)
+SCHUR_SLOT = 20  # floats of a staged slot: its 18 values, padded to 5 float4 (kScSlot)
+SCHUR_THREADS = 256  # threads a block (one block per chunk; kScThreads), six a lane
+
+
+def schur_fused_launch(plan: SchurPlan) -> dict:
+    """``schur_fused_kernel``'s launch at the plan: a ``grid`` of one block
+    per chunk, ``threads`` a block and ``smem`` dynamic shared bytes (the W
+    and G windows [2, 512, 20] floats, the chunk's pairs, lane offsets and
+    lane order padded to 4 ints, and a [36, 132] output tile)."""
+    ints = (plan.chunk + 2 * plan.kwin + 1 + 3) // 4 * 4
+    return dict(grid=[plan.num_chunks], threads=SCHUR_THREADS,
+                smem=4 * (2 * SCHUR_WINDOW * SCHUR_SLOT + ints + 36 * (SCHUR_PASS + 4)))
+
+
+def kernel_attributes(name: str, launch: dict) -> dict:
+    """What the build made of ``schur_fused``'s or ``compact_to_band``'s
+    kernel: ``registers`` and ``spill_bytes`` a thread, and
+    ``blocks_per_sm`` at the launch's threads and shared bytes (on the card
+    only)."""
+    which = {"compact_to_band": 0, "schur_fused": 1}[name]
+    out = (ctypes.c_int64 * 4)()
+    err = _kernel_lib().cuba_segmm_attributes(which, launch["smem"] if which else 0,
+                                              ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel attributes not read (cudaError {err})")
+    return dict(registers=out[0], spill_bytes=out[1], blocks_per_sm=out[3])
+
+
 def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentCSR] = None):
     """Per-chunk windowed pair products (cuba_tpu segmm.schur_fused):
     out[a*6+b, c*kwin + lk[t]] += sum_m W[3a+m, sb[c]*SB + li[t]] *
     G[3b+m, sb[c]*SB + lj[t]] over chunk c's triplets t; -1 ids dropped.
     W, G [18, >= n_slot_pad] -> [36, C*kwin].  ``csr`` is
     :func:`schur_lane_csr` of the plan, built once per structure; the
-    kernel needs it."""
+    kernel needs it, and W and G 16-byte aligned with a row length that is
+    a multiple of 4 (its 16-byte window copies), else it raises.  On the
+    card each output is summed in the order of ``walks.schur_fused_walk``."""
     C, KW = plan.num_chunks, plan.kwin
     for t, name in ((W, "W"), (G, "G")):
         if t.dim() != 2 or t.shape[0] != 18 or t.shape[1] < plan.n_slot_pad:
@@ -672,19 +711,29 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
         return schur_fused_plain(W, G, plan, sb, li, lj, lk)
     for t, name in ((W, "W"), (G, "G")):
         cudalib.check(t, name, torch.float32, 2)
-    for t, name in ((sb, "sb"), (li, "li"), (lj, "lj")):
-        cudalib.check(t, name, torch.int32, 1)
-    if csr is None:
+        if t.data_ptr() % 16 or t.shape[1] % 4:
+            raise ValueError(f"schur_fused: {name} must be 16-byte aligned with rows of a "
+                             f"multiple of 4 floats (16-byte window copies)")
+    cudalib.check(sb, "sb", torch.int32, 1)
+    if csr is None or csr.pairs is None or csr.lane_order is None:
         raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
-    cudalib.check(csr.order, "csr.order", torch.int32, 1)
-    cudalib.check(csr.offs, "csr.offs", torch.int32, 1)
-    if csr.offs.shape[0] != C * KW + 1 or csr.offs.device != W.device:
-        raise ValueError("csr does not match the plan or the device")
+    for t, name in ((csr.pairs, "csr.pairs"), (csr.offs, "csr.offs"),
+                    (csr.lane_order, "csr.lane_order")):
+        cudalib.check(t, name, torch.int32, 1)
+        if t.device != W.device:
+            raise ValueError("csr does not match the device")
+    if (csr.offs.shape[0] != C * KW + 1 or csr.pairs.shape != csr.order.shape
+            or csr.lane_order.shape[0] != C * KW):
+        raise ValueError("csr does not match the plan")
+    if 2 * plan.slot_block != SCHUR_WINDOW or KW % SCHUR_PASS:
+        raise ValueError(f"schur_fused: the kernel takes a {SCHUR_WINDOW}-slot window and "
+                         f"kwin a multiple of {SCHUR_PASS}, not slot_block {plan.slot_block}, "
+                         f"kwin {KW}")
     out = torch.empty((36, C * KW), dtype=torch.float32, device=W.device)
     cudalib.call("schur_fused", W, _kernel_lib().cuba_schur_fused,
-                 W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), li.data_ptr(),
-                 lj.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(),
-                 plan.slot_block, KW, C, out.data_ptr())
+                 W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), csr.pairs.data_ptr(),
+                 csr.offs.data_ptr(), csr.lane_order.data_ptr(), plan.slot_block, plan.chunk,
+                 KW, C, out.data_ptr())
     LAUNCHES["schur_fused"] += 1
     return out
 
@@ -710,6 +759,16 @@ def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, tabl
     occ = (occ_band.reshape(M, 2) > 0)[:, None, None, :, None, None]
     out = torch.where(occ, out, torch.zeros((), dtype=out.dtype, device=out.device))
     return out.reshape(M * 6 * T, 12 * T)
+
+
+BAND_THREADS = 192  # threads a block of compact_to_band_kernel (kCbThreads)
+
+
+def compact_to_band_launch(PB: int) -> dict:
+    """``compact_to_band_kernel``'s launch: a ``grid`` of one block per
+    (pose row, tile column), ``threads`` a block and its static ``smem``
+    (the [6, 384] strip and the row's 64 table entries)."""
+    return dict(grid=[PB, 2], threads=BAND_THREADS, smem=4 * (6 * 6 * BAND_TILE + BAND_TILE))
 
 
 def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
@@ -740,6 +799,7 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
     cudalib.check(table, "table", torch.int32, 2)
     if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+    cudalib.check_int32("compact_to_band", M * 6 * BAND_TILE * 12 * BAND_TILE, gT.numel())
     out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=torch.float32,
                       device=gT.device)
     cudalib.call("compact_to_band", gT, _kernel_lib().cuba_compact_to_band,

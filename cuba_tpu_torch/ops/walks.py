@@ -1,0 +1,267 @@
+"""The hand-written kernels' index arithmetic and summation orders, in
+NumPy, for the tests and the probes.
+
+Each walk reproduces one CUDA kernel of ``csrc/segmm.cu`` or
+``csrc/trisolve.cu`` as the card runs it: which thread reads and writes
+what, and in which order each output's terms are added, with every fp32
+FMA rounded once (:func:`fma32`).  The card's tests hold each kernel to its
+walk bit for bit; the CPU tests hold each walk to ``cuba_tpu``'s Pallas
+kernel or to the plain version.  No module of the solver imports this one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cuba_tpu_torch.ops.segmm import (BAND_THREADS, BAND_TILE, SCHUR_SLOT, SCHUR_THREADS,
+                                      SCHUR_WINDOW, SchurPlan, SegmentCSR)
+from cuba_tpu_torch.solver.trisolve import (BLOCK, DIAG_LOADS, DIAG_PASS, MATVEC_ACCS, QUADS,
+                                            THREADS, UPPER_TILE, diag_launch, matvec_slices,
+                                            solve_upper_tile)
+
+
+def fma32(a, b, c):
+    """fp32 fused multiply-add rounded once, as the card's ``__fmaf_rn``:
+    the product of two fp32 values is exact in fp64; the fp64 sum is rounded
+    to odd (its error from TwoSum), which an fp32 rounding then takes to the
+    correctly rounded result."""
+    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
+    c = np.asarray(c, np.float32).astype(np.float64)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def segsum_walk(vals: np.ndarray, csr: SegmentCSR, group: Optional[int] = None) -> np.ndarray:
+    """The CUDA segment sum's exact fp32 summation order, in NumPy (for
+    tests): lane k of segment s's group of G lanes (``group``, by default
+    the CSR's, as the kernel takes it) sums entries offs[s] + k,
+    offs[s] + k + G, ... in order, from 0; then, for o = G/2, ..., 1, every
+    lane adds lane (k xor o)'s partial.  Returns [D, num_out] fp32."""
+    vals = np.asarray(vals, np.float32)
+    order, offs = csr.order.cpu().numpy(), csr.offs.cpu().numpy()
+    G = csr.group if group is None else group
+    out = np.zeros((vals.shape[0], offs.size - 1), np.float32)
+    lanes = np.arange(G)
+    for s in np.flatnonzero(np.diff(offs)):
+        cols = order[offs[s]:offs[s + 1]]
+        part = np.zeros((G, vals.shape[0]), np.float32)
+        for k in range(min(G, cols.size)):
+            run = vals[:, cols[k::G]]
+            # cumsum adds left to right: the lane's serial chain, from +0
+            part[k] = np.cumsum(np.concatenate([part[k][:, None], run], axis=1), axis=1,
+                                dtype=np.float32)[:, -1]
+        o = G // 2
+        while o:
+            part = part + part[lanes ^ o]
+            o //= 2
+        out[:, s] = part[0]
+    return out
+
+
+def schur_fused_walk(W, G, plan: SchurPlan, sb, li, lj, csr: SegmentCSR) -> np.ndarray:
+    """``schur_fused_kernel``'s exact fp32 order, in NumPy (for tests): for
+    every output (lane, a*6+b), from 0, each triplet t of the lane's CSR
+    segment (ascending t; li or lj < 0 dropped) adds its three products by
+    :func:`fma32`, m = 0, 1, 2: s = fma(W[3a+m, i_t], G[3b+m, j_t], s) with
+    i_t = sb[c]*SB + li[t].  Returns [36, C*kwin] fp32."""
+    W, G = np.asarray(W, np.float32), np.asarray(G, np.float32)
+    sb, li, lj = (np.asarray(a.cpu().numpy() if isinstance(a, torch.Tensor) else a, np.int64)
+                  for a in (sb, li, lj))
+    order, offs = csr.order.cpu().numpy().astype(np.int64), csr.offs.cpu().numpy()
+    lanes = offs.size - 1
+    length = np.diff(offs)
+    base = sb[np.arange(lanes) // plan.kwin] * plan.slot_block
+    out = np.zeros((6, 6, lanes), np.float32)
+    for k in range(int(length.max()) if lanes else 0):
+        lane = np.flatnonzero(length > k)
+        t = order[offs[lane] + k]
+        keep = (li[t] >= 0) & (lj[t] >= 0)
+        lane, t = lane[keep], t[keep]
+        w = W[:, base[lane] + li[t]].reshape(6, 1, 3, -1)
+        g = G[:, base[lane] + lj[t]].reshape(1, 6, 3, -1)
+        s = out[:, :, lane]
+        for m in range(3):
+            s = fma32(w[:, :, m], g[:, :, m], s)
+        out[:, :, lane] = s
+    return out.reshape(36, lanes)
+
+
+def schur_stage_walk():
+    """``schur_fused_kernel``'s staging of the W and G windows, in NumPy:
+    for load u < 36*512/4 / SCHUR_THREADS of thread t, v = t + u *
+    SCHUR_THREADS, the float4 it reads is row r = v % 36 (W's rows 0-17,
+    G's 18-35) at column quad q4 = v // 36 of the window, and its four
+    floats go to shared word r' + (4*q4 + c) * SCHUR_SLOT, c < 4, with r' =
+    r for W, and for G (r - 18) plus the W window's SCHUR_WINDOW *
+    SCHUR_SLOT words.  Returns (r, q4, words), of shapes [loads, threads],
+    [loads, threads] and [loads, threads, 4]."""
+    loads = 36 * SCHUR_WINDOW // 4 // SCHUR_THREADS
+    v = np.arange(SCHUR_THREADS)[None, :] + SCHUR_THREADS * np.arange(loads)[:, None]
+    r, q4 = v % 36, v // 36
+    row = np.where(r < 18, r, r - 18 + SCHUR_WINDOW * SCHUR_SLOT)
+    words = row[..., None] + (4 * q4[..., None] + np.arange(4)) * SCHUR_SLOT
+    return r, q4, words
+
+
+def compact_to_band_walk(gT, table, dbT, occ, PB: int) -> np.ndarray:
+    """``compact_to_band_kernel``'s index arithmetic in NumPy (for tests),
+    over all blocks (p, e) at once: thread t of BAND_THREADS takes items v =
+    t, t + 192, ... of (r, q) = (v // 64, v % 64), r = i*6 + j, reading its
+    row's table entry q (slot, bit 30 for a mirror) and placing -gT[r or
+    j*6 + i, slot] (+ dbT[r, p] where e == 0 and q == p % 64) at strip[i,
+    6q + j]; then quad v of the strip (row v // 96) goes to out row 6p + i
+    of the tile; an unoccupied tile gets zeros.  Returns [M*384, 768]."""
+    gT, dbT = np.asarray(gT, np.float32), np.asarray(dbT, np.float32)
+    table, occ = np.asarray(table), np.asarray(occ)
+    T, M = BAND_TILE, PB // BAND_TILE
+    p = np.arange(PB)[:, None, None]
+    e = np.arange(2)[None, :, None]
+    out = np.zeros((M * 6 * T, 12 * T), np.float32)
+    strip = np.zeros((PB, 2, 6, 6 * T), np.float32)
+    for t in range(BAND_THREADS):
+        v = np.arange(t, 36 * T, BAND_THREADS)[None, None, :]
+        r, q = v // T, v % T
+        i, j = r // 6, r % 6
+        en = table[p, e * T + q]
+        row = np.where(en & (1 << 30), j * 6 + i, r)
+        val = np.where(en >= 0, -gT[row, np.where(en >= 0, en & ((1 << 30) - 1), 0)],
+                       np.float32(0))
+        val = np.where((e == 0) & (q == p % T), val + dbT[r, p], val)
+        strip[p, e, i, 6 * q + j] = val
+    live = occ.reshape(M, 2)[np.arange(PB) // T] > 0  # [PB, 2]
+    strip = np.where(live[:, :, None, None], strip, np.float32(0))
+    quads = strip.reshape(PB, 2, 6 * 6 * T // 4, 4)
+    for t in range(BAND_THREADS):
+        v = np.arange(t, 6 * 6 * T // 4, BAND_THREADS)
+        i, c4 = v // (6 * T // 4), v % (6 * T // 4)
+        rows = (p[:, :, 0] // T * 6 * T + 6 * (p[:, :, 0] % T))[:, :, None] + i  # [PB, 1, n]
+        cols = e[:, :, :1] * 6 * T + 4 * c4  # [1, 2, n]
+        for c in range(4):
+            out[rows, cols + c] = quads[:, :, v, c]
+    return out
+
+
+def extract_diag_walk(L: np.ndarray):
+    """The diagonal copy's index arithmetic in NumPy (for tests): block (x,
+    k) of the grid, thread t and load i < DIAG_LOADS copy float4 number
+    r * n/4 + k * QUADS + t % QUADS of L to number r * QUADS + t % QUADS of
+    the output, r = k * BLOCK + x * DIAG_PASS * DIAG_LOADS + t // QUADS + i
+    * DIAG_PASS.  Returns ([K, B, B], the times each output float4 was
+    written)."""
+    n = L.shape[0]
+    K = n // BLOCK
+    gx = diag_launch(K)["grid"][0]
+    k, x, t, i = np.meshgrid(np.arange(K), np.arange(gx), np.arange(THREADS),
+                             np.arange(DIAG_LOADS), indexing="ij")
+    c = t % QUADS
+    r = k * BLOCK + x * (DIAG_PASS * DIAG_LOADS) + t // QUADS + i * DIAG_PASS
+    src, dst = (r * (n // 4) + k * QUADS + c).ravel(), (r * QUADS + c).ravel()
+    out = np.zeros((K * BLOCK * QUADS, 4), L.dtype)
+    out[dst] = np.asarray(L).reshape(-1, 4)[src]
+    return out.reshape(K, BLOCK, BLOCK), np.bincount(dst, minlength=out.shape[0])
+
+
+def solve_upper_walk(L, invd, y) -> np.ndarray:
+    """``solve_upper_kernel``'s order in NumPy (for tests), over flat memory
+    as the kernel addresses it.  Tiles in ticket order; a tile of stripe i
+    and T = UPPER_TILE columns is THREADS threads, thread (g, q) taking
+    column quad q < T/4 and rows g + G*m (m < R) of a stripe, G = THREADS /
+    (T/4) groups, R = 256 / G.  It adds L[row, c] x[row] into its
+    accumulator for stripes j = K-1 down to i+1, its rows in order; the
+    groups' sums are added in group order and r = y - that sum goes to
+    rbuf.  Once every tile of the stripe has written rbuf (``cnt``), each
+    reads r_i and takes its T entries of x_i = invd[i]^T r_i in the same
+    shape over invd[i]'s rows.  The top stripe reads r = y.  fp32 input is
+    walked with :func:`fma32` (each FMA rounded once: the card's bits), fp64
+    with fp64 FMAs."""
+    L, invd, y = np.asarray(L), np.asarray(invd), np.asarray(y)
+    dt = L.dtype
+    fma = fma32 if dt == np.float32 else (lambda a, b, c: a * b + c)
+    n = L.shape[0]
+    K = n // BLOCK
+    T = UPPER_TILE
+    G = THREADS // (T // 4)
+    R = BLOCK // G
+    Lf, invf = L.reshape(-1), invd.reshape(-1)
+    x, rbuf = np.zeros(n, dt), np.zeros(n, dt)
+    g, c = np.arange(G)[:, None], np.arange(T)[None, :]  # row group, tile column
+
+    def combine(acc):
+        s = acc[0]
+        for h in range(1, G):
+            s = s + acc[h]
+        return s
+
+    per = BLOCK // T
+    for first in range(0, K * per, per):  # a stripe's tickets
+        tiles = [solve_upper_tile(t, K) for t in range(first, first + per)]
+        i = tiles[0][0]
+        for _i, col in tiles:  # up to the cnt wait
+            c0 = i * BLOCK + col
+            if i + 1 < K:
+                acc = np.zeros((G, T), dt)
+                for j in range(K - 1, i, -1):
+                    for m in range(R):
+                        rows = j * BLOCK + g + G * m
+                        acc = fma(Lf[rows * n + c0 + c], x[rows], acc)
+                rbuf[c0 + c[0]] = y[c0 + c[0]] - combine(acc)
+        r = rbuf[i * BLOCK:(i + 1) * BLOCK] if i + 1 < K else y[i * BLOCK:(i + 1) * BLOCK]
+        for _i, col in tiles:  # the diagonal step, from rbuf
+            acc = np.zeros((G, T), dt)
+            for m in range(R):
+                a = g + G * m
+                acc = fma(invf[i * BLOCK * BLOCK + a * BLOCK + col + c], r[a], acc)
+            x[i * BLOCK + col + c[0]] = combine(acc)
+    return x
+
+
+def matvec_walk(A, x, slices: int = None) -> np.ndarray:
+    """The CUDA matvec's exact fp32 summation order, in NumPy (for tests).
+    A row's n columns form q = ceil(n/4) quads (a partial last one padded
+    with zero terms), cut into ``slices`` S (by default :func:`matvec_slices`)
+    of w = ceil(q/S) quads.  Lane l < 32 of slice s adds quads s*w + l + 32t,
+    t = 0, 1, ..., below min(q, (s+1)*w), into accumulator t % MATVEC_ACCS,
+    the quad's four terms by :func:`fma32` in column order, from 0; its
+    partial is acc[0] + acc[1] + ... in index order; for o = 16, ..., 1
+    every lane adds lane (l xor o)'s partial; the row's sum is the slices'
+    partials added in slice order.  Returns [n] fp32."""
+    A, x = np.asarray(A, np.float32), np.asarray(x, np.float32)
+    n = A.shape[0]
+    S = matvec_slices(n) if slices is None else slices
+    q = -(-n // 4)
+    w = -(-q // S)
+    Ap = np.zeros((n, 4 * q), np.float32)
+    Ap[:, :n] = A
+    xp = np.zeros(4 * q, np.float32)
+    xp[:n] = x
+    lanes = np.arange(32)
+    parts = []
+    for s in range(S):
+        lo, hi = s * w, min(q, (s + 1) * w)
+        acc = np.zeros((MATVEC_ACCS, n, 32), np.float32)
+        for t in range(-(-max(hi - lo, 0) // 32)):
+            j = lo + 32 * t + lanes
+            live = j < hi
+            j = np.where(live, j, 0)
+            for c in range(4):
+                acc[t % MATVEC_ACCS] = np.where(live, fma32(Ap[:, 4 * j + c], xp[4 * j + c],
+                                                     acc[t % MATVEC_ACCS]), acc[t % MATVEC_ACCS])
+        p = acc[0]
+        for u in range(1, MATVEC_ACCS):
+            p = p + acc[u]
+        o = 16
+        while o:
+            p = p + p[:, lanes ^ o]
+            o //= 2
+        parts.append(p[:, 0])
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    return y

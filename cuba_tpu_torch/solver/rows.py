@@ -176,7 +176,7 @@ class RowConsts:
     band_table: Optional[torch.Tensor] = None  # [PB, 128] segmm.band_table
     occ2: Optional[torch.Tensor] = None  # [PB/64 * PB/128] dense tile occupancy
     dense_table: Optional[torch.Tensor] = None  # [PB, PB] segmm.dense_table (dense only)
-    csr_sc: Optional[SegmentCSR] = None  # schur_fused's per-lane order
+    csr_sc: Optional[SegmentCSR] = None  # schur_fused's per-lane order and pair table
     csr_up2: Optional[SegmentCSR] = None  # the combine's order
     # v2 band + low rank: the out-of-band blocks' band slots (their loop
     # columns are the engine's, from band_cr.loop_plan)

@@ -30,16 +30,15 @@ bf16-pass precision.
 
 The launches of the diagonal copy (:func:`diag_launch`), the backward sweep
 (:func:`solve_upper_launch`) and the matvec (:func:`matvec_launch`, with its
-one rule, :func:`matvec_slices`) live here, with their kernels' index
-arithmetic and summation order in NumPy (:func:`extract_diag_walk`,
-:func:`solve_upper_walk`, :func:`matvec_walk`) for the tests.
+one rule, :func:`matvec_slices`) live here; their kernels' index
+arithmetic and summation order in NumPy are ``ops/walks.py``'s
+(``extract_diag_walk``, ``solve_upper_walk``, ``matvec_walk``).
 """
 
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from cuba_tpu_torch.ops import cudalib
@@ -104,26 +103,6 @@ def diag_launch(K: int) -> dict:
     ``grid`` [row groups, K] of THREADS-thread blocks: 192 blocks at
     kitti07's K = 6, at least one per SM."""
     return dict(grid=[BLOCK // (DIAG_PASS * DIAG_LOADS), K], loads=DIAG_LOADS)
-
-
-def extract_diag_walk(L: np.ndarray):
-    """The diagonal copy's index arithmetic in NumPy (for tests): block (x,
-    k) of the grid, thread t and load i < DIAG_LOADS copy float4 number
-    r * n/4 + k * QUADS + t % QUADS of L to number r * QUADS + t % QUADS of
-    the output, r = k * BLOCK + x * DIAG_PASS * DIAG_LOADS + t // QUADS + i
-    * DIAG_PASS.  Returns ([K, B, B], the times each output float4 was
-    written)."""
-    n = L.shape[0]
-    K = n // BLOCK
-    gx = diag_launch(K)["grid"][0]
-    k, x, t, i = np.meshgrid(np.arange(K), np.arange(gx), np.arange(THREADS),
-                             np.arange(DIAG_LOADS), indexing="ij")
-    c = t % QUADS
-    r = k * BLOCK + x * (DIAG_PASS * DIAG_LOADS) + t // QUADS + i * DIAG_PASS
-    src, dst = (r * (n // 4) + k * QUADS + c).ravel(), (r * QUADS + c).ravel()
-    out = np.zeros((K * BLOCK * QUADS, 4), L.dtype)
-    out[dst] = np.asarray(L).reshape(-1, 4)[src]
-    return out.reshape(K, BLOCK, BLOCK), np.bincount(dst, minlength=out.shape[0])
 
 
 def extract_diag_blocks(L, block: int = BLOCK):
@@ -201,7 +180,7 @@ def solve_upper(L, invd, y, block: int = BLOCK):
     The plain version: x_k = invd[k]^T (y_k + d_k), then d -= L[k, :]^T x_k
     left of the diagonal block.  On the card: one launch of
     ``solve_upper_kernel`` (:func:`solve_upper_launch`,
-    :func:`solve_upper_walk`) after one zeroing of its workspace; B = 256,
+    ``walks.solve_upper_walk``) after one zeroing of its workspace; B = 256,
     and L and invd 16-byte aligned, else it raises."""
     if not _check_sweep(L, invd, y, block):
         return solve_upper_plain(L, invd, y, block)
@@ -236,60 +215,6 @@ def solve_upper_tile(ticket: int, K: int):
     return K - 1 - ticket // per, ticket % per * UPPER_TILE
 
 
-def solve_upper_walk(L, invd, y) -> np.ndarray:
-    """``solve_upper_kernel``'s order in NumPy (for tests), over flat memory
-    as the kernel addresses it.  Tiles in ticket order; a tile of stripe i
-    and T = UPPER_TILE columns is THREADS threads, thread (g, q) taking
-    column quad q < T/4 and rows g + G*m (m < R) of a stripe, G = THREADS /
-    (T/4) groups, R = 256 / G.  It adds L[row, c] x[row] into its
-    accumulator for stripes j = K-1 down to i+1, its rows in order; the
-    groups' sums are added in group order and r = y - that sum goes to
-    rbuf.  Once every tile of the stripe has written rbuf (``cnt``), each
-    reads r_i and takes its T entries of x_i = invd[i]^T r_i in the same
-    shape over invd[i]'s rows.  The top stripe reads r = y.  fp32 input is
-    walked with :func:`fma32` (each FMA rounded once: the card's bits), fp64
-    with fp64 FMAs."""
-    L, invd, y = np.asarray(L), np.asarray(invd), np.asarray(y)
-    dt = L.dtype
-    fma = fma32 if dt == np.float32 else (lambda a, b, c: a * b + c)
-    n = L.shape[0]
-    K = n // BLOCK
-    T = UPPER_TILE
-    G = THREADS // (T // 4)
-    R = BLOCK // G
-    Lf, invf = L.reshape(-1), invd.reshape(-1)
-    x, rbuf = np.zeros(n, dt), np.zeros(n, dt)
-    g, c = np.arange(G)[:, None], np.arange(T)[None, :]  # row group, tile column
-
-    def combine(acc):
-        s = acc[0]
-        for h in range(1, G):
-            s = s + acc[h]
-        return s
-
-    per = BLOCK // T
-    for first in range(0, K * per, per):  # a stripe's tickets
-        tiles = [solve_upper_tile(t, K) for t in range(first, first + per)]
-        i = tiles[0][0]
-        for _i, col in tiles:  # up to the cnt wait
-            c0 = i * BLOCK + col
-            if i + 1 < K:
-                acc = np.zeros((G, T), dt)
-                for j in range(K - 1, i, -1):
-                    for m in range(R):
-                        rows = j * BLOCK + g + G * m
-                        acc = fma(Lf[rows * n + c0 + c], x[rows], acc)
-                rbuf[c0 + c[0]] = y[c0 + c[0]] - combine(acc)
-        r = rbuf[i * BLOCK:(i + 1) * BLOCK] if i + 1 < K else y[i * BLOCK:(i + 1) * BLOCK]
-        for _i, col in tiles:  # the diagonal step, from rbuf
-            acc = np.zeros((G, T), dt)
-            for m in range(R):
-                a = g + G * m
-                acc = fma(invf[i * BLOCK * BLOCK + a * BLOCK + col + c], r[a], acc)
-            x[i * BLOCK + col + c[0]] = combine(acc)
-    return x
-
-
 def matvec_plain(A, x, block: int = BLOCK):
     return A @ x
 
@@ -298,7 +223,7 @@ def matvec_slices(n: int) -> int:
     """S, the slices (one warp each) a row of the matvec is cut into: the
     smallest power of two with n * S warps at or above MATVEC_WARPS_PER_SM
     an SM, at most MAX_SLICES.  It fixes the summation order
-    (:func:`matvec_walk`)."""
+    (``walks.matvec_walk``)."""
     S = 1
     while n * S < SMS * MATVEC_WARPS_PER_SM and S < MAX_SLICES:
         S *= 2
@@ -316,69 +241,9 @@ def _float4(A, x) -> bool:
     return A.shape[0] % 4 == 0 and A.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
 
 
-def fma32(a, b, c):
-    """fp32 fused multiply-add rounded once, as the card's ``fmaf``: the
-    product of two fp32 values is exact in fp64; the fp64 sum is rounded to
-    odd (its error from TwoSum), which an fp32 rounding then takes to the
-    correctly rounded result."""
-    p = np.asarray(a, np.float32).astype(np.float64) * np.asarray(b, np.float32)
-    c = np.asarray(c, np.float32).astype(np.float64)
-    s = p + c
-    bp = s - p
-    err = (p - (s - bp)) + (c - bp)
-    even = (s.view(np.int64) & 1) == 0
-    s = np.where((err != 0) & even, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
-    return s.astype(np.float32)
-
-
-def matvec_walk(A, x, slices: int = None) -> np.ndarray:
-    """The CUDA matvec's exact fp32 summation order, in NumPy (for tests).
-    A row's n columns form q = ceil(n/4) quads (a partial last one padded
-    with zero terms), cut into ``slices`` S (by default :func:`matvec_slices`)
-    of w = ceil(q/S) quads.  Lane l < 32 of slice s adds quads s*w + l + 32t,
-    t = 0, 1, ..., below min(q, (s+1)*w), into accumulator t % MATVEC_ACCS,
-    the quad's four terms by :func:`fma32` in column order, from 0; its
-    partial is acc[0] + acc[1] + ... in index order; for o = 16, ..., 1
-    every lane adds lane (l xor o)'s partial; the row's sum is the slices'
-    partials added in slice order.  Returns [n] fp32."""
-    A, x = np.asarray(A, np.float32), np.asarray(x, np.float32)
-    n = A.shape[0]
-    S = matvec_slices(n) if slices is None else slices
-    q = -(-n // 4)
-    w = -(-q // S)
-    Ap = np.zeros((n, 4 * q), np.float32)
-    Ap[:, :n] = A
-    xp = np.zeros(4 * q, np.float32)
-    xp[:n] = x
-    lanes = np.arange(32)
-    parts = []
-    for s in range(S):
-        lo, hi = s * w, min(q, (s + 1) * w)
-        acc = np.zeros((MATVEC_ACCS, n, 32), np.float32)
-        for t in range(-(-max(hi - lo, 0) // 32)):
-            j = lo + 32 * t + lanes
-            live = j < hi
-            j = np.where(live, j, 0)
-            for c in range(4):
-                acc[t % MATVEC_ACCS] = np.where(live, fma32(Ap[:, 4 * j + c], xp[4 * j + c],
-                                                     acc[t % MATVEC_ACCS]), acc[t % MATVEC_ACCS])
-        p = acc[0]
-        for u in range(1, MATVEC_ACCS):
-            p = p + acc[u]
-        o = 16
-        while o:
-            p = p + p[:, lanes ^ o]
-            o //= 2
-        parts.append(p[:, 0])
-    y = parts[0]
-    for p in parts[1:]:
-        y = y + p
-    return y
-
-
 def matvec(A, x, block: int = BLOCK):
     """y = A x in exact fp32, one fixed summation order per row
-    (:func:`matvec_walk`; the iterative-refinement residual)."""
+    (``walks.matvec_walk``; the iterative-refinement residual)."""
     n = A.shape[0]
     if A.dim() != 2 or A.shape[1] != n or tuple(x.shape) != (n,):
         raise ValueError(f"A {tuple(A.shape)} and x {tuple(x.shape)} do not fit")

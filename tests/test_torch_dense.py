@@ -30,7 +30,7 @@ from cuba_tpu.solver import mxu
 from cuba_tpu.solver import structure as tpu_structure
 from cuba_tpu.solver import trisolve as tpu_trisolve
 from cuba_tpu_torch.interop import structure_from_numpy
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import segmm, walks
 from cuba_tpu_torch.solver import dense_cholesky, rows, trisolve
 
 torch.set_num_threads(1)
@@ -233,7 +233,7 @@ def test_sweep_kernel_walk_matches_plain(factor, name):
     """The entry points of csrc/trisolve.cu (launch order, pointer offsets,
     row and column ranges) walked in numpy over flat fp64 memory give the
     plain versions.  ``solve_upper``'s one launch: its tiles in ticket
-    order (``trisolve.solve_upper_walk``)."""
+    order (``walks.solve_upper_walk``)."""
     _A, L64, b64, _L, _b, _invd = factor
     n, B = L64.shape[0], trisolve.BLOCK
     K = n // B
@@ -241,7 +241,7 @@ def test_sweep_kernel_walk_matches_plain(factor, name):
     invd = trisolve.prepare(_t(L64)).numpy()
     invf = invd.reshape(-1)
     if name == "extract_diag_blocks":  # the float4 grid of the CUDA copy
-        got, writes = trisolve.extract_diag_walk(L64)
+        got, writes = walks.extract_diag_walk(L64)
         assert np.all(writes == 1)
         np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(_t(L64)).numpy())
         return
@@ -254,7 +254,7 @@ def test_sweep_kernel_walk_matches_plain(factor, name):
                 _rowdot(Lf, hi * n + lo, n, n - hi, B, out[lo:], None, d, hi, True)
         want = trisolve.solve_lower_plain(_t(L64), _t(invd), _t(b64)).numpy()
     else:  # cuba_solve_upper: one launch of solve_upper_kernel
-        out = trisolve.solve_upper_walk(L64, invd, b64)
+        out = walks.solve_upper_walk(L64, invd, b64)
         want = trisolve.solve_upper_plain(_t(L64), _t(invd), _t(b64)).numpy()
     np.testing.assert_allclose(out, want, rtol=0, atol=1e-12 * np.abs(want).max())
 

@@ -13,7 +13,7 @@ import torch
 
 from cuba_tpu_torch import BAConfig, EdgeType, RobustKernelType
 from cuba_tpu_torch.io import synthetic
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import segmm, walks
 from cuba_tpu_torch.solver import dense_cholesky, rows, structure, trisolve
 
 pytestmark = pytest.mark.gpu
@@ -91,7 +91,7 @@ def test_segsum_kernel_matches_plain(cuda, name, regime, D):
     bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
     assert bool(((got - want).abs() <= 1e-5 * bound).all())
     # the kernel's own summation order, walked in NumPy: the same bits
-    walk = segmm.segsum_walk(vals_np, csr)
+    walk = walks.segsum_walk(vals_np, csr)
     assert np.array_equal(got.cpu().numpy().view(np.int32), walk.view(np.int32))
     # deterministic: a second launch gives the same bits
     assert torch.equal(got, getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
@@ -181,6 +181,107 @@ def test_compact_to_band_kernel_matches_plain(band_plan):
     assert torch.equal(got, segmm.compact_to_band(*args, table=table))
     with pytest.raises(ValueError, match="table"):
         segmm.compact_to_band(*args)
+
+
+_KITTI00_LOOP = dict(num_poses=1322, num_landmarks=133383, mean_obs_per_landmark=5.5,
+                     stereo_fraction=0.25, seed=0, loop_closure=True)  # chip_smoke.KITTI
+
+
+@pytest.fixture(scope="module")
+def kitti_plan():
+    """The kitti00 loop graph's band plan (chunk 1024, kwin 256, 2034
+    chunks, PB 1408) on the card, with seeded W / Hpl, compact table and
+    damped diagonal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
+    prob = synthetic.generate(**_KITTI00_LOOP)
+    P, L = prob.qs.shape[0], prob.Xws.shape[0]
+    fp = np.zeros(P, bool)
+    fp[prob.fixed_poses] = True
+    s = structure.build_structure_from_arrays(
+        prob.qs, prob.ts, np.tile(prob.cam, (P, 1)), prob.Xws, fp, np.zeros(L, bool),
+        prob.mono_p, prob.mono_l, prob.mono_z, prob.mono_w,
+        prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w)
+    PB = rows.pad_blocks_of(s.num_p)
+    plan, rc = rows.plan_rows(s, cuda, torch.float32, pad_blocks=PB)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    return plan, rc, PB, draw(18, plan.hpl_pad), draw(18, plan.hpl_pad), \
+        draw(36, PB // 64 * plan.wg), draw(36, PB)
+
+
+@pytest.fixture(params=["band_plan", "kitti_plan"])
+def any_plan(request):
+    return request.getfixturevalue(request.param)
+
+
+def _walk_args(plan, rc):
+    return plan.schur, rc.sc_sb.cpu(), rc.sc_li.cpu(), rc.sc_lj.cpu(), rc.csr_sc
+
+
+def test_schur_fused_kernel_follows_its_walk(any_plan):
+    """``walks.schur_fused_walk``'s bits (each output its lane's triplets in
+    CSR order, three FMAs a triplet), one launch counted, and the same bits
+    on a relaunch."""
+    plan, rc, _PB, W, G, _gT, _dbT = any_plan
+    sc = plan.schur
+    args = (sc, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
+    before = segmm.LAUNCHES["schur_fused"]
+    got = segmm.schur_fused(W, G, *args, csr=rc.csr_sc)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["schur_fused"] == before + 1
+    want = walks.schur_fused_walk(W.cpu().numpy(), G.cpu().numpy(), *_walk_args(plan, rc))
+    assert np.array_equal(_bits(got), want.view(np.int32))
+    assert torch.equal(got, segmm.schur_fused(W, G, *args, csr=rc.csr_sc))
+
+
+def test_compact_to_band_kernel_follows_its_walk(any_plan):
+    """Bit for bit the NumPy walk of its blocks and threads and the plain
+    version; the same bits on a relaunch."""
+    plan, rc, PB, _W, _G, gT, dbT = any_plan
+    args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
+    got = segmm.compact_to_band(*args, table=rc.band_table)
+    torch.cuda.synchronize()
+    walk = walks.compact_to_band_walk(gT.cpu().numpy(), rc.band_table.cpu().numpy(),
+                                      dbT.cpu().numpy(), rc.band_occ.cpu().numpy(), PB)
+    assert np.array_equal(_bits(got), walk.view(np.int32))
+    assert torch.equal(got, segmm.compact_to_band_plain(*args))
+    assert torch.equal(got, segmm.compact_to_band(*args, table=rc.band_table))
+
+
+@pytest.mark.parametrize("case", ["W 4 bytes off", "G 4 bytes off", "rows of 4k + 1 floats"])
+def test_schur_fused_refuses_input_its_copies_cannot_take(band_plan, case):
+    """The kernel stages W and G windows with 16-byte copies: a misaligned
+    base or a row length that is not a multiple of 4 floats raises."""
+    plan, rc, _PB, W, G, _gT, _dbT = band_plan
+    H = W.shape[1]
+    if case == "rows of 4k + 1 floats":
+        W = torch.cat([W, W[:, :1]], 1).contiguous()
+        G = torch.cat([G, G[:, :1]], 1).contiguous()
+    else:
+        off = torch.empty(18 * H + 1, device=W.device)[1:].view(18, H)
+        off.copy_(W if case[0] == "W" else G)
+        W, G = (off, G) if case[0] == "W" else (W, off)
+    with pytest.raises(ValueError, match="aligned"):
+        segmm.schur_fused(W, G, plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk,
+                          csr=rc.csr_sc)
+
+
+def test_build_reports_the_two_formation_kernels(kitti_plan):
+    """Registers, spills and resident blocks of the built kernels at the
+    kitti00 launch: schur_fused two blocks an SM, compact_to_band at least
+    four, neither spilling."""
+    for name, launch, least in (
+            ("schur_fused", segmm.schur_fused_launch(kitti_plan[0].schur), 2),
+            ("compact_to_band", segmm.compact_to_band_launch(kitti_plan[2]), 4)):
+        attrs = segmm.kernel_attributes(name, launch)
+        print(name, launch, attrs)
+        assert attrs["registers"] > 0 and attrs["blocks_per_sm"] >= least, (name, attrs)
+        assert attrs["spill_bytes"] == 0, (name, attrs)
 
 
 def test_band_slice_on_card_matches_plain(cuda):
@@ -292,7 +393,7 @@ def test_solve_upper_kernel_follows_its_walk(cuda, n):
     rounded once)."""
     L, invd, y = _upper_problem(n, cuda)
     got = trisolve.solve_upper(L, invd, y)
-    want = trisolve.solve_upper_walk(L.cpu().numpy(), invd.cpu().numpy(), y.cpu().numpy())
+    want = walks.solve_upper_walk(L.cpu().numpy(), invd.cpu().numpy(), y.cpu().numpy())
     assert np.array_equal(_bits(got), want.view(np.int32))
 
 
@@ -390,7 +491,7 @@ def test_matvec_kernel_follows_its_walk(cuda, n):
     got = trisolve.matvec(A, x)
     torch.cuda.synchronize()
     assert segmm.LAUNCHES["matvec"] == before + 1
-    walk = trisolve.matvec_walk(A_np, x_np)
+    walk = walks.matvec_walk(A_np, x_np)
     bound = np.abs(A_np).astype(np.float64) @ np.abs(x_np).astype(np.float64)
     assert np.all(np.abs(got.cpu().numpy().astype(np.float64) - walk) <= 1e-6 * bound)
     assert np.array_equal(_bits(got), walk.view(np.int32))
@@ -404,7 +505,7 @@ def test_matvec_kernel_every_launch_follows_its_walk(cuda, n, slices):
     quad) and float4 loads (1536): the walk's bits."""
     A_np, x_np, A, x = _matvec_problem(n, cuda)
     got = trisolve._matvec_kernel(A, x, slices)
-    want = trisolve.matvec_walk(A_np, x_np, slices)
+    want = walks.matvec_walk(A_np, x_np, slices)
     assert np.array_equal(_bits(got), want.view(np.int32))
 
 

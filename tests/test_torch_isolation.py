@@ -94,15 +94,21 @@ def test_sources_import_no_jax():
 
 
 def test_kernel_source_and_binding_import_without_nvcc():
-    for path, entries in (
+    for path, entries, bound in (
             (segmm.KERNEL_SRC, ("cuba_gather_cols", "cuba_segsum_csr", "cuba_schur_fused",
                                 "cuba_compact_to_band", "cuba_compact_to_dense",
-                                "cuba_band_transpose")),
+                                "cuba_band_transpose"), segmm._SIGNATURES),
             (trisolve.KERNEL_SRC, ("cuba_extract_diag_blocks", "cuba_solve_lower",
-                                   "cuba_solve_upper", "cuba_matvec"))):
+                                   "cuba_solve_upper", "cuba_matvec"), trisolve._SIGNATURES)):
         src = open(path).read()
         for entry in entries + ("__global__",):
             assert entry in src, (path, entry)
+        # every entry point ctypes binds is defined with the argument count it binds
+        for entry, argtypes in bound.items():
+            head = src.split(f" {entry}(", 1)
+            assert len(head) == 2 and head[0].rstrip().endswith(("int", "int64_t")), entry
+            params = head[1].split(")", 1)[0]
+            assert params.count(",") + 1 == len(argtypes), (entry, params)
     assert sorted(cudalib.SOURCES.values()) == sorted([segmm.KERNEL_SRC, trisolve.KERNEL_SRC])
     assert "arch=compute_90a,code=sm_90a" in cudalib.NVCC_FLAGS
 

@@ -4,7 +4,7 @@ planner records for each call site, and the kernel's summation order.
 The kernel (``csrc/segmm.cu`` ``segsum_csr``) cannot run here.  What fixes
 its bits is host data and an order: the CSR and its group width G, built
 once per structure, and the walk lane k = entries k, k+G, ... of a segment,
-then a xor butterfly over the G partials.  ``segmm.segsum_walk`` is that
+then a xor butterfly over the G partials.  ``walks.segsum_walk`` is that
 order in NumPy; the card's tests hold the kernel to it bit for bit.  Here
 it is held, in fp32, within 1e-5 of each output's sum of |terms| of the
 plain version and of cuba_tpu's Pallas ``accum_segsum`` in interpret mode.
@@ -17,7 +17,7 @@ import torch
 
 from cuba_tpu.ops import segmm as tpu
 from cuba_tpu_torch.io import synthetic
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import segmm, walks
 from cuba_tpu_torch.solver import rows, structure
 
 torch.set_num_threads(1)
@@ -151,7 +151,7 @@ def skewed():
 @pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
 def test_segsum_walk_matches_plain_and_pallas(skewed, group):
     ids, S, vals, pallas, bound = skewed
-    walk = segmm.segsum_walk(vals, segmm.segment_csr(ids, S, "cpu"), group)
+    walk = walks.segsum_walk(vals, segmm.segment_csr(ids, S, "cpu"), group)
     plain = segmm.accum_segsum_plain(torch.from_numpy(vals), torch.from_numpy(ids), S).numpy()
     assert walk.dtype == np.float32 and walk.shape == (7, S)
     for want in (plain, pallas):
@@ -168,14 +168,14 @@ def test_segsum_walk_follows_the_lane_order():
     vals = np.array([[a, b, c, d]], np.float32)
     csr = segmm.segment_csr(np.zeros(4, np.int32), 1, "cpu")
     assert csr.group == 1  # four entries: one lane
-    serial = segmm.segsum_walk(vals, csr)[0, 0]
-    assert serial == segmm.segsum_walk(vals, csr, 1)[0, 0]
+    serial = walks.segsum_walk(vals, csr)[0, 0]
+    assert serial == walks.segsum_walk(vals, csr, 1)[0, 0]
     assert serial == np.float32(np.float32(np.float32(a + b) + c) + d) == 1.0
-    assert segmm.segsum_walk(vals, csr, 2)[0, 0] == np.float32(
+    assert walks.segsum_walk(vals, csr, 2)[0, 0] == np.float32(
         np.float32(a + c) + np.float32(b + d)) == 2.0
     # G = 4, one term per lane: offset 2 pairs a with c and b with d, then
     # offset 1 adds the pairs
-    assert segmm.segsum_walk(vals, csr, 4)[0, 0] == np.float32(
+    assert walks.segsum_walk(vals, csr, 4)[0, 0] == np.float32(
         np.float32(a + c) + np.float32(b + d))
 
 

@@ -7,10 +7,10 @@ The kernels (``csrc/trisolve.cu`` ``extract_diag_kernel``,
 blocks wait on each other's flags: a scheduler with only R blocks resident
 shows every tile finishing with tickets, down to R = 8 (a stripe's tiles),
 and the blockIdx order stalling (its NumPy walk is held to the plain version in
-``tests/test_torch_dense.py``).  ``trisolve.extract_diag_walk`` is the copy's grid
+``tests/test_torch_dense.py``).  ``walks.extract_diag_walk`` is the copy's grid
 arithmetic in NumPy: every output float4 written once, bit for bit the plain
 version and cuba_tpu's Pallas ``_extract_diag_blocks`` in interpret mode.
-``trisolve.matvec_walk`` is the matvec's order (slices, lanes, accumulators,
+``walks.matvec_walk`` is the matvec's order (slices, lanes, accumulators,
 fp32 FMAs); the card's tests hold the kernel to it.  Here it is held within
 1e-6 of each row's sum of |A_ij x_j| of the plain version and of cuba_tpu's
 Pallas ``matvec`` in interpret mode (``tests/test_torch_dense.py``'s bar).
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from cuba_tpu.solver import trisolve as tpu_trisolve
+from cuba_tpu_torch.ops import walks
 from cuba_tpu_torch.solver import trisolve
 
 torch.set_num_threads(1)
@@ -51,12 +52,12 @@ def test_fma32_rounds_once():
     goes up, an fp64 sum rounded again to fp32 lands on the midpoint and
     goes down to even."""
     a, c = np.float32(1 + 2 ** -12), np.float32(2 ** -80)
-    assert trisolve.fma32(a, a, c) == np.float32(1 + 2 ** -11 + 2 ** -23)
+    assert walks.fma32(a, a, c) == np.float32(1 + 2 ** -11 + 2 ** -23)
     assert np.float32(np.float64(a) * np.float64(a) + np.float64(c)) == np.float32(1 + 2 ** -11)
     rng = np.random.default_rng(3)
     x, y, z = (rng.standard_normal(1000).astype(np.float32) for _ in range(3))
     exact = x.astype(np.float64) * y + z  # exact here: no rounding to fp64 beyond 53 bits
-    np.testing.assert_array_equal(trisolve.fma32(x, y, z), exact.astype(np.float32))
+    np.testing.assert_array_equal(walks.fma32(x, y, z), exact.astype(np.float32))
 
 
 def _problem(n, seed):
@@ -69,7 +70,7 @@ def _problem(n, seed):
 @pytest.mark.parametrize("n", [768, 1536])
 def test_matvec_walk_matches_plain_and_pallas(n):
     A, x, bound = _problem(n, n)
-    walk = trisolve.matvec_walk(A, x)
+    walk = walks.matvec_walk(A, x)
     assert walk.dtype == np.float32 and walk.shape == (n,)
     plain = trisolve.matvec_plain(torch.from_numpy(A), torch.from_numpy(x)).numpy()
     pallas = np.asarray(tpu_trisolve.matvec(jnp.asarray(A), jnp.asarray(x), interpret=True))
@@ -82,7 +83,7 @@ def test_matvec_walk_any_n_matches_plain(n):
     """n % 4 != 0 (and n below a warp): the partial last quad and the empty
     slices."""
     A, x, bound = _problem(n, n + 17)
-    walk = trisolve.matvec_walk(A, x)
+    walk = walks.matvec_walk(A, x)
     plain = trisolve.matvec_plain(torch.from_numpy(A), torch.from_numpy(x)).numpy()
     assert walk.shape == (n,)
     assert np.all(np.abs(walk.astype(np.float64) - plain) <= SUM_RTOL * bound)
@@ -97,11 +98,11 @@ def test_matvec_walk_follows_its_order():
     A[0, 0:4] = [1e8, 1.0, -1e8, 1.0]  # serial FMAs: ((1e8 + 1) - 1e8) + 1 = 1
     A[0, 128] = 1.0
     x = np.ones(n, np.float32)
-    assert trisolve.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
+    assert walks.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
     # with S = 2, quad 32 is lane 15 of slice 1 (w = 17): the same terms
-    assert trisolve.matvec_walk(A, x, slices=2)[0] == np.float32(2.0)
+    assert walks.matvec_walk(A, x, slices=2)[0] == np.float32(2.0)
     A[0, 1] = 0.5  # 1e8 + 0.5 rounds to 1e8 in fp32: the chain loses it
-    assert trisolve.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
+    assert walks.matvec_walk(A, x, slices=1)[0] == np.float32(2.0)
     assert float(trisolve.matvec_plain(torch.from_numpy(A.astype(np.float64)),
                                        torch.from_numpy(x.astype(np.float64)))[0]) == 2.5
 
@@ -175,7 +176,7 @@ def test_solve_upper_walk_fp32_follows_its_order():
     y = rng.standard_normal(n).astype(np.float32)
     invd = trisolve.prepare(torch.from_numpy(L))
     want = trisolve.solve_upper_plain(torch.from_numpy(L), invd, torch.from_numpy(y)).numpy()
-    got = trisolve.solve_upper_walk(L, invd.numpy(), y)
+    got = walks.solve_upper_walk(L, invd.numpy(), y)
     assert got.dtype == np.float32
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
@@ -190,7 +191,7 @@ def test_extract_diag_walk_matches_plain_and_pallas(n, triangle):
     if triangle == "lower":
         L = np.tril(L)
     pallas = np.asarray(tpu_trisolve._extract_diag_blocks(jnp.asarray(L), trisolve.BLOCK, True))
-    got, writes = trisolve.extract_diag_walk(L)
+    got, writes = walks.extract_diag_walk(L)
     assert np.all(writes == 1)  # every output float4 written exactly once
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(
