@@ -129,11 +129,12 @@ each after the 128 MB read, and for a segment sum the group width
 ``group`` and rows per chunk ``rows`` the kernel picks there and its CSR's
 shape (``D``, ``segments``, ``entries``, ``max_len``, ``empty``), for
 ``extract_diag_blocks`` its ``grid`` and float4 ``loads`` per thread, for
-``solve_upper`` its ``tile`` width and ``grid``, for ``matvec`` its ``slices`` S,
-accumulators ``accs`` U and ``float4`` loads, for ``schur_fused`` and
-``compact_to_band`` their ``grid``, ``threads`` a block, shared bytes
-``smem`` with the build's
-``registers`` and ``spill_bytes`` a thread and ``blocks_per_sm``.
+``solve_lower`` and ``solve_upper`` their ``tile`` height or width and
+``grid``, for ``matvec`` its ``slices`` S, accumulators ``accs`` U and
+``float4`` loads, for ``schur_fused``, ``compact_to_band`` and
+``compact_to_dense`` their ``grid``, ``threads`` a block, shared bytes
+``smem`` with the build's ``registers`` and ``spill_bytes`` a thread and
+``blocks_per_sm``.
 Each timing loop also logs its launch floor: the median device time of
 its ``torch.cuda._sleep`` marks.  A kernel call that raises, or device
 times the profiler cannot split, end the run.  The last line is ``{"ok":
@@ -191,14 +192,15 @@ SOLVER_RTOL = 2e-2
 FORMATION_RTOL = 1e-5
 TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec")
 # the launch parameters a kernel entry may carry (trisolve.diag_launch,
-# trisolve.solve_upper_launch, trisolve.matvec_launch,
-# segmm.schur_fused_launch, segmm.compact_to_band_launch, and the build's
-# segmm.kernel_attributes), logged beside its times
+# trisolve.solve_lower_launch, trisolve.solve_upper_launch,
+# trisolve.matvec_launch, segmm.schur_fused_launch,
+# segmm.compact_to_band_launch, segmm.compact_to_dense_launch, and the
+# build's segmm.kernel_attributes), logged beside its times
 LAUNCH_NOTES = ("grid", "threads", "smem", "registers", "spill_bytes", "blocks_per_sm",
                 "loads", "tile", "slices", "accs", "float4")
 # the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
-                "compact_to_dense", "band_transpose", "extract_diag", "rowdot",
+                "compact_to_dense", "band_transpose", "extract_diag", "solve_lower_kernel",
                 "solve_upper_kernel", "matvec_kernel")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
@@ -580,6 +582,16 @@ def band_work(plan, rc):
     return 4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + 2 * M + M * 384 * 768), 36 * PB
 
 
+def dense_work(plan, rc):
+    """compact_to_dense's (bytes, flops): the table entries it places (36
+    floats a filled slot), the slot ids, the diagonal, the occupancy and its
+    [6PB, 6PB] output; one add per diagonal element."""
+    PB = plan.pad_blocks
+    n_slots = int((rc.iru >= 0).sum())
+    return (4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + rc.occ2.numel() + 36 * PB * PB),
+            36 * PB)
+
+
 def check_schur_kernels(engine, torch, segmm, HplT, W):
     """Kernels 1-6 at the call sites of phase 2, ``schur_fused``, and
     ``tiled_segsum`` at the combine of the engine's formation: v2's one
@@ -680,16 +692,15 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     z = trisolve.solve_upper(L, invd, y)
     x = (s * z).contiguous()
     K = n // trisolve.BLOCK
-    n_slots = int((rc.iru >= 0).sum())
+    dense_launch = segmm.compact_to_dense_launch(PB)
     # a sweep reads L's strictly-lower blocks (invd takes the place of its
     # diagonal blocks), invd and the vector, and writes its result
     tri_bytes = 4 * ((n * n - K * trisolve.BLOCK ** 2) // 2 + K * trisolve.BLOCK ** 2 + 2 * n)
     cases = {
         "compact_to_dense": (
             "exact", lambda f: f(*dense_args, table=rc.dense_table),
-            segmm.compact_to_dense, segmm.compact_to_dense_plain,
-            (4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + rc.occ2.numel() + n * n),
-             36 * PB), None),
+            segmm.compact_to_dense, segmm.compact_to_dense_plain, dense_work(plan, rc), None,
+            {**dense_launch, **segmm.kernel_attributes("compact_to_dense", dense_launch)}),
         "extract_diag_blocks": (
             "exact", lambda f: f(L), trisolve.extract_diag_blocks,
             trisolve.extract_diag_blocks_plain, (8 * K * trisolve.BLOCK ** 2, 0),
@@ -699,7 +710,8 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
         "solve_lower": (
             ("solve", y), lambda f: f(L, invd, b), trisolve.solve_lower,
             trisolve.solve_lower_plain, (tri_bytes, n * n),
-            lambda: torch.linalg.solve_triangular(L, b[:, None], upper=False)),
+            lambda: torch.linalg.solve_triangular(L, b[:, None], upper=False),
+            trisolve.solve_lower_launch(n)),
         "solve_upper": (
             ("solve", z), lambda f: f(L, invd, y), trisolve.solve_upper,
             trisolve.solve_upper_plain, (tri_bytes, n * n),
@@ -1227,6 +1239,7 @@ def main() -> None:
         f"{ref00:.2f}: rel {abs(xchis[-1] - ref00) / ref00:.3e}; not gated), "
         f"optimize({ITERS}) {xt_opt:.4f} s")
     del _xba
+    profile_path(kprob, xconfig, torch, "kitti00 dense path", xt_opt)
 
     # phase 10: the dense run with the plain versions on the card
     with segmm.use_plain():

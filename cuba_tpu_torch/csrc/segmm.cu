@@ -101,12 +101,17 @@
 //    loads and 4-byte stores, moved 0.86 TB/s.)  Bound by the writes
 //    (M*384*768*4 bytes, 26 MB at M = 22).
 //  * compact_to_dense: the same placement over the whole [6PB, 6PB] matrix,
-//    from a host [PB, PB] slot table; one thread per element, every element
-//    written (zeros included) with coalesced stores, the six threads of one
-//    6-wide block row sharing a table entry.  The TPU kernel skipped empty
-//    64x128-block tiles to save MXU passes; here an empty tile costs its
-//    stores, which any dense output pays.  Bound by the writes: 36*PB^2*4
-//    bytes, 9.4 MB at kitti07 scale (PB = 256), 285 MB at PB = 1408.
+//    from a host [PB, PB] slot table, by the same two helpers
+//    (place_blocks, store_strip): one block per (pose row p, column tile e
+//    of 128 pose blocks, the occupancy tile's width), grid [PB, PB/128].
+//    It reads occ once (an empty 64x128-block tile stores only its zeros:
+//    the TPU kernel skipped such tiles to save MXU passes, here any dense
+//    output pays their stores), table[p, 128e : 128e+128] once, fills a
+//    [6, 768] shared strip and stores float4 rows.  (The first design, a
+//    thread per element with four 64-bit divisions, its own table and occ
+//    loads and 4-byte stores, ran at a quarter of its bound; PERF.md keeps
+//    its time.)  Bound by the writes: 36*PB^2*4 bytes, 9.4 MB at kitti07
+//    scale (PB = 256), 285 MB at PB = 1408.
 //  * band_transpose: the v1 formation's lane interleave, a pure copy (no
 //    rounding: bit-equal to its plain version).  The TPU kernel spelled it
 //    as one-hot MXU products with a bf16x3 split because XLA's transpose ran
@@ -359,19 +364,51 @@ schur_fused_kernel(const float* __restrict__ W, const float* __restrict__ G, int
   }
 }
 
-// ---- compact_to_band: one block per (pose row, band tile column)
+// ---- compact_to_band and compact_to_dense: one block per (pose row, tile column)
 
-constexpr int kBandTile = 64;            // pose blocks per CR block
-constexpr int kBandRows = 6 * kBandTile;  // 384 scalars
 constexpr int32_t kMirror = 1 << 30;
-constexpr int kCbThreads = 192;
-constexpr int kCbQuads = kBandRows / 4;  // float4 per output row of a tile: 96
+constexpr int kCbThreads = 192;  // threads a block of either placement
+constexpr int kBandTile = 64;    // pose blocks per CR block
+constexpr int kBandRows = 6 * kBandTile;  // 384 scalars
+constexpr int kDenseTileP = 64;   // occupancy tile rows, pose blocks
+constexpr int kDenseTileQ = 128;  // occupancy tile cols, pose blocks: a dense block's columns
 
-// Block (p, e) writes rows 6p .. 6p+5 of tile column e (384 floats each):
-// zeros where tile (p / 64, e) is unoccupied; else its 64 table entries are
-// read once, threads over (r = i*6 + j, q) with q fastest place -gT[r or
-// its transpose, slot] (+ the damped diagonal where e == 0 and q == p % 64)
-// into a [6, 384] shared strip, and the strip goes out as float4 rows.
+// Pose row p's Q blocks of one tile column into a [6, 6Q] shared strip:
+// threads over (r = i*6 + j, q), q fastest, place -gT[r or its transpose,
+// slot] from the row's table entries ent[q] (slot, bit 30 for a mirror; <
+// 0 none), plus the damped diagonal dbT[r, p] where q == diag_q.
+template <int Q>
+__device__ __forceinline__ void place_blocks(const float* __restrict__ gT, int MWg,
+                                             const int32_t* ent, const float* __restrict__ dbT,
+                                             int PB, int p, int diag_q, float* strip) {
+  for (int v = threadIdx.x; v < 36 * Q; v += kCbThreads) {
+    const int r = v / Q, q = v - r * Q;
+    const int i = r / 6, j = r - 6 * i;
+    const int en = ent[q];
+    float val = 0.0f;
+    if (en >= 0) val = -gT[((en & kMirror) ? j * 6 + i : r) * MWg + (en & (kMirror - 1))];
+    if (q == diag_q) val += dbT[r * PB + p];
+    strip[i * 6 * Q + 6 * q + j] = val;
+  }
+}
+
+// The strip's six rows of 6Q floats (zeros where strip is null) to dst,
+// row i at dst + i * stride4, as float4.
+template <int Q>
+__device__ __forceinline__ void store_strip(float4* dst, int stride4, const float4* strip) {
+  constexpr int kRowQuads = 6 * Q / 4;
+  for (int v = threadIdx.x; v < 6 * kRowQuads; v += kCbThreads) {
+    const int i = v / kRowQuads;
+    dst[i * stride4 + v - i * kRowQuads] =
+        strip != nullptr ? strip[v] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Block (p, e) writes rows 6p .. 6p+5 of band tile column e (384 floats
+// each): zeros where tile (p / 64, e) is unoccupied; else its 64 table
+// entries are read once and placed (place_blocks) into a [6, 384] strip,
+// the diagonal where e == 0 and q == p % 64, and the strip goes out as
+// float4 rows.
 __global__ void __launch_bounds__(kCbThreads)
 compact_to_band_kernel(const float* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
                        const float* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
@@ -385,56 +422,40 @@ compact_to_band_kernel(const float* __restrict__ gT, int MWg, const int32_t* __r
   // the occupancy and the table row are loaded together (one latency)
   const int en_t = t < kBandTile ? table[p * (2 * kBandTile) + e * kBandTile + t] : -1;
   if (occ[2 * k + e] <= 0) {  // uniform across the block
-    for (int v = t; v < 6 * kCbQuads; v += kCbThreads) {
-      const int i = v / kCbQuads;
-      dst[i * (2 * kCbQuads) + v - i * kCbQuads] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
+    store_strip<kBandTile>(dst, 2 * kBandRows / 4, nullptr);
     return;
   }
   if (t < kBandTile) ent[t] = en_t;
   __syncthreads();
-  for (int v = t; v < 36 * kBandTile; v += kCbThreads) {
-    const int r = v / kBandTile, q = v - r * kBandTile;
-    const int i = r / 6, j = r - 6 * i;
-    const int en = ent[q];
-    float val = 0.0f;
-    if (en >= 0) val = -gT[((en & kMirror) ? j * 6 + i : r) * MWg + (en & (kMirror - 1))];
-    if (e == 0 && q == pr) val += dbT[r * PB + p];
-    strip[i * kBandRows + 6 * q + j] = val;
-  }
+  place_blocks<kBandTile>(gT, MWg, ent, dbT, PB, p, e == 0 ? pr : -1, strip);
   __syncthreads();
-  for (int v = t; v < 6 * kCbQuads; v += kCbThreads) {
-    const int i = v / kCbQuads;
-    dst[i * (2 * kCbQuads) + v - i * kCbQuads] = reinterpret_cast<const float4*>(strip)[v];
-  }
+  store_strip<kBandTile>(dst, 2 * kBandRows / 4, reinterpret_cast<const float4*>(strip));
 }
 
-constexpr int kDenseTileP = 64;   // occupancy tile rows, pose blocks
-constexpr int kDenseTileQ = 128;  // occupancy tile cols, pose blocks
-
-__global__ void compact_to_dense_kernel(const float* __restrict__ gT, int64_t MWg,
-                                        const int32_t* __restrict__ table,
-                                        const float* __restrict__ dbT, int64_t PB,
-                                        const int32_t* __restrict__ occ,
-                                        float* __restrict__ out) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t n = 6 * PB;
-  if (idx >= n * n) return;
-  const int64_t row = idx / n;
-  const int64_t col = idx - row * n;
-  const int64_t p = row / 6, q = col / 6;
-  const int i = static_cast<int>(row - 6 * p), j = static_cast<int>(col - 6 * q);
-  float v = 0.0f;
-  if (occ[(p / kDenseTileP) * (PB / kDenseTileQ) + q / kDenseTileQ] > 0) {
-    const int32_t ent = table[p * PB + q];
-    if (ent >= 0) {
-      const int64_t slot = ent & (kMirror - 1);
-      const int r = (ent & kMirror) ? j * 6 + i : i * 6 + j;
-      v = -gT[r * MWg + slot];
-    }
-    if (p == q) v += dbT[(i * 6 + j) * PB + p];
+// Block (p, e) writes rows 6p .. 6p+5 of dense columns 768e .. 768e+767
+// (pose blocks 128e .. 128e+127): zeros where the 64x128-block tile (p /
+// 64, e) is unoccupied; else table[p, 128e : 128e+128] is read once and
+// placed into a [6, 768] strip, the diagonal where 128e + q == p, and the
+// strip goes out as float4 rows.  gridDim.y = PB / 128.
+__global__ void __launch_bounds__(kCbThreads)
+compact_to_dense_kernel(const float* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
+                        const float* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
+                        float* __restrict__ out) {
+  __shared__ __align__(16) float strip[6 * 6 * kDenseTileQ];
+  __shared__ int32_t ent[kDenseTileQ];
+  const int p = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
+  const int n = 6 * PB;
+  float4* dst = reinterpret_cast<float4*>(out + 6 * p * n + e * (6 * kDenseTileQ));
+  const int en_t = t < kDenseTileQ ? table[p * PB + e * kDenseTileQ + t] : -1;
+  if (occ[(p / kDenseTileP) * static_cast<int>(gridDim.y) + e] <= 0) {  // uniform
+    store_strip<kDenseTileQ>(dst, n / 4, nullptr);
+    return;
   }
-  out[idx] = v;
+  if (t < kDenseTileQ) ent[t] = en_t;
+  __syncthreads();
+  place_blocks<kDenseTileQ>(gT, MWg, ent, dbT, PB, p, p - e * kDenseTileQ, strip);
+  __syncthreads();
+  store_strip<kDenseTileQ>(dst, n / 4, reinterpret_cast<const float4*>(strip));
 }
 
 constexpr int kTpQ = 32;             // pose columns per band_transpose block
@@ -567,15 +588,18 @@ int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
 }
 
 // gT [36, MWg]; table [PB, PB]; dbT [36, PB]; occ [PB/64 * PB/128];
-// out [6PB, 6PB].
+// out [6PB, 6PB], 16-byte aligned; PB a multiple of 128; 36*PB^2 and
+// 36*MWg within int32.
 int cuba_compact_to_dense(const float* gT, int64_t MWg, const int32_t* table,
                           const float* dbT, int64_t PB, const int32_t* occ, float* out,
                           void* stream) {
-  const int64_t n = 36 * PB * PB;
-  if (n > 0) {
-    compact_to_dense_kernel<<<blocks_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        gT, MWg, table, dbT, PB, occ, out);
+  if (PB % kDenseTileQ != 0 || 36 * PB * PB > kInt32Max || 36 * MWg > kInt32Max) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (PB > 0) {
+    const dim3 grid(static_cast<unsigned int>(PB), static_cast<unsigned int>(PB / kDenseTileQ));
+    compact_to_dense_kernel<<<grid, kCbThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        gT, static_cast<int>(MWg), table, dbT, static_cast<int>(PB), occ, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -593,12 +617,15 @@ int cuba_band_transpose(const float* m4, const int32_t* occ, int64_t PB, float* 
 
 // What the build made of a kernel: out = {registers a thread, local
 // (spilled) bytes a thread, static shared bytes, blocks an SM can hold at
-// `smem` dynamic shared bytes}.  which: 0 compact_to_band, 1 schur_fused.
+// `smem` dynamic shared bytes}.  which: 0 compact_to_band, 1 schur_fused,
+// 2 compact_to_dense.
 int cuba_segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
-  if (which != 0 && which != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn = which == 0 ? reinterpret_cast<const void*>(compact_to_band_kernel)
-                              : reinterpret_cast<const void*>(schur_fused_kernel);
-  const int threads = which == 0 ? kCbThreads : kScThreads;
+  const void* fns[] = {reinterpret_cast<const void*>(compact_to_band_kernel),
+                       reinterpret_cast<const void*>(schur_fused_kernel),
+                       reinterpret_cast<const void*>(compact_to_dense_kernel)};
+  if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = fns[which];
+  const int threads = which == 1 ? kScThreads : kCbThreads;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err == cudaSuccess && smem > 48 * 1024) {

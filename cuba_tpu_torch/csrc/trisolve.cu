@@ -13,14 +13,49 @@
 // the running update d resident in VMEM; step k of the forward sweep is
 // y_k = invd[k] (b_k + d_k), then d -= L[:, stripe k] y_k.
 //
-// The forward sweep (solve_lower): on the GPU the grid is not sequential
-// and blocks cannot carry d from one step to the next, so each step is two
-// launches on the caller's stream, with d in device memory (the stream
-// orders them): the diagonal step y_k = invd[k] (b_k + d_k), then the
-// update d_r -= L[r, stripe k] . y_k for the rows r >= (k+1)B only.  Both
-// are rowdot: out[r] (=, or -=) sum_c M[r, c] v[c], one warp per row, lane
-// l summing columns l, l+32, ... in order, then a butterfly of shuffles.
-// 2K launches per solve, all from one host call.
+// On the GPU the grid is not sequential and blocks cannot carry d from one
+// step to the next, so each sweep is one launch whose blocks hand results
+// to each other through device memory, left-looking over ROW stripes of L.
+//
+// The forward sweep (solve_lower_kernel) is one launch, with one hand-off
+// a stripe:
+//   y_i = invd[i] r_i,  r_i = b_i - sum_{j < i} L[stripe i, stripe j] y_j.
+// The first design (2K dependent launches of a warp-per-row dot product,
+// 66 at n = 8448) spent its time on launches, scalar loads and a 256-row
+// diagonal step on 8 blocks.  A plain mirror of the backward sweep would
+// pay its two hand-offs a stripe.  Here:
+//  * A tile is (stripe i, kTile = 32 consecutive rows R_t of it), one block
+//    each, K * 256/32 blocks, taken from an atomic ticket, stripe 0's tiles
+//    first.  A tile waits only on lower stripes, never on the tiles of its
+//    own stripe, so every wait ends once one block can be resident.
+//  * L's rows are contiguous: the tile reads L[R_t, stripe j] as float4,
+//    thread t the column quad t % 64 of rows t/64 + 4m (m < kLowerRows =
+//    8), the next stripe's rows loaded into registers before it waits for
+//    y_j (L does not depend on y).  It stages invd[i][:, R_t] (256 x 32
+//    floats, rows padded to 36 so that its float4 reads meet no bank
+//    conflict) in shared memory before its first wait.
+//  * One hand-off a stripe: the inverse is linear, so y_i = sum_t
+//    invd[i][:, R_t] r_i[R_t].  Once a tile has r_i[R_t] it computes its
+//    partial P_{i,t} (256 outputs, one a thread, 32 FMAs from shared
+//    memory), writes it to pbuf[i][t] and adds one to done[i].  A consumer
+//    of y_j waits for done[j] = 8 and forms the float4 of y_j it needs as
+//    P_{j,0} + ... + P_{j,7}, in tile order, from the L2.  The block whose
+//    add fills done[i] (the last of its stripe) writes y_i the same way,
+//    off the chain.
+//  * Deterministic sums: a thread's row sums add its stripes j in order,
+//    each stripe's four columns by fmaf; the 64 column quads of a row (two
+//    warps) are combined by a xor butterfly in each warp and the two warps'
+//    sums in order; r = b - that sum.  walks.solve_lower_walk is that order
+//    in NumPy.
+//  The waits, fences and reads of other blocks' data follow the rules
+//  below.  On an H100 it takes ~0.125 ms at n = 8448 (2.8x the bytes'
+//  bound), ~3.8 us a stripe: with no waits at all (wrong values) the
+//  tiles' own stream of L, one stripe ahead, takes 0.064; an acquire load
+//  in place of the volatile spin and its fence 0.110.  Prefetching L two
+//  to six stripes ahead into the L2, rings of 2-4 stripes in shared memory
+//  by cp.async (with or without a ninth warp that only waits), a flag for
+//  each consumer tile and a longer back-off were each no faster
+//  (tools/probe_trisolve.py; PERF.md).
 //
 // The backward sweep (solve_upper_kernel) is one launch.  It is written
 // left-looking, for x = L^-T y directly, over ROW stripes of L (no
@@ -52,17 +87,18 @@
 //    columns to rbuf and adds one to cnt[i], waits for cnt[i] = 8, reads all
 //    of r_i, writes its 32 entries of x_i = invd[i][:, cols]^T r_i and adds
 //    one to ready[i]; a consumer of x_j waits for ready[j] = 8.
-//  * Memory ordering (the usual fault of such kernels).  Publish: every
-//    writing thread writes, runs __threadfence(), then __syncthreads(), then
-//    one thread adds to the flag.  Wait: one thread spins on a volatile
-//    read of the flag, runs __threadfence(), then __syncthreads().  x and
-//    rbuf, written by other blocks during the kernel, are read only with
-//    __ldcg (through the L2), never through __ldg or a const __restrict__
-//    pointer: the non-coherent path may return stale lines.  L, invd and y
-//    are read-only and use __ldg.
-//  * Every wait is bounded: past kSpinCycles (~0.5 s, far above any real
-//    wait) the spinning thread calls __trap(), and the fault surfaces as a
-//    CUDA error at the caller's next synchronise.
+//  * Memory ordering (the usual fault of such kernels; both sweeps).
+//    Publish: every writing thread writes, runs __threadfence(), then
+//    __syncthreads(), then one thread adds to the flag.  Wait: one thread
+//    spins on a volatile read of the flag, runs __threadfence(), then
+//    __syncthreads().  x, rbuf and the forward sweep's pbuf, written by
+//    other blocks during the kernel, are read only with __ldcg (through the
+//    L2), never through __ldg or a const __restrict__ pointer: the
+//    non-coherent path may return stale lines.  L, invd, b and y are
+//    read-only and use __ldg.
+//  * Every wait (both sweeps) is bounded: past kSpinCycles (~0.5 s, far
+//    above any real wait) the spinning thread calls __trap(), and the fault
+//    surfaces as a CUDA error at the caller's next synchronise.
 //  * Deterministic sums, no float atomics: a thread adds its terms in one
 //    fixed order (j from K-1 down to i+1, its rows in row order), the row
 //    groups are combined through shared memory in group order, and r_i =
@@ -92,9 +128,8 @@
 // read: a sweep reads the strictly-lower blocks of L once (invd stands for
 // the diagonal ones: (n^2 - K B^2)/2 * 4 bytes, 3.9 MB at n = 1536, 138 MB
 // at n = 8448), the matvec all of A, the copy the K
-// diagonal blocks twice (read and write).  At small n the forward sweep's
-// 2K launches, and the backward sweep's K stripe hand-offs, not the bytes,
-// set their time.
+// diagonal blocks twice (read and write).  At small n the sweeps' K stripe
+// hand-offs, not the bytes, set their time.
 //
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns the first cudaGetLastError() that is not cudaSuccess,
@@ -112,11 +147,14 @@ constexpr int kQuads = kBlock / 4;          // float4 per row of a block
 constexpr int kPass = kThreads / kQuads;    // rows a block copies per load
 constexpr int kLoads = 2;                   // float4 a thread of the copy moves
 constexpr int kAccs = 4;                    // accumulators a lane of the matvec
-constexpr int kTile = 32;                   // columns a block of the backward sweep takes
+constexpr int kTile = 32;                   // rows (forward) or columns (backward) a sweep's block takes
 constexpr int kTileQuads = kTile / 4;       // float4 a row of a tile
 constexpr int kGroups = kThreads / kTileQuads;  // row groups of a tile
 constexpr int kRows = kBlock / kGroups;     // rows of a stripe a thread of a tile takes
 constexpr int kTiles = kBlock / kTile;      // tiles a stripe
+constexpr int kLowerGroups = kThreads / kQuads;   // row groups of a forward tile: 4
+constexpr int kLowerRows = kTile / kLowerGroups;  // rows of a forward tile a thread takes: 8
+constexpr int kDinvStride = kTile + 4;  // floats a staged row of invd[i][:, R_t]: no bank conflicts
 constexpr int kLine = 32;                   // int32s between two flags: a 128-byte line
 constexpr long long kSpinCycles = 1LL << 30;  // ~0.54 s at 1.98 GHz: a wait past it traps
 
@@ -229,27 +267,6 @@ int launch_matvec(const float* A, const float* x, float* y, int n, bool vec,
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-// out[r] = s or out[r] - s, s = sum_{c < ncols} M[r * ld + c] * (v1[c] + v2[c])
-// (v2 may be null); one warp per row.
-__global__ void rowdot_kernel(const float* __restrict__ M, int64_t ld, int64_t nrows,
-                              int64_t ncols, const float* __restrict__ v1,
-                              const float* __restrict__ v2, float* __restrict__ out,
-                              int subtract) {
-  const int lane = threadIdx.x & 31;
-  const int64_t r = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (r >= nrows) return;  // r is the same in every lane of a warp
-  const float* row = M + r * ld;
-  float acc = 0.0f;
-  if (v2 != nullptr) {
-    for (int64_t c = lane; c < ncols; c += 32) acc = fmaf(row[c], v1[c] + v2[c], acc);
-  } else {
-    for (int64_t c = lane; c < ncols; c += 32) acc = fmaf(row[c], v1[c], acc);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) out[r] = subtract ? out[r] - acc : acc;
-}
 
 // One thread's wait for *flag >= target (a flag only grows): a volatile
 // read (not cached in L1) in a bounded spin, then the acquire fence.  Past
@@ -375,20 +392,140 @@ solve_upper_kernel(const float* __restrict__ L, const float* __restrict__ invd,
   if (threadIdx.x == 0) atomicAdd(work + (1 + K + i) * kLine, 1);
 }
 
+// y = L^-1 b (the header's forward sweep), one tile of kTile rows a block.
+// Thread t takes column quad q = t % kQuads of every stripe and rows g +
+// kLowerGroups*m (m < kLowerRows) of the tile, g = t / kQuads: the row sums
+// of warp 2g are its rows' quads 0-31, of warp 2g+1 quads 32-63.  work: the
+// ticket at 0, done[k] at (1 + k) * kLine, all zero on entry; pbuf [K,
+// kTiles, 256] the tiles' partials.  L row-major [n, n], 16-byte aligned,
+// as is invd [K, 256, 256]; int32 indices (n*n < 2^31).
+__global__ void __launch_bounds__(kThreads)
+solve_lower_kernel(const float* __restrict__ L, const float* __restrict__ invd,
+                   const float* __restrict__ b, float* y, int* work, float* pbuf, int n) {
+  __shared__ float4 dinv[kBlock * kDinvStride / 4];  // invd[i][c, R_t] at row c, stride 36
+  __shared__ float part[kWarps * kLowerRows];         // the warps' row sums
+  __shared__ float4 r4[kTile / 4];                    // r_i on the tile's rows
+  __shared__ int ticket;
+  float* r = reinterpret_cast<float*>(r4);
+  const int t = threadIdx.x;
+  const int q = t % kQuads, g = t / kQuads;
+  if (t == 0) ticket = atomicAdd(work, 1);
+  __syncthreads();
+  const int i = ticket / kTiles;             // the tile's stripe
+  const int tile = ticket % kTiles;          // its tile within the stripe
+  const int row0 = i * kBlock + tile * kTile;  // its first row in L
+  const int n4 = n / 4;
+  // rows g + kLowerGroups*m of the tile, column quad q of stripe 0
+  const float4* Lq = reinterpret_cast<const float4*>(L) + (row0 + g) * n4 + q;
+  float4 cur[kLowerRows], nxt[kLowerRows];
+  if (i > 0) {
+#pragma unroll
+    for (int m = 0; m < kLowerRows; ++m) cur[m] = __ldg(Lq + kLowerGroups * m * n4);
+  }
+  {  // stage invd[i][:, R_t]: thread t copies quad t % 8 of rows t/8 + 32m
+    constexpr int kRowQuads = kTile / 4;
+    constexpr int kStep = kThreads / kRowQuads;
+    const int kq = t % kRowQuads, c = t / kRowQuads;
+    const float4* src =
+        reinterpret_cast<const float4*>(invd + i * kBlock * kBlock + tile * kTile) + kq;
+    float4 v[kBlock / kStep];
+#pragma unroll
+    for (int m = 0; m < kBlock / kStep; ++m) v[m] = __ldg(src + (c + kStep * m) * kQuads);
+#pragma unroll
+    for (int m = 0; m < kBlock / kStep; ++m) {
+      dinv[(c + kStep * m) * (kDinvStride / 4) + kq] = v[m];
+    }
+  }
+  const float bt = t < kTile ? __ldg(b + row0 + t) : 0.0f;
+  float acc[kLowerRows];
+#pragma unroll
+  for (int m = 0; m < kLowerRows; ++m) acc[m] = 0.0f;
+  for (int j = 0; j < i; ++j) {
+    if (j + 1 < i) {
+#pragma unroll
+      for (int m = 0; m < kLowerRows; ++m) {
+        nxt[m] = __ldg(Lq + kLowerGroups * m * n4 + (j + 1) * kQuads);
+      }
+    }
+    if (t == 0) wait_flag(work + (1 + j) * kLine, kTiles);
+    __syncthreads();
+    // y_j's quad q: the stripe's partials added in tile order
+    const float4* pj = reinterpret_cast<const float4*>(pbuf + j * kTiles * kBlock) + q;
+    float4 p[kTiles];
+#pragma unroll
+    for (int u = 0; u < kTiles; ++u) p[u] = __ldcg(pj + u * kQuads);
+    float4 yq = p[0];
+#pragma unroll
+    for (int u = 1; u < kTiles; ++u) {
+      yq.x += p[u].x;
+      yq.y += p[u].y;
+      yq.z += p[u].z;
+      yq.w += p[u].w;
+    }
+#pragma unroll
+    for (int m = 0; m < kLowerRows; ++m) {
+      acc[m] = fmaf(cur[m].x, yq.x, acc[m]);
+      acc[m] = fmaf(cur[m].y, yq.y, acc[m]);
+      acc[m] = fmaf(cur[m].z, yq.z, acc[m]);
+      acc[m] = fmaf(cur[m].w, yq.w, acc[m]);
+    }
+    if (j + 1 < i) {
+#pragma unroll
+      for (int m = 0; m < kLowerRows; ++m) cur[m] = nxt[m];
+    }
+  }
+  // r on the tile's rows: each warp's butterfly, then the row's two warps in order
+#pragma unroll
+  for (int m = 0; m < kLowerRows; ++m) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], o);
+  }
+  if ((t & 31) == 0) {
+#pragma unroll
+    for (int m = 0; m < kLowerRows; ++m) part[(t >> 5) * kLowerRows + m] = acc[m];
+  }
+  __syncthreads();
+  if (t < kTile) {  // local row t = gg + kLowerGroups * mm
+    const int gg = t % kLowerGroups, mm = t / kLowerGroups;
+    r[t] = i > 0 ? bt - (part[2 * gg * kLowerRows + mm] + part[(2 * gg + 1) * kLowerRows + mm])
+                 : bt;
+  }
+  __syncthreads();
+  // the tile's partial P_{i,tile}[t] = invd[i][t, R_t] . r, from shared memory
+  float s = 0.0f;
+#pragma unroll
+  for (int kq = 0; kq < kTile / 4; ++kq) {
+    const float4 d = dinv[t * (kDinvStride / 4) + kq], v = r4[kq];
+    s = fmaf(d.x, v.x, s);
+    s = fmaf(d.y, v.y, s);
+    s = fmaf(d.z, v.z, s);
+    s = fmaf(d.w, v.w, s);
+  }
+  pbuf[(i * kTiles + tile) * kBlock + t] = s;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    const int before = atomicAdd(work + (1 + i) * kLine, 1);
+    __threadfence();
+    ticket = before == kTiles - 1;  // the stripe's last tile writes y_i
+  }
+  __syncthreads();
+  if (ticket) {
+    const float* pi = pbuf + i * kTiles * kBlock + t;
+    float v = __ldcg(pi);
+#pragma unroll
+    for (int u = 1; u < kTiles; ++u) v += __ldcg(pi + u * kBlock);
+    y[i * kBlock + t] = v;
+  }
+}
+
+// Where pbuf starts in solve_lower_kernel's workspace of int32 words: after
+// the ticket's line and the K done lines.
+int64_t lower_pbuf_at(int64_t K) { return (1 + K) * kLine; }
+
 // Where rbuf starts in solve_upper_kernel's workspace of int32 words: after
 // the ticket's line and the K cnt and K ready lines.
 int64_t upper_rbuf_at(int64_t K) { return (1 + 2 * K) * kLine; }
-
-unsigned int blocks_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
-int rowdot(const float* M, int64_t ld, int64_t nrows, int64_t ncols, const float* v1,
-           const float* v2, float* out, int subtract, cudaStream_t stream) {
-  rowdot_kernel<<<blocks_for(nrows * 32), kThreads, 0, stream>>>(M, ld, nrows, ncols, v1,
-                                                                   v2, out, subtract);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -408,20 +545,28 @@ int cuba_extract_diag_blocks(const float* L, int64_t n, float* out, void* stream
   return static_cast<int>(cudaGetLastError());
 }
 
-// L [n, n] lower triangular, invd [K, B, B] the inverted diagonal blocks,
-// b [n]; y [n] out; d [n] the running update, zero on entry.
-int cuba_solve_lower(const float* L, const float* invd, const float* b, float* y, float* d,
-                     int64_t n, int64_t B, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t K = n / B;
-  for (int64_t k = 0; k < K; ++k) {
-    const int64_t lo = k * B, hi = lo + B;
-    int err = rowdot(invd + k * B * B, B, B, B, b + lo, d + lo, y + lo, 0, s);
-    if (err == 0 && hi < n) err = rowdot(L + hi * n + lo, n, n - hi, B, y + lo, nullptr,
-                                         d + hi, 1, s);
-    if (err != 0) return err;
+// L [n, n] lower triangular and invd [n/256, 256, 256], both 16-byte
+// aligned, n a multiple of 256; b [n]; y [n] out; work
+// [cuba_solve_lower_work(n)] int32 zeros.  One launch of K * 256/kTile
+// blocks.
+int cuba_solve_lower(const float* L, const float* invd, const float* b, float* y, int* work,
+                     int64_t n, void* stream) {
+  if (n % kBlock != 0 || !aligned16(L) || !aligned16(invd)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  const int K = static_cast<int>(n / kBlock);
+  if (K == 0) return static_cast<int>(cudaGetLastError());
+  float* pbuf = reinterpret_cast<float*>(work + lower_pbuf_at(K));
+  solve_lower_kernel<<<static_cast<unsigned int>(K * kTiles), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(L, invd, b, y, work, pbuf,
+                                                            static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int32 words of cuba_solve_lower's workspace for n (the flags' lines,
+// then pbuf [K, 256/kTile, 256]); the caller zeroes them before each call.
+int cuba_solve_lower_work(int64_t n) {
+  return static_cast<int>(lower_pbuf_at(n / kBlock) + n / kBlock * kTiles * kBlock);
 }
 
 // L [n, n] lower triangular and invd [n/256, 256, 256], both 16-byte

@@ -675,13 +675,13 @@ def schur_fused_launch(plan: SchurPlan) -> dict:
 
 
 def kernel_attributes(name: str, launch: dict) -> dict:
-    """What the build made of ``schur_fused``'s or ``compact_to_band``'s
-    kernel: ``registers`` and ``spill_bytes`` a thread, and
-    ``blocks_per_sm`` at the launch's threads and shared bytes (on the card
-    only)."""
-    which = {"compact_to_band": 0, "schur_fused": 1}[name]
+    """What the build made of ``schur_fused``'s, ``compact_to_band``'s or
+    ``compact_to_dense``'s kernel: ``registers`` and ``spill_bytes`` a
+    thread, and ``blocks_per_sm`` at the launch's threads and dynamic
+    shared bytes (schur_fused's alone; on the card only)."""
+    which = {"compact_to_band": 0, "schur_fused": 1, "compact_to_dense": 2}[name]
     out = (ctypes.c_int64 * 4)()
-    err = _kernel_lib().cuba_segmm_attributes(which, launch["smem"] if which else 0,
+    err = _kernel_lib().cuba_segmm_attributes(which, launch["smem"] if which == 1 else 0,
                                               ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name}: kernel attributes not read (cudaError {err})")
@@ -761,7 +761,7 @@ def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, tabl
     return out.reshape(M * 6 * T, 12 * T)
 
 
-BAND_THREADS = 192  # threads a block of compact_to_band_kernel (kCbThreads)
+BAND_THREADS = 192  # threads a block of compact_to_band_kernel and compact_to_dense_kernel
 
 
 def compact_to_band_launch(PB: int) -> dict:
@@ -832,6 +832,15 @@ def compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *, table=N
     return out.reshape(6 * PB, 6 * PB)
 
 
+def compact_to_dense_launch(PB: int) -> dict:
+    """``compact_to_dense_kernel``'s launch: a ``grid`` of one block per
+    (pose row, column tile of DENSE_TILE_Q pose blocks), ``threads`` a
+    block and its static ``smem`` (the [6, 768] strip and the tile's 128
+    table entries)."""
+    return dict(grid=[PB, PB // DENSE_TILE_Q], threads=BAND_THREADS,
+                smem=4 * (6 * 6 * DENSE_TILE_Q + DENSE_TILE_Q))
+
+
 def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
                      table: Optional[torch.Tensor] = None):
     """The dense damped Schur matrix [6PB, 6PB] from the band-major compact
@@ -839,7 +848,8 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
     diag - (upper + mirrored blocks), where the diagonal is dbT [36, PB]
     (indexed by pose block) on p == q; 64x128-block tiles that occ2
     [PB/64 * PB/128] marks empty are zero.  ``table`` is :func:`dense_table`
-    of (iru, icu), built once per structure; the kernel needs it."""
+    of (iru, icu), built once per structure; the kernel needs it
+    (:func:`compact_to_dense_launch`, ``walks.compact_to_dense_walk``)."""
     if PB % DENSE_TILE_Q != 0:
         raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
     M = PB // BAND_TILE
@@ -860,6 +870,7 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
     cudalib.check(table, "table", torch.int32, 2)
     if tuple(table.shape) != (PB, PB) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+    cudalib.check_int32("compact_to_dense", 36 * PB * PB, gT.numel())
     out = torch.empty((6 * PB, 6 * PB), dtype=torch.float32, device=gT.device)
     cudalib.call("compact_to_dense", gT, _kernel_lib().cuba_compact_to_dense,
                  gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,

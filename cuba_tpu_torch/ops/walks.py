@@ -16,11 +16,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cuba_tpu_torch.ops.segmm import (BAND_THREADS, BAND_TILE, SCHUR_SLOT, SCHUR_THREADS,
-                                      SCHUR_WINDOW, SchurPlan, SegmentCSR)
-from cuba_tpu_torch.solver.trisolve import (BLOCK, DIAG_LOADS, DIAG_PASS, MATVEC_ACCS, QUADS,
-                                            THREADS, UPPER_TILE, diag_launch, matvec_slices,
-                                            solve_upper_tile)
+from cuba_tpu_torch.ops.segmm import (BAND_THREADS, BAND_TILE, DENSE_TILE_P, DENSE_TILE_Q,
+                                      SCHUR_SLOT, SCHUR_THREADS, SCHUR_WINDOW, SchurPlan,
+                                      SegmentCSR)
+from cuba_tpu_torch.solver.trisolve import (BLOCK, DIAG_LOADS, DIAG_PASS, LOWER_TILE,
+                                            MATVEC_ACCS, QUADS, THREADS, UPPER_TILE,
+                                            diag_launch, matvec_slices, solve_upper_tile)
 
 
 def fma32(a, b, c):
@@ -148,6 +149,48 @@ def compact_to_band_walk(gT, table, dbT, occ, PB: int) -> np.ndarray:
     return out
 
 
+def compact_to_dense_walk(gT, table, dbT, occ, PB: int):
+    """``compact_to_dense_kernel``'s index arithmetic in NumPy (for tests),
+    over all blocks (p, e) at once, Q = DENSE_TILE_Q: thread t of
+    BAND_THREADS takes items v = t, t + 192, ... of (r, q) = (v // Q, v %
+    Q), r = i*6 + j, reading table[p, Q*e + q] (slot, bit 30 for a mirror)
+    and placing -gT[r or j*6 + i, slot] (+ dbT[r, p] where Q*e + q == p) at
+    strip[i, 6q + j]; then quad v of the strip (row v // (6Q/4)) goes to
+    output row 6p + i, columns 6Q*e + 4*(v % (6Q/4)) ...; a block on an
+    unoccupied 64xQ-block tile stores zeros.  Returns ([6PB, 6PB], the
+    times each output float4 was written)."""
+    gT, dbT = np.asarray(gT, np.float32), np.asarray(dbT, np.float32)
+    table, occ = np.asarray(table), np.asarray(occ)
+    Q, E, n = DENSE_TILE_Q, PB // DENSE_TILE_Q, 6 * PB
+    p = np.arange(PB)[:, None, None]
+    e = np.arange(E)[None, :, None]
+    strip = np.zeros((PB, E, 6, 6 * Q), np.float32)
+    for t in range(BAND_THREADS):
+        v = np.arange(t, 36 * Q, BAND_THREADS)[None, None, :]
+        r, q = v // Q, v % Q
+        i, j = r // 6, r % 6
+        en = table[p, e * Q + q]
+        row = np.where(en & (1 << 30), j * 6 + i, r)
+        val = np.where(en >= 0, -gT[row, np.where(en >= 0, en & ((1 << 30) - 1), 0)],
+                       np.float32(0))
+        val = np.where(e * Q + q == p, val + dbT[r, p], val)
+        strip[p, e, i, 6 * q + j] = val
+    live = occ.reshape(PB // DENSE_TILE_P, E)[np.arange(PB) // DENSE_TILE_P] > 0  # [PB, E]
+    strip = np.where(live[:, :, None, None], strip, np.float32(0))
+    per_row = 6 * Q // 4
+    quads = strip.reshape(PB, E, 6 * per_row, 4)
+    out = np.zeros((n * n // 4, 4), np.float32)
+    dst_all = []
+    for t in range(BAND_THREADS):
+        v = np.arange(t, 6 * per_row, BAND_THREADS)
+        i, c4 = v // per_row, v % per_row
+        dst = (6 * p + i) * (n // 4) + e * per_row + c4  # [PB, E, len(v)]
+        out[dst] = quads[:, :, v]
+        dst_all.append(dst.ravel())
+    writes = np.bincount(np.concatenate(dst_all), minlength=out.shape[0])
+    return out.reshape(n, n), writes
+
+
 def extract_diag_walk(L: np.ndarray):
     """The diagonal copy's index arithmetic in NumPy (for tests): block (x,
     k) of the grid, thread t and load i < DIAG_LOADS copy float4 number
@@ -166,6 +209,51 @@ def extract_diag_walk(L: np.ndarray):
     out = np.zeros((K * BLOCK * QUADS, 4), L.dtype)
     out[dst] = np.asarray(L).reshape(-1, 4)[src]
     return out.reshape(K, BLOCK, BLOCK), np.bincount(dst, minlength=out.shape[0])
+
+
+def solve_lower_walk(L, invd, b) -> np.ndarray:
+    """``solve_lower_kernel``'s order in NumPy (for tests).  Lane q <
+    QUADS of a row (its thread in the row's tile) adds, for stripes j = 0,
+    1, ..., i-1 of the row's stripe i, the four terms L[row, 256j + 4q + c]
+    y[256j + 4q + c] (c = 0..3) into its accumulator, from 0; lanes 0-31
+    and 32-63 (two warps) each take a xor butterfly (offsets 16 ... 1) and
+    the row's sum is the first warp's plus the second's; r = b - that sum
+    (r = b on stripe 0).  Tile t of T = LOWER_TILE rows then forms the
+    partial P_t[c] = sum over its rows k, in order, of invd[i][c, k] r[k]
+    from 0, and y_i = P_0 + P_1 + ... in tile order.  Stripes are walked in
+    order, each adding its y to the accumulators of every later row (the
+    same per-row order).  fp32 input is walked with :func:`fma32` (each FMA
+    rounded once: the card's bits), fp64 with fp64 FMAs."""
+    L, invd, b = np.asarray(L), np.asarray(invd), np.asarray(b)
+    dt = L.dtype
+    fma = fma32 if dt == np.float32 else (lambda a, b, c: a * b + c)
+    n = L.shape[0]
+    K = n // BLOCK
+    T = LOWER_TILE
+    quad = 4 * np.arange(QUADS)
+    lanes = np.arange(32)
+    acc = np.zeros((n, QUADS), dt)
+    y = np.zeros(n, dt)
+    for i in range(K):
+        lo, hi = i * BLOCK, (i + 1) * BLOCK
+        r = b[lo:hi].copy()
+        if i:
+            h = acc[lo:hi].reshape(BLOCK, 2, 32)
+            o = 16
+            while o:
+                h = h + h[..., lanes ^ o]
+                o //= 2
+            r = r - (h[:, 0, 0] + h[:, 1, 0])
+        yi = None
+        for t in range(BLOCK // T):
+            p = np.zeros(BLOCK, dt)
+            for k in range(t * T, (t + 1) * T):
+                p = fma(invd[i][:, k], r[k], p)
+            yi = p if yi is None else yi + p
+        y[lo:hi] = yi
+        for c in range(4):
+            acc[hi:] = fma(L[hi:, lo + quad + c], yi[quad + c], acc[hi:])
+    return y
 
 
 def solve_upper_walk(L, invd, y) -> np.ndarray:

@@ -23,16 +23,16 @@ this module                ``cuba_tpu/solver/trisolve.py``
 Each kernel wrapper has a ``*_plain`` twin, the blocked algorithm itself in
 torch (``torch.matmul`` on stripes, ``A @ x``), taken for CPU tensors and
 under ``cudalib.use_plain()``; a CUDA tensor launches the hand-written
-kernel of ``csrc/trisolve.cu`` (one host call per sweep: 2K launches for
-``solve_lower``, one for ``solve_upper``).  The port's sweeps run in exact
-fp32, where the TPU's ran their stripe updates at the MXU's default
-bf16-pass precision.
+kernel of ``csrc/trisolve.cu`` (one launch per sweep).  The port's sweeps
+run in exact fp32, where the TPU's ran their stripe updates at the MXU's
+default bf16-pass precision.
 
-The launches of the diagonal copy (:func:`diag_launch`), the backward sweep
-(:func:`solve_upper_launch`) and the matvec (:func:`matvec_launch`, with its
-one rule, :func:`matvec_slices`) live here; their kernels' index
-arithmetic and summation order in NumPy are ``ops/walks.py``'s
-(``extract_diag_walk``, ``solve_upper_walk``, ``matvec_walk``).
+The launches of the diagonal copy (:func:`diag_launch`), the two sweeps
+(:func:`solve_lower_launch`, :func:`solve_upper_launch`) and the matvec
+(:func:`matvec_launch`, with its one rule, :func:`matvec_slices`) live
+here; their kernels' index arithmetic and summation order in NumPy are
+``ops/walks.py``'s (``extract_diag_walk``, ``solve_lower_walk``,
+``solve_upper_walk``, ``matvec_walk``).
 """
 
 from __future__ import annotations
@@ -54,12 +54,14 @@ MATVEC_WARPS_PER_SM = 32  # the matvec's slices fill the card to this many warps
 MAX_SLICES = 8  # a block's 8 warps
 MATVEC_ACCS = 4  # accumulators a lane, U (kAccs in csrc/trisolve.cu)
 UPPER_TILE = 32  # columns of one stripe a block of solve_upper_kernel takes (kTile)
+LOWER_TILE = 32  # rows of one stripe a block of solve_lower_kernel takes (kTile)
 
 KERNEL_SRC = cudalib.SOURCES["trisolve"]
 _i32, _i64, _vp = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _SIGNATURES = {
     "cuba_extract_diag_blocks": [_vp, _i64, _vp, _vp],
-    "cuba_solve_lower": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "cuba_solve_lower": [_vp, _vp, _vp, _vp, _vp, _i64, _vp],
+    "cuba_solve_lower_work": [_i64],
     "cuba_solve_upper": [_vp, _vp, _vp, _vp, _vp, _i64, _vp],
     "cuba_solve_upper_work": [_i64],
     "cuba_matvec": [_vp, _vp, _vp, _i64, _i32, _i32, _vp],
@@ -150,18 +152,51 @@ def solve_lower_plain(L, invd, b, block: int = BLOCK):
 
 
 def solve_lower(L, invd, b, block: int = BLOCK):
-    """y = L^-1 b for lower-triangular L [n, n], b [n], right-looking over
-    column stripes: y_k = invd[k] (b_k + d_k), then d -= L[:, k] y_k below
-    the diagonal block."""
+    """y = L^-1 b for lower-triangular L [n, n], b [n].  The plain version
+    is right-looking over column stripes: y_k = invd[k] (b_k + d_k), then
+    d -= L[:, k] y_k below the diagonal block.  On the card: one launch of
+    ``solve_lower_kernel`` (:func:`solve_lower_launch`,
+    ``walks.solve_lower_walk``), left-looking over row stripes, after one
+    zeroing of its workspace; B = 256, and L and invd 16-byte aligned,
+    else it raises."""
     if not _check_sweep(L, invd, b, block):
         return solve_lower_plain(L, invd, b, block)
+    return _sweep_kernel("solve_lower", L, invd, b, block)
+
+
+def _sweep_kernel(name, L, invd, v, block):
+    """One launch of the sweep ``name`` (``solve_lower`` or
+    ``solve_upper``) on a zeroed workspace of the kernel's size."""
+    if block != BLOCK:
+        raise ValueError(f"{name}: the kernel walks stripes of {BLOCK}, not {block}")
+    if L.data_ptr() % 16 or invd.data_ptr() % 16:
+        raise ValueError(f"{name}: L and invd must be 16-byte aligned (float4 loads)")
+    cudalib.check_int32(name, L.numel())
     n = L.shape[0]
-    y = torch.empty_like(b)
-    d = torch.zeros_like(b)
-    cudalib.call("solve_lower", L, _lib().cuba_solve_lower, L.data_ptr(), invd.data_ptr(),
-                 b.data_ptr(), y.data_ptr(), d.data_ptr(), n, block)
-    LAUNCHES["solve_lower"] += 1
-    return y
+    out = torch.empty_like(v)
+    lib = _lib()
+    work = torch.zeros(getattr(lib, f"cuba_{name}_work")(n), dtype=torch.int32,
+                       device=L.device)
+    cudalib.call(name, L, getattr(lib, f"cuba_{name}"), L.data_ptr(), invd.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), work.data_ptr(), n)
+    LAUNCHES[name] += 1
+    return out
+
+
+def solve_lower_launch(n: int) -> dict:
+    """``solve_lower_kernel``'s launch for n = K * 256: the ``tile`` height
+    T (rows of one stripe a block takes) and the ``grid`` of K * 256/T
+    blocks, one ticket each (stripe 0's tiles first, then 1's, ...:
+    :func:`solve_lower_tile`).  A tile waits only on lower stripes, so
+    every wait ends once one block can be resident."""
+    return dict(tile=LOWER_TILE, grid=[n // BLOCK * (BLOCK // LOWER_TILE)])
+
+
+def solve_lower_tile(ticket: int, K: int):
+    """(stripe, first row in the stripe) of ``ticket``: stripe 0's 256/T
+    tiles hold tickets 0 .. 256/T - 1, stripe 1's the next, ..."""
+    per = BLOCK // LOWER_TILE
+    return ticket // per, ticket % per * LOWER_TILE
 
 
 def solve_upper_plain(L, invd, y, block: int = BLOCK):
@@ -184,19 +219,7 @@ def solve_upper(L, invd, y, block: int = BLOCK):
     and L and invd 16-byte aligned, else it raises."""
     if not _check_sweep(L, invd, y, block):
         return solve_upper_plain(L, invd, y, block)
-    if block != BLOCK:
-        raise ValueError(f"solve_upper: the kernel walks stripes of {BLOCK}, not {block}")
-    if L.data_ptr() % 16 or invd.data_ptr() % 16:
-        raise ValueError("solve_upper: L and invd must be 16-byte aligned (float4 loads)")
-    cudalib.check_int32("solve_upper", L.numel())
-    n = L.shape[0]
-    x = torch.empty_like(y)
-    lib = _lib()
-    work = torch.zeros(lib.cuba_solve_upper_work(n), dtype=torch.int32, device=L.device)
-    cudalib.call("solve_upper", L, lib.cuba_solve_upper, L.data_ptr(), invd.data_ptr(),
-                 y.data_ptr(), x.data_ptr(), work.data_ptr(), n)
-    LAUNCHES["solve_upper"] += 1
-    return x
+    return _sweep_kernel("solve_upper", L, invd, y, block)
 
 
 def solve_upper_launch(n: int) -> dict:

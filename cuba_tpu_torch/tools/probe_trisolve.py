@@ -2,19 +2,21 @@
 """The four kernels of ``csrc/trisolve.cu`` beside the one torch call
 computing each, warm and cold, on one NVIDIA GPU.
 
-    python3 cuba_tpu_torch/tools/probe_trisolve.py [--root DIR]
+    python3 cuba_tpu_torch/tools/probe_trisolve.py [--root DIR] [--sizes N ...] [--kernels K ...]
 
 ``cuba_tpu_torch`` is imported from DIR (default: the checkout this script
 lies in), so that two trees can be measured in one call, one process each;
 the timing helpers come from this checkout's ``chip_smoke.py``.  At n =
 1536 (kitti07's dense system), 3072 and 8448 (the kitti00 loop graph built
-``dense_cholesky``), on a seeded SPD matrix A and its Cholesky factor L, it
-prints one ``probe`` JSON line per kernel, n and cache regime
+``dense_cholesky``), or the ``--sizes`` given, on a seeded SPD matrix A
+and its Cholesky factor L, it prints one ``probe`` JSON line per kernel
+(or the ``--kernels`` given), n and cache regime
 (``chip_smoke.interleaved_times``: ``warm``, each call after an untimed run
 of itself; ``cold``, after a 128 MB read): the device and event-timed call
 time of the wrapper and of its torch call (``torch.mv``, the strided
 diagonal copy, ``solve_triangular``), of the sweeps' plain versions
-(``plain``), and the kernel's bound (``chip_smoke.bound``).  Where DIR
+(``plain``), and the kernel's bound (``chip_smoke.bound``); where DIR has
+them (``trisolve.solve_lower_launch``), the sweeps' launches.  Where DIR
 holds the sliced matvec (``trisolve.matvec_slices``), the matvec line also
 times the kernel at every S (``S4``: slices a row), with the S the
 wrapper's rule picks (``rule``) and the fastest (``best``).
@@ -29,6 +31,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 SIZES = (1536, 3072, 8448)
+KERNELS = ("matvec", "extract_diag_blocks", "solve_lower", "solve_upper")
 
 
 def emit(**kw):
@@ -38,6 +41,8 @@ def emit(**kw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--sizes", nargs="+", type=int, default=list(SIZES))
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS), choices=KERNELS)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -58,18 +63,20 @@ def main():
     sweep = hasattr(trisolve, "matvec_slices")
     B = trisolve.BLOCK
 
-    def report(kernel, n, fns, work, rule_key=None):
+    def report(kernel, n, fns, work, rule_key=None, launch=None):
+        if kernel not in args.kernels:
+            return
         for cold in (False, True):
             times = smoke.interleaved_times(fns, torch, cold=cold)
             points = {k: dms for k, (_ms, dms) in times.items() if k[0] == "S" and k[1:].isdigit()}
             best = min(points, key=points.get) if points else None
             emit(tree=tree, kernel=kernel, n=n, cache="cold" if cold else "warm",
-                 bound_ms=smoke.bound(*work)[0], rule=rule_key,
+                 bound_ms=smoke.bound(*work)[0], launch=launch, rule=rule_key,
                  rule_device_ms=points.get(rule_key), best=best,
                  best_device_ms=points.get(best),
                  times={k: {"ms": ms, "device_ms": dms} for k, (ms, dms) in times.items()})
 
-    for n in SIZES:
+    for n in args.sizes:
         M = torch.randn((n, n), generator=gen, device=dev)
         A = M @ M.T / n + torch.eye(n, device=dev)
         del M
@@ -98,12 +105,14 @@ def main():
             "wrapper": lambda: trisolve.solve_lower(L, invd, x),
             "plain": lambda: trisolve.solve_lower_plain(L, invd, x),
             "solve_triangular": lambda: torch.linalg.solve_triangular(
-                L, x[:, None], upper=False)}, (tri_bytes, n * n))
+                L, x[:, None], upper=False)}, (tri_bytes, n * n),
+            launch=getattr(trisolve, "solve_lower_launch", lambda n: None)(n))
         report("solve_upper", n, {
             "wrapper": lambda: trisolve.solve_upper(L, invd, y),
             "plain": lambda: trisolve.solve_upper_plain(L, invd, y),
             "solve_triangular": lambda: torch.linalg.solve_triangular(
-                L.mT, y[:, None], upper=True)}, (tri_bytes, n * n))
+                L.mT, y[:, None], upper=True)}, (tri_bytes, n * n),
+            launch=trisolve.solve_upper_launch(n))
         del A, L, x, invd, y
 
 

@@ -80,24 +80,30 @@ def test_compact_to_dense_plain_matches_pallas(dense_plan):
 
 
 def test_dense_table_walk_matches_plain(dense_plan):
-    """compact_to_dense's kernel index arithmetic over the placement table,
-    walked in numpy, gives the plain version bit for bit."""
+    """compact_to_dense's kernel index arithmetic over the placement table
+    (``walks.compact_to_dense_walk``: its blocks, threads and float4
+    stores) gives the plain version bit for bit, each output float4 written
+    exactly once."""
     _P, PB, _plans, _consts, plan, rc, gT, dbT = dense_plan
-    tab = rc.dense_table.numpy()
-    occ = rc.occ2.numpy()
-    n = 6 * PB
-    R, C = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    p, i = R // 6, R % 6
-    q, j = C // 6, C % 6
-    ent = tab[p, q]
-    slot = ent & ((1 << 30) - 1)
-    row = np.where(ent & (1 << 30), j * 6 + i, i * 6 + j)
-    v = np.where(ent >= 0, -gT[row, np.where(ent >= 0, slot, 0)], np.float32(0))
-    v = np.where(p == q, v + dbT[i * 6 + j, p], v)
-    v = np.where(occ[(p // 64) * (PB // 128) + q // 128] > 0, v, np.float32(0))
+    got, writes = walks.compact_to_dense_walk(gT, rc.dense_table.numpy(), dbT,
+                                              rc.occ2.numpy(), PB)
+    assert np.all(writes == 1)
     plain = segmm.compact_to_dense_plain(_t(gT), rc.iru, rc.icu, _t(dbT), rc.occ2, PB,
                                          plan.wg).numpy()
-    np.testing.assert_array_equal(v.astype(np.float32), plain)
+    np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("PB,grid", [(128, [128, 1]), (256, [256, 2]), (1408, [1408, 11])])
+def test_compact_to_dense_launch_rule(PB, grid):
+    """A block per (pose row, column tile of 128 pose blocks): kitti07's
+    PB 256 and the kitti00 loop graph's PB 1408 (1408 x 11 blocks); the
+    [6, 768] strip and 128 table entries fit the 48 KB of static shared
+    memory."""
+    launch = segmm.compact_to_dense_launch(PB)
+    assert launch == dict(grid=grid, threads=192, smem=4 * (6 * 768 + 128))
+    assert launch["smem"] <= 48 * 1024
+    # the strip's 1152 float4 and 4608 placements split evenly over the threads
+    assert 6 * 768 // 4 % launch["threads"] == 0 and 36 * 128 % launch["threads"] == 0
 
 
 @pytest.mark.parametrize("case", ["gT narrower than M*Wg", "dbT narrower than PB",
@@ -219,44 +225,34 @@ def test_matvec_matches_pallas(factor):
     assert np.all(np.abs(got64 - A @ b64) <= 1e-14 * (np.abs(A) @ np.abs(b64)))
 
 
-def _rowdot(M, m0, ld, nrows, ncols, v1, v2, out, o0, subtract):
-    """csrc/trisolve.cu's rowdot over flat memory: out[o0 + r] (=, -=)
-    sum_c M[m0 + r*ld + c] (v1[c] + v2[c])."""
-    idx = m0 + np.arange(nrows)[:, None] * ld + np.arange(ncols)[None, :]
-    v = v1[:ncols] if v2 is None else v1[:ncols] + v2[:ncols]
-    acc = (M[idx] * v[None, :]).sum(axis=1)
-    out[o0:o0 + nrows] = out[o0:o0 + nrows] - acc if subtract else acc
-
-
 @pytest.mark.parametrize("name", ["solve_lower", "solve_upper", "extract_diag_blocks"])
 def test_sweep_kernel_walk_matches_plain(factor, name):
-    """The entry points of csrc/trisolve.cu (launch order, pointer offsets,
-    row and column ranges) walked in numpy over flat fp64 memory give the
-    plain versions.  ``solve_upper``'s one launch: its tiles in ticket
-    order (``walks.solve_upper_walk``)."""
+    """The kernels of csrc/trisolve.cu walked in numpy over fp64 memory
+    give the plain versions: each sweep's one launch, its tiles in ticket
+    order (``walks.solve_lower_walk``, ``walks.solve_upper_walk``), to
+    1e-12 of max |result|; the copy's float4 grid bit for bit."""
     _A, L64, b64, _L, _b, _invd = factor
-    n, B = L64.shape[0], trisolve.BLOCK
-    K = n // B
-    Lf = L64.reshape(-1)
     invd = trisolve.prepare(_t(L64)).numpy()
-    invf = invd.reshape(-1)
     if name == "extract_diag_blocks":  # the float4 grid of the CUDA copy
         got, writes = walks.extract_diag_walk(L64)
         assert np.all(writes == 1)
         np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(_t(L64)).numpy())
         return
-    if name == "solve_lower":  # cuba_solve_lower
-        out, d = np.empty(n), np.zeros(n)
-        for k in range(K):
-            lo, hi = k * B, (k + 1) * B
-            _rowdot(invf, k * B * B, B, B, B, b64[lo:], d[lo:], out, lo, False)
-            if hi < n:
-                _rowdot(Lf, hi * n + lo, n, n - hi, B, out[lo:], None, d, hi, True)
-        want = trisolve.solve_lower_plain(_t(L64), _t(invd), _t(b64)).numpy()
-    else:  # cuba_solve_upper: one launch of solve_upper_kernel
-        out = walks.solve_upper_walk(L64, invd, b64)
-        want = trisolve.solve_upper_plain(_t(L64), _t(invd), _t(b64)).numpy()
+    walk = getattr(walks, name + "_walk")  # one launch of solve_lower_kernel / solve_upper_kernel
+    out = walk(L64, invd, b64)
+    want = getattr(trisolve, name + "_plain")(_t(L64), _t(invd), _t(b64)).numpy()
     np.testing.assert_allclose(out, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_solve_lower_walk_matches_pallas(factor):
+    """The forward sweep kernel's order (``walks.solve_lower_walk``, each
+    fp32 FMA rounded once) against cuba_tpu's Pallas ``solve_lower`` in
+    interpret mode: both exact fp32 in other orders (SWEEP_RTOL)."""
+    _A, _L64, _b64, L, b, invd = factor
+    got = walks.solve_lower_walk(L, invd, b)
+    assert got.dtype == np.float32
+    _close(got, tpu_trisolve.solve_lower(jnp.asarray(L), jnp.asarray(invd), jnp.asarray(b),
+                                         interpret=True))
 
 
 @pytest.mark.parametrize("n,dtype,want", [(1536, torch.float32, True),

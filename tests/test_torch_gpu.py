@@ -306,6 +306,39 @@ def test_band_slice_on_card_matches_plain(cuda):
     assert got[-1] < got[0]
 
 
+def test_compact_to_dense_kernel_follows_its_walk(band_plan):
+    """Bit for bit the NumPy walk of its blocks and threads (each output
+    float4 written once) and the plain version; the same bits on a
+    relaunch."""
+    plan, rc, PB, _W, _G, gT, dbT = band_plan
+    args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
+    got = segmm.compact_to_dense(*args, table=rc.dense_table)
+    torch.cuda.synchronize()
+    walk, writes = walks.compact_to_dense_walk(gT.cpu().numpy(), rc.dense_table.cpu().numpy(),
+                                               dbT.cpu().numpy(), rc.occ2.cpu().numpy(), PB)
+    assert np.all(writes == 1)
+    assert np.array_equal(_bits(got), walk.view(np.int32))
+    assert torch.equal(got, segmm.compact_to_dense(*args, table=rc.dense_table))
+
+
+def test_compact_to_dense_kernel_matches_plain_at_kitti00(kitti_plan):
+    """The kitti00 loop graph's plan (PB 1408, n = 8448: 1408 x 11 blocks),
+    its [PB, PB] table built here: one launch, bit for bit the plain
+    version, and the build's registers without spills."""
+    plan, rc, PB, _W, _G, gT, dbT = kitti_plan
+    table = torch.from_numpy(segmm.dense_table(rc.iru, rc.icu, PB)).to(gT.device)
+    args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
+    before = segmm.LAUNCHES["compact_to_dense"]
+    got = segmm.compact_to_dense(*args, table=table)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["compact_to_dense"] == before + 1
+    assert torch.equal(got, segmm.compact_to_dense_plain(*args))
+    launch = segmm.compact_to_dense_launch(PB)
+    attrs = segmm.kernel_attributes("compact_to_dense", launch)
+    print("compact_to_dense", launch, attrs)
+    assert attrs["blocks_per_sm"] >= 4 and attrs["spill_bytes"] == 0, attrs
+
+
 def test_compact_to_dense_kernel_matches_plain(band_plan):
     plan, rc, PB, _W, _G, gT, dbT = band_plan
     args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
@@ -357,7 +390,7 @@ def test_triangular_sweep_kernel_matches_plain(spd_factor, name):
     assert torch.equal(got, getattr(trisolve, name)(L, invd, b))  # deterministic
 
 
-def _upper_problem(n, device):
+def _sweep_problem(n, device):
     """A seeded SPD matrix's row-major Cholesky factor at n = 256 K, its
     inverted diagonal blocks and a right-hand side, made on the card."""
     gen = torch.Generator(device=device).manual_seed(n)
@@ -375,43 +408,63 @@ def test_solve_upper_kernel_matches_plain(cuda, n):
     within 1e-5 of max |x| of the plain version (fp32 sums in other
     orders), the same bits over 20 calls, each with a workspace of its
     own."""
-    L, invd, y = _upper_problem(n, cuda)
-    before = segmm.LAUNCHES["solve_upper"]
-    got = trisolve.solve_upper(L, invd, y)
-    want = trisolve.solve_upper_plain(L, invd, y)
+    _sweep_matches_plain("solve_upper", n, cuda)
+
+
+@pytest.mark.parametrize("n", [512, 1536, 8448])
+def test_solve_lower_kernel_matches_plain(cuda, n):
+    """As the backward sweep: one launch a call, within 1e-5 of max |y| of
+    the plain version, the same bits over 20 calls."""
+    _sweep_matches_plain("solve_lower", n, cuda)
+
+
+def _sweep_matches_plain(name, n, cuda):
+    L, invd, v = _sweep_problem(n, cuda)
+    before = segmm.LAUNCHES[name]
+    got = getattr(trisolve, name)(L, invd, v)
+    want = getattr(trisolve, name + "_plain")(L, invd, v)
     torch.cuda.synchronize()
-    assert segmm.LAUNCHES["solve_upper"] == before + 1
+    assert segmm.LAUNCHES[name] == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     for _ in range(20):
-        assert torch.equal(got, trisolve.solve_upper(L, invd, y))
-    assert segmm.LAUNCHES["solve_upper"] == before + 21
+        assert torch.equal(got, getattr(trisolve, name)(L, invd, v))
+    assert segmm.LAUNCHES[name] == before + 21
 
 
 @pytest.mark.parametrize("n", [512, 1536])
 def test_solve_upper_kernel_follows_its_walk(cuda, n):
     """Bit for bit ``solve_upper_walk`` (the kernel's order, each FMA
     rounded once)."""
-    L, invd, y = _upper_problem(n, cuda)
+    L, invd, y = _sweep_problem(n, cuda)
     got = trisolve.solve_upper(L, invd, y)
     want = walks.solve_upper_walk(L.cpu().numpy(), invd.cpu().numpy(), y.cpu().numpy())
     assert np.array_equal(_bits(got), want.view(np.int32))
 
 
-def test_solve_upper_is_one_kernel_launch(cuda):
-    """The device trace of a call: one solve_upper_kernel, and at most one
-    more operation (the workspace's zeroing).  Calls are split by
-    ``torch.cuda._sleep`` marks; the trace can miss a session's first
-    events, so a call counts between two marks."""
+@pytest.mark.parametrize("n", [512, 1536, 8448])
+def test_solve_lower_kernel_follows_its_walk(cuda, n):
+    """Bit for bit ``solve_lower_walk`` (the kernel's order, each FMA
+    rounded once), at K = 2, 6 and 33."""
+    L, invd, b = _sweep_problem(n, cuda)
+    got = trisolve.solve_lower(L, invd, b)
+    want = walks.solve_lower_walk(L.cpu().numpy(), invd.cpu().numpy(), b.cpu().numpy())
+    assert np.array_equal(_bits(got), want.view(np.int32))
+
+
+def _kernels_per_call(call):
+    """The device kernels of five calls of ``call`` under the profiler,
+    call by call.  Calls are split by ``torch.cuda._sleep`` marks; the
+    trace can miss a session's first events, so a call counts between two
+    marks."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    L, invd, y = _upper_problem(1536, cuda)
-    trisolve.solve_upper(L, invd, y)  # built and loaded outside the trace
+    call()  # built and loaded outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             torch.cuda._sleep(1)
-            trisolve.solve_upper(L, invd, y)
+            call()
         torch.cuda._sleep(1)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.name) for e in prof.events()
@@ -425,17 +478,40 @@ def test_solve_upper_is_one_kernel_launch(cuda):
         elif cur is not None:
             cur.append(name)
     assert len(calls) >= 3, spans
-    for names in calls:
+    return calls
+
+
+def test_solve_upper_is_one_kernel_launch(cuda):
+    """The device trace of a call: one solve_upper_kernel, and at most one
+    more operation (the workspace's zeroing)."""
+    L, invd, y = _sweep_problem(1536, cuda)
+    for names in _kernels_per_call(lambda: trisolve.solve_upper(L, invd, y)):
         assert sum("solve_upper_kernel" in s for s in names) == 1 and len(names) <= 2, names
 
 
+def test_solve_lower_is_one_kernel_launch(cuda):
+    """The device trace of a call: one solve_lower_kernel, and at most one
+    more operation (the workspace's zeroing)."""
+    L, invd, b = _sweep_problem(1536, cuda)
+    for names in _kernels_per_call(lambda: trisolve.solve_lower(L, invd, b)):
+        assert sum("solve_lower_kernel" in s for s in names) == 1 and len(names) <= 2, names
+
+
 def test_solve_upper_refuses_a_misaligned_L(cuda):
+    _refuses_a_misaligned_L(trisolve.solve_upper, cuda)
+
+
+def test_solve_lower_refuses_a_misaligned_L(cuda):
+    _refuses_a_misaligned_L(trisolve.solve_lower, cuda)
+
+
+def _refuses_a_misaligned_L(sweep, cuda):
     n = 512
-    L, invd, y = _upper_problem(n, cuda)
+    L, invd, v = _sweep_problem(n, cuda)
     Lm = torch.empty(n * n + 1, device=cuda)[1:].view(n, n)  # contiguous, 4 bytes off
     Lm.copy_(L)
     with pytest.raises(ValueError, match="aligned"):
-        trisolve.solve_upper(Lm, invd, y)
+        sweep(Lm, invd, v)
 
 
 def test_matvec_kernel_matches_plain(spd_factor):

@@ -99,7 +99,9 @@ def test_kernel_source_and_binding_import_without_nvcc():
                                 "cuba_compact_to_band", "cuba_compact_to_dense",
                                 "cuba_band_transpose"), segmm._SIGNATURES),
             (trisolve.KERNEL_SRC, ("cuba_extract_diag_blocks", "cuba_solve_lower",
-                                   "cuba_solve_upper", "cuba_matvec"), trisolve._SIGNATURES)):
+                                   "cuba_solve_lower_work", "cuba_solve_upper",
+                                   "cuba_solve_upper_work", "cuba_matvec"),
+             trisolve._SIGNATURES)):
         src = open(path).read()
         for entry in entries + ("__global__",):
             assert entry in src, (path, entry)

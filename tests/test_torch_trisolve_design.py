@@ -1,12 +1,14 @@
-"""The CUDA diagonal copy's, backward sweep's and matvec's design, checked
-on the CPU: the launch rules, the copy's index arithmetic, the sweep's
-ticket order and the matvec's summation order.
+"""The CUDA diagonal copy's, two sweeps' and matvec's design, checked on
+the CPU: the launch rules, the copy's index arithmetic, the sweeps' ticket
+orders and the matvec's summation order.
 
 The kernels (``csrc/trisolve.cu`` ``extract_diag_kernel``,
-``solve_upper_kernel``, ``matvec_kernel``) cannot run here.  The sweep's
-blocks wait on each other's flags: a scheduler with only R blocks resident
-shows every tile finishing with tickets, down to R = 8 (a stripe's tiles),
-and the blockIdx order stalling (its NumPy walk is held to the plain version in
+``solve_lower_kernel``, ``solve_upper_kernel``, ``matvec_kernel``) cannot
+run here.  The sweeps' blocks wait on each other's flags: a scheduler with
+only R blocks resident shows every tile finishing with tickets, down to R =
+8 (a stripe's tiles) for the backward sweep and R = 1 for the forward one
+(its tiles never wait on their own stripe), and the opposite start order
+stalling (their NumPy walks are held to the plain versions in
 ``tests/test_torch_dense.py``).  ``walks.extract_diag_walk`` is the copy's grid
 arithmetic in NumPy: every output float4 written once, bit for bit the plain
 version and cuba_tpu's Pallas ``_extract_diag_blocks`` in interpret mode.
@@ -196,3 +198,100 @@ def test_extract_diag_walk_matches_plain_and_pallas(n, triangle):
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(got, trisolve.extract_diag_blocks_plain(
         torch.from_numpy(L)).numpy())
+
+
+@pytest.mark.parametrize("K,grid", [(2, 16), (6, 48), (33, 264)])
+def test_solve_lower_launch_rule(K, grid):
+    """Tiles of 32 rows, one block each; every tile of every stripe held by
+    exactly one ticket, stripe 0's first."""
+    launch = trisolve.solve_lower_launch(K * trisolve.BLOCK)
+    assert launch == dict(tile=32, grid=[grid])
+    tiles = [trisolve.solve_lower_tile(t, K) for t in range(grid)]
+    assert sorted(tiles) == [(i, r) for i in range(K) for r in range(0, 256, 32)]
+    assert [i for i, _r in tiles] == sorted(i for i, _r in tiles)
+
+
+def _schedule_lower(K, resident, tickets=True, write="last"):
+    """solve_lower_kernel's blocks on a card that holds ``resident`` of them
+    at once, a new block starting when one exits.  A block takes its tile
+    from the ticket (``tickets``: stripe 0 first) or, as a scheduler free to
+    start blocks in any order might, stripe K-1 first.  A tile of stripe i
+    adds its partial to done[i] once every done[j < i] is full.  With
+    ``write="last"`` (the kernel) it then exits, the stripe's last tile
+    writing y_i; with ``write="each"`` (the other design) it first waits
+    for done[i] to fill and writes its own rows of y_i.  Returns the tiles
+    that finished before no block could move."""
+    per = trisolve.BLOCK // trisolve.LOWER_TILE
+    total = K * per
+    done = [0] * K
+    running, started, finished = [], 0, 0
+    while True:
+        while len(running) < resident and started < total:
+            stripe = (trisolve.solve_lower_tile(started, K)[0] if tickets
+                      else K - 1 - started // per)
+            running.append([stripe, 0])  # [stripe, stage: 0 before its partial, 1 after]
+            started += 1
+        moved = False
+        for blk in list(running):
+            i, stage = blk
+            if stage == 0 and all(done[j] == per for j in range(i)):
+                done[i] += 1
+                blk[1] = stage = 1
+                moved = True
+            if stage == 1 and (write == "last" or done[i] == per):
+                running.remove(blk)
+                finished += 1
+                moved = True
+        if not moved:
+            return finished
+
+
+@pytest.mark.parametrize("resident", [1, 7, 8, trisolve.SMS])
+@pytest.mark.parametrize("K", [2, 6, 33])
+def test_solve_lower_tickets_never_stall(K, resident):
+    """With tickets the kernel's design (the last tile of a stripe writes
+    y_i) finishes with any number of resident blocks, down to one; the
+    other (each tile waits for its stripe, then writes its rows) once a
+    stripe's 8 blocks fit.  Started stripe K-1 first, the resident blocks
+    all wait on stripes that have no block yet, unless the whole grid
+    fits at once."""
+    total = trisolve.solve_lower_launch(K * trisolve.BLOCK)["grid"][0]
+    assert _schedule_lower(K, resident) == total
+    assert (_schedule_lower(K, resident, write="each") == total) == (resident >= 8)
+    assert (_schedule_lower(K, resident, tickets=False) == total) == (total <= resident)
+
+
+def test_solve_lower_walk_fp32_follows_its_order():
+    """The fp32 walk (the kernel's order, each FMA rounded once) lies within
+    1e-5 of max |y| of the plain version through six stripes (the card's
+    tests hold the kernel to the walk bit for bit)."""
+    n = 1536
+    rng = np.random.default_rng(6)
+    G = rng.standard_normal((n, n))
+    L = np.linalg.cholesky(G @ G.T / n + np.eye(n)).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    invd = trisolve.prepare(torch.from_numpy(L))
+    want = trisolve.solve_lower_plain(torch.from_numpy(L), invd, torch.from_numpy(b)).numpy()
+    got = walks.solve_lower_walk(L, invd.numpy(), b)
+    assert got.dtype == np.float32
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_solve_lower_walk_follows_its_order():
+    """Two stripes whose fp32 sums depend on the order: row 256 (tile 0 of
+    stripe 1) gets 1e8 from lane 0 and -1e8 from lane 32 (the second warp)
+    and 1 from lane 1; the first warp's butterfly rounds 1e8 + 1 to 1e8,
+    so the row sum is 1e8 - 1e8 = 0 (exact: 1)."""
+    n = 512
+    L = np.eye(n, dtype=np.float32)
+    b = np.zeros(n, np.float32)
+    b[:256] = 1.0  # y_0 = 1 (invd[0] = I)
+    L[256, 0] = 1e8   # lane 0, first warp
+    L[256, 4] = 1.0   # lane 1, first warp
+    L[256, 128] = -1e8  # lane 32, second warp
+    invd = trisolve.prepare(torch.from_numpy(L)).numpy()
+    y = walks.solve_lower_walk(L, invd, b)
+    assert y[256] == np.float32(0.0)  # b - (1e8 + -1e8)
+    y64 = walks.solve_lower_walk(L.astype(np.float64), invd.astype(np.float64),
+                                 b.astype(np.float64))
+    assert y64[256] == -1.0  # 1e8 + 1 - 1e8 held exactly in fp64
