@@ -99,6 +99,41 @@ Phases (any failure exits non-zero, before the result line):
    pose sums of the mono terms, the per-block triplet sums); the checks of
    phase 12; then kitti07's graph with every landmark fixed (pose-only) and
    with every pose fixed (landmark-only) must descend.
+14. The rest of the public API at the main path's full width, on phase 5's
+   kitti00 loop graph: ``json_io.write_graph`` to a temporary directory and
+   ``read_graph`` back (write and read seconds logged; the two graphs'
+   ``BAStructure`` arrays must be equal bit for bit); ``optimize(10,
+   profile=True)`` from a fresh ``initialize()``, counted: final chi² within
+   CHI2_REL_BAND of the fp64 record, within TRAJ_RTOL of phase 5's run per
+   iteration, the profile's keys exactly ``PROFILE_ITEMS`` with "4" and "5"
+   at 0 and the others above, no attributed phase, every kernel of the band
+   path launched; three plain ``optimize(10)`` with ``phase_attribution``
+   on and three off, in turns, from the same engine and start: each run's
+   five phases must be > 0 and sum to its "optimize (fused device loop)"
+   wall to 1e-6 (walls logged, not gated), and one run of each, in one
+   ``torch.profiler`` session between untimed runs, must run the same
+   number of device operations; a checkpoint after ``optimize(5)`` restored into a fresh graph (the
+   statistics equal, the engine's state equal bit for bit to the saved
+   estimates cast to fp32, a further ``optimize(5)`` finite, never rising,
+   and ending at or below the saved last chi²); ``chi_squared`` of every edge after one
+   ``remove_edge``: finite, >= 0 and equal bit for bit to
+   ``engine.chi_squares``.
+15. The BAL path at the published Ladybug-49 shape
+   (``data/bal_ladybug_scale.txt.gz``: 49 cameras, 7,776 points, 31,818
+   observations; no robust kernel), ``BAConfig(dtype=float32,
+   device="cuda")`` with ``solver="auto"``, which must resolve to
+   ``dense_cholesky`` on the v2 route (PB 128, n = 768): kernels 1-7, 9
+   and 11-14 against their plain versions at its shapes as in phase 9; the
+   counted ``optimize(10)``: chi² falling, the final below 0.6x the first
+   (tests/test_bal.py's bar) and within CHI2_REL_BAND of the port's fp64
+   CPU run of the same file; its profile.  Then
+   ``sample_comparison_with_reference``'s graph (20 poses, 300 landmarks)
+   in process: the card's fp32 trajectory within TRAJ_RTOL of the port's
+   fp64 oracle copy per iteration; and the three samples as subprocesses
+   on the card (``sample_ba_from_file`` on phase 14's JSON with
+   ``--profiled``, ``sample_bal`` on the Ladybug file,
+   ``sample_comparison_with_reference`` at its defaults): each must exit 0
+   with finite, falling chi² lines.
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
@@ -117,7 +152,8 @@ with the most device time (not gated).
 The line before the last is a JSON object with one entry per kernel and
 path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
 ``dense`` from phases 8-9 at kitti07, ``dense-kitti00`` from phase 9's
-kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13;
+kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13, ``bal``
+from phase 15;
 ``"site"`` names a second call site of one kernel).  ``launches`` is the
 kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
@@ -147,6 +183,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -235,10 +272,13 @@ def log(msg: str) -> None:
 
 def make_graph(prob, config, fix=None):
     """The problem's graph with Huber kernels; ``fix`` = "landmarks" or
-    "poses" holds every landmark or every pose fixed."""
-    from cuba_tpu_torch import EdgeType, RobustKernelType
-    from cuba_tpu_torch.io import synthetic
+    "poses" holds every landmark or every pose fixed.  A ``prob`` that is a
+    path names a BAL file, read with no robust kernel (as ``sample_bal``
+    reads it by default)."""
+    from cuba_tpu_torch.io import bal, synthetic
 
+    if isinstance(prob, str):
+        return bal.read_bal(prob, config)
     ba = synthetic.build_graph(prob, config)
     if fix == "landmarks":
         for j in range(prob.Xws.shape[0]):
@@ -246,9 +286,15 @@ def make_graph(prob, config, fix=None):
     elif fix == "poses":
         for i in range(prob.qs.shape[0]):
             ba.pose_vertex(i).fixed = True
+    set_huber(ba)
+    return ba
+
+
+def set_huber(ba):
+    from cuba_tpu_torch import EdgeType, RobustKernelType
+
     ba.set_robust_kernels(RobustKernelType.HUBER, float(np.sqrt(5.991)), EdgeType.MONOCULAR)
     ba.set_robust_kernels(RobustKernelType.HUBER, float(np.sqrt(7.815)), EdgeType.STEREO)
-    return ba
 
 
 def cuda_ms(fn, torch) -> float:
@@ -282,11 +328,12 @@ def interleaved_times(fns, torch, cold=False):
     inputs and clean.  A ``torch.cuda._sleep`` kernel before that run and
     another before the call mark where each starts in the trace (the first
     segment is dropped), and two in a row where a round starts.  The trace
-    can miss events (the first few of a profiler session, as seen on an
-    H100), so a round counts only where the marks split it into as many
-    segments as it made.  Where fewer than half the rounds count, the loop
-    runs again in a new profiler session, and the run fails after
-    PROFILE_TRIES sessions: every time it returns was measured."""
+    can miss events (the first few of a profiler session and its last
+    ones, as seen on an H100), so a round counts only where the marks
+    close it and split it into as many segments as it made.  Where fewer
+    than half the rounds count, the loop runs again in a new profiler
+    session, and the run fails after PROFILE_TRIES sessions: every time it
+    returns was measured."""
     labels = list(fns)
     for fn in fns.values():
         fn()
@@ -346,8 +393,7 @@ def _profiled_rounds(fns, labels, torch, cold):
         elif cur is not None:
             cur[0] += 1
             cur[1] += end - start
-    if cur is not None:
-        segments.append(cur)
+    # an unclosed last segment may have lost its tail (see device_ops)
     rounds, rnd = [], None
     for n, us in segments:
         if n == 0:  # two marks in a row: a round starts
@@ -890,6 +936,54 @@ def counted_run(prob, config, torch, segmm, label, expect_route, fix=None):
     return ba, chis, t_opt, launches
 
 
+def union_us(spans):
+    """The union of sorted (start, end) device intervals, in their unit."""
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def device_ops(fns, torch):
+    """{label: (device kernels and copies, the union of their device
+    intervals in ms)} of each callable of ``fns``, run in turns in one
+    ``torch.profiler`` session (device activity only).  A
+    ``torch.cuda._sleep`` mark before each call and one after the last
+    split the trace.  The trace can miss a session's first events and its
+    last ones (on an H100, the last few kernels and copies of a session
+    that ended in a synchronize, the last mark among them), so an
+    untimed run of the first callable comes before the first mark and one
+    of the last after the last mark."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = list(fns)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fns[labels[0]]()
+        for k in labels:
+            torch.cuda._sleep(1)
+            fns[k]()
+        torch.cuda._sleep(1)
+        fns[labels[-1]]()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    segments, cur = [], None
+    for a, b, name in spans:
+        if "spin_kernel" in name:
+            if cur is not None:
+                segments.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append((a, b))
+    if len(segments) != len(labels):
+        fail(f"device_ops: the trace split into {len(segments)} calls, not {len(labels)} "
+             f"({len(spans)} device events, segments of {[len(s) for s in segments]})")
+    return {k: (len(seg), union_us(seg) / 1e3) for k, seg in zip(labels, segments)}
+
+
 def profile_path(prob, config, torch, label, wall_s, fix=None):
     """One ``optimize(ITERS)`` of a fresh graph under ``torch.profiler``
     (device activity only): the device kernels and copies per damped
@@ -908,21 +1002,26 @@ def profile_path(prob, config, torch, label, wall_s, fix=None):
         ba.optimize(ITERS)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    attempts = ba.last_result.nattempts
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+        attempts = ba.last_result.nattempts
+        # the trace can miss a session's last events (see device_ops): an
+        # untimed tail run after a mark takes the loss
+        torch.cuda._sleep(1)
+        ba.optimize(ITERS)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    marks = [i for i, (_a, _b, name) in enumerate(events) if "spin_kernel" in name]
+    if not marks:
+        fail(f"profile ({label}): the trace lost the mark after the run")
+    events = events[:marks[0]]
+    spans = [(a, b) for a, b, _name in events]
     if not spans:
         log(f"profile ({label}): the profiler saw no device activity: not measured")
         return
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:  # the union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = union_us(spans)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for a, b, name in events:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     # the hand-written kernels' share, by the CUDA sources' kernel names
     # ("segsum_": segsum_csr and its zero fill)
@@ -1054,6 +1153,249 @@ def compare_trajectories(chis, chis_ref, label, what="kernel vs plain"):
     log(f"{label}: {what} chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL})")
     if not np.all(rel <= TRAJ_RTOL):
         fail(f"{label}: {what} chi2 trajectories disagree")
+
+
+def structure_diffs(a, b):
+    """The BAStructure fields in which two structures differ (arrays bit
+    for bit)."""
+    import dataclasses
+
+    from cuba_tpu_torch.solver import structure
+
+    def arrays(s):
+        out = {}
+        for f in dataclasses.fields(structure.BAStructure):
+            v = getattr(s, f.name)
+            if isinstance(v, structure.EdgeArrays):
+                for g in ("measurements", "omegas", "pose_idx", "lm_idx"):
+                    out[f"{f.name}.{g}"] = getattr(v, g)
+            elif f.name == "schur_native" and v is not None:
+                out.update({f"schur_native[{k}]": x for k, x in enumerate(v)})
+            else:
+                out[f.name] = v
+        return out
+
+    x, y = arrays(a), arrays(b)
+    return sorted(k for k in set(x) | set(y)
+                  if k not in x or k not in y
+                  or not np.array_equal(np.asarray(x[k]), np.asarray(y[k])))
+
+
+def check_public_api(prob, config, plain_chis, torch, segmm, tmp, card):
+    """Phase 14: the public API at the main path's full width.  Returns the
+    path of the JSON graph it wrote."""
+    import dataclasses
+
+    from cuba_tpu_torch.io import json_io
+    from cuba_tpu_torch.solver import structure
+    from cuba_tpu_torch.solver.engine import LOOP_PHASES, PROFILE_ITEMS
+
+    src = make_graph(prob, config)
+    path = os.path.join(tmp, "kitti00_loop.json")
+    t0 = time.perf_counter()
+    json_io.write_graph(src, path)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ba = json_io.read_graph(path, config)
+    t_read = time.perf_counter() - t0
+    set_huber(ba)
+    log(f"json round trip (kitti00 loop, {os.path.getsize(path) / 1e6:.1f} MB): write "
+        f"{t_write:.4f} s, read {t_read:.4f} s")
+    s_src = structure.build_structure(sorted(src._poses), src._poses, sorted(src._landmarks),
+                                      src._landmarks, src._mono_edges, src._stereo_edges)
+    del src
+
+    # optimize(ITERS, profile=True) from a fresh initialize(), counted
+    segmm.reset_launches()
+    ba.initialize()
+    diffs = structure_diffs(s_src, ba._engine.structure)
+    if diffs:
+        fail(f"the JSON round trip changed the structure: {diffs}")
+    del s_src
+    t0 = time.perf_counter()
+    ba.optimize(ITERS, profile=True)
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter() - t0
+    launches = dict(segmm.LAUNCHES)
+    chis = np.array([s.chi2 for s in ba.batch_statistics()])
+    prof = dict(ba.time_profile())
+    log(f"profiled kitti00: optimize({ITERS}, profile=True) {t_prof:.4f} s, attempts "
+        f"{ba.last_result.nattempts}, final_lambda {ba.last_result.final_lambda:.6e}; "
+        f"chi2 {chis.tolist()}")
+    log(f"profiled kitti00 phases (s): {json.dumps(prof)}")
+    log(f"launches (profiled kitti00): {json.dumps(launches)}")
+    if chis.size == 0 or not np.all(np.isfinite(chis)):
+        fail(f"profiled kitti00: chi2 not finite: {chis.tolist()}")
+    ref = CHI2_FP64_FINAL[("kitti00_scale_loop", ITERS)]
+    rel = abs(chis[-1] - ref) / ref
+    log(f"profiled kitti00 final chi2 {chis[-1]:.2f} vs fp64 record {ref:.2f}: rel {rel:.3e}")
+    if not rel < CHI2_REL_BAND:
+        fail("profiled kitti00 final chi2 is outside the recorded fp64 band")
+    compare_trajectories(chis, plain_chis, "kitti00", "profiled vs plain")
+    if tuple(prof) != PROFILE_ITEMS:
+        fail(f"profiled kitti00: profile keys {list(prof)}")
+    zero = {k for k, v in prof.items() if not v > 0}
+    if zero != {"4: Schur Complement", "5: Symbolic Decomposition"}:
+        fail(f"profiled kitti00: the phases at 0 are {sorted(zero)}, expected 4 and 5")
+    if ba.attributed_phases():
+        fail(f"profiled kitti00: attributed phases {ba.attributed_phases()}")
+    missing = sorted(n for n in expected_kernels(ba._engine) if launches[n] == 0)
+    if missing:
+        fail(f"kernels of the profiled kitti00 run never launched: {missing}")
+
+    # plain runs from the same start, phase marks on and off in turns
+    fused = "optimize (fused device loop)"
+    modes = {"on": dataclasses.replace(config, phase_attribution=True),
+             "off": dataclasses.replace(config, phase_attribution=False)}
+
+    def plain_run(mode):
+        ba.config = modes[mode]
+        ba._state = ba._engine.state
+        ba.optimize(ITERS)
+        torch.cuda.synchronize()
+
+    walls = {"on": [], "off": []}
+    for _ in range(3):
+        for mode in modes:
+            before = dict(ba.time_profile())
+            t0 = time.perf_counter()
+            plain_run(mode)
+            wall = time.perf_counter() - t0
+            after = ba.time_profile()
+            total = after[fused] - before.get(fused, 0.0)
+            parts = {k: after[k] - before[k] for k in LOOP_PHASES}
+            walls[mode].append(total)
+            log(f"plain kitti00, phase marks {mode}: optimize({ITERS}) {total:.4f} s ({wall:.4f} "
+                f"s with the write-back), attempts {ba.last_result.nattempts}; phases (s) "
+                + ", ".join(f"{k} {v:.6f}" for k, v in parts.items()))
+            if mode == "on":
+                if not (abs(sum(parts.values()) - total) <= 1e-6 * total
+                        and all(v > 0 for v in parts.values())):
+                    fail(f"the phase split of a plain run does not sum to its wall {total}")
+            elif any(parts.values()):
+                fail("a plain run with phase_attribution=False added phase times")
+    log(f"plain kitti00 walls ({card}): marks on {walls['on']}, off {walls['off']}")
+    ops = device_ops({mode: lambda mode=mode: plain_run(mode) for mode in modes}, torch)
+    ba.time_profile()
+    for mode, (n_ops, busy) in ops.items():
+        log(f"plain kitti00, phase marks {mode}, under torch.profiler: {n_ops} device kernels "
+            f"and copies over {ba.last_result.nattempts} attempts "
+            f"({n_ops / ba.last_result.nattempts:.1f} per attempt), device busy {busy:.4f} ms")
+    if ops["on"][0] != ops["off"][0]:
+        fail(f"the phase marks changed the device operations: {ops}")
+
+    # checkpoint: save after optimize(5), restore into a fresh graph of the same ids
+    ba.optimize(5)
+    ck = os.path.join(tmp, "kitti00_loop.npz")
+    ba.save_checkpoint(ck)
+    saved = [(s.iteration, s.chi2) for s in ba.batch_statistics()]
+    del ba
+    fresh = make_graph(prob, config)
+    fresh.load_checkpoint(ck)
+    if [(s.iteration, s.chi2) for s in fresh.batch_statistics()] != saved:
+        fail("load_checkpoint did not restore the batch statistics")
+    fresh.initialize()
+    data = np.load(ck)
+    st = fresh._engine.state
+    for key, ids, table, vertex, idx in (
+            ("qs", "pose_ids", st.qs, fresh.pose_vertex, "iP"),
+            ("ts", "pose_ids", st.ts, fresh.pose_vertex, "iP"),
+            ("Xws", "lm_ids", st.Xws, fresh.landmark_vertex, "iL")):
+        vs = [vertex(int(i)) for i in data[ids]]
+        keep = np.array([bool(v.edges) for v in vs])  # the structure holds these
+        rows = torch.tensor([getattr(v, idx) for v, k in zip(vs, keep) if k],
+                            device=table.device)
+        want = torch.from_numpy(data[key][keep].astype(np.float32)).to(table.device)
+        if not torch.equal(table[rows], want):
+            fail(f"the restored engine state {key} differs from the checkpoint's")
+    fresh.optimize(5)
+    rchis = np.array([s.chi2 for s in fresh.batch_statistics()])
+    log(f"checkpoint: saved chi2 {[c for _, c in saved]}, resumed optimize(5) chi2 "
+        f"{rchis.tolist()}")
+    if not (rchis.size and np.all(np.isfinite(rchis)) and np.all(np.diff(rchis) <= 0)
+            and rchis[-1] <= saved[-1][1]):
+        fail("the resumed run rose above the checkpoint's last chi2")
+
+    # chi_squared on the card, queried after one remove_edge
+    edges = list(fresh._mono_edges) + list(fresh._stereo_edges)
+    want = fresh._engine.chi_squares(fresh._state)
+    fresh.remove_edge(edges[0])
+    got = np.array([fresh.chi_squared(e) for e in edges])
+    log(f"chi_squared: {got.size} edges, max {got.max():.4f}, edge 1 {got[1]!r} (engine "
+        f"{want[1]!r}) after remove_edge of edge 0")
+    if not (got.size == want.size and np.all(np.isfinite(got)) and np.all(got >= 0)
+            and np.array_equal(got, want)):
+        fail("chi_squared differs from the engine's per-edge chi2 in the caller's order")
+    return path
+
+
+def run_sample(name, args, label):
+    """A sample as a subprocess on the card; its printed chi2 lines must be
+    finite and fall.  Returns them."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"cuba_tpu_torch.samples.{name}", *args],
+                       cwd=HERE, capture_output=True, text=True, timeout=600)
+    log(f"sample {label}: exit {r.returncode} in {time.perf_counter() - t0:.2f} s")
+    for line in r.stdout.splitlines():
+        log(f"  | {line}")
+    if r.returncode != 0:
+        fail(f"sample {label} failed:\n{r.stderr[-4000:]}")
+    lines = r.stdout.splitlines()
+    chis = [float(x.split("=")[1]) for x in lines if x.startswith("iter ") and "chi2 =" in x]
+    if not chis:  # the comparison's table: "i | port | oracle | rel"
+        chis = [float(x.split("|")[1]) for x in lines if x.strip()[:1].isdigit() and "|" in x]
+    chis = np.array(chis)
+    if chis.size < 2 or not np.all(np.isfinite(chis)) or not np.all(np.diff(chis) <= 0):
+        fail(f"sample {label}: chi2 lines not finite and falling: {chis.tolist()}")
+    return chis
+
+
+def check_bal(path, config, torch, segmm, card):
+    """Phase 15's BAL path.  Returns (kernel entries, launches, attempts)."""
+    import dataclasses
+
+    bba, _chis, _ti, bt_opt0 = run_path(path, config, torch, "bal warm-up")
+    engine = bba._engine
+    log(f"bal: {engine.num_p} free cameras, {engine.num_l} free points, PB "
+        f"{engine.pad_blocks}, solver {engine.solver}, route {engine.path}")
+    if (engine.solver, engine.path) != ("dense_cholesky", "v2"):
+        fail(f"bal: solver='auto' took {engine.solver!r} on {engine.path!r}, "
+             "expected dense_cholesky on v2")
+    kern = check_dense_kernels(engine, torch, segmm, "bal")
+    del bba, engine
+    bba, bchis, bt_opt, launches = counted_run(path, config, torch, segmm, "bal path", "v2")
+    attempts = bba.last_result.nattempts
+    del bba
+    if not (np.all(np.diff(bchis) <= 0) and bchis[-1] < 0.6 * bchis[0]):
+        fail(f"bal: no real descent: {bchis.tolist()}")
+    cpu = dataclasses.replace(config, dtype=torch.float64, device="cpu")
+    _b, chis64, _ti, t64 = run_path(path, cpu, torch, "bal fp64 cpu")
+    del _b
+    rel = abs(bchis[-1] - chis64[-1]) / chis64[-1]
+    log(f"bal final chi2 {bchis[-1]:.4f} vs the port's fp64 CPU run {chis64[-1]:.4f}: rel "
+        f"{rel:.3e} (band {CHI2_REL_BAND}); fp64 CPU optimize({ITERS}) {t64:.4f} s")
+    if not rel < CHI2_REL_BAND:
+        fail("bal final chi2 is outside the band of the fp64 CPU run")
+    profile_path(path, config, torch, "bal path", bt_opt)
+    log(f"bal walls ({card}): optimize({ITERS}) {bt_opt} s (cold {bt_opt0} s)")
+    return kern, launches, attempts
+
+
+def check_oracle(torch):
+    """sample_comparison_with_reference's graph in process: the card's fp32
+    trajectory against the port's fp64 oracle, TRAJ_RTOL per iteration."""
+    from cuba_tpu_torch import BAConfig
+    from cuba_tpu_torch.io import synthetic
+    from cuba_tpu_torch.reference.solver import RefProblem, ReferenceSolver
+
+    ba = make_graph(synthetic.generate(num_poses=20, num_landmarks=300, seed=0),
+                    BAConfig(dtype=torch.float32, device="cuda"))
+    ba.initialize()
+    ref = ReferenceSolver(RefProblem.from_structure(ba._engine.structure, ba._kernels))
+    ba.optimize(ITERS)
+    chis = np.array([s.chi2 for s in ba.batch_statistics()])
+    compare_trajectories(chis, np.array(ref.optimize(ITERS)), "20 x 300",
+                         "card fp32 vs fp64 oracle")
 
 
 def main() -> None:
@@ -1375,6 +1717,21 @@ def main() -> None:
             fail(f"kitti07 {label}: route {fba._engine.path!r}, chi2 {fchis.tolist()}")
         del fba
 
+    # phases 14-15: the rest of the public API, the BAL path and the samples
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        json_path = check_public_api(kprob, kconfig, kchis, torch, segmm, tmp, card)
+        log(f"phase 14: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        bal_path = os.path.join(HERE, "data", "bal_ladybug_scale.txt.gz")
+        kern_bal, launches_bal, attempts["bal"] = check_bal(bal_path, kconfig, torch, segmm,
+                                                            card)
+        check_oracle(torch)
+        run_sample("sample_ba_from_file", [json_path, "--profiled"], "ba_from_file (kitti00)")
+        run_sample("sample_bal", [bal_path], "bal (ladybug)")
+        run_sample("sample_comparison_with_reference", [], "comparison_with_reference")
+        log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+
     entries = []
     for path, kern, launches in (("pcg", kern_pcg, launches_pcg),
                                  ("band", kern_band, launches_band),
@@ -1382,7 +1739,8 @@ def main() -> None:
                                  ("dense-kitti00", kern_dense00, launches_dense00),
                                  ("v1", kern_v1, launches_v1),
                                  ("band_lr", kern_lr, launches_lr),
-                                 ("aos", kern_aos, launches_aos)):
+                                 ("aos", kern_aos, launches_aos),
+                                 ("bal", kern_bal, launches_bal)):
         for label, e in kern.items():
             name, _, site = label.partition(":")
             entries.append({"name": name, "path": path, **({"site": site} if site else {}),

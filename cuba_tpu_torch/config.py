@@ -47,6 +47,13 @@ class BAConfig:
         dense solve (none in fp64; the dense solve on the card adds one).
       pose_block_pad: pad the reduced system to a multiple of this many
         pose blocks (a positive multiple of 128).
+      phase_attribution: populate the reference's 8-phase TimeProfile from
+        normal ``optimize()`` runs.  The loop marks each phase's boundaries
+        as it goes (CUDA events on the card's current stream, with no
+        extra synchronisation; the host clock on the CPU); the first
+        ``time_profile()`` after a run reads them and scales the five loop
+        phases to that run's measured wall.  Exact per-phase host timing
+        is still available via ``optimize(n, profile=True)``.
     """
 
     dtype: torch.dtype = torch.float32
@@ -63,6 +70,7 @@ class BAConfig:
     pcg_tol: float = 1e-10
     refinement_steps: int = 1
     pose_block_pad: int = 128
+    phase_attribution: bool = True
 
     def resolve_device(self) -> torch.device:
         return torch.device(self.device)

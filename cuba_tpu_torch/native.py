@@ -1,8 +1,9 @@
-"""The C++ symbolic pass, built from ``cuba_tpu/native/symbolic.cpp``.
+"""The C++ symbolic pass, built from the port's ``csrc/symbolic.cpp``.
 
 ``cuba_tpu``'s binding (``cuba_tpu/native/__init__.py``) cannot be imported
-here: importing anything under ``cuba_tpu`` imports JAX.  So the port reads
-the same C++ source by path, compiles it with g++ into its own build
+here: importing anything under ``cuba_tpu`` imports JAX.  So the port keeps
+its own copy of that C++ source (byte-equal to ``cuba_tpu``'s, which
+``tests/test_torch_api.py`` checks), compiles it with g++ into its own build
 directory at first use and binds the entry points the port needs: the
 symbolic pass (Hpl slots, the Schur co-observation pattern, the
 multiplication triplets and the fused Schur chunk plan), the per-tile
@@ -22,7 +23,7 @@ from typing import Optional
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(os.path.dirname(_HERE), "cuba_tpu", "native", "symbolic.cpp")
+SRC = os.path.join(_HERE, "csrc", "symbolic.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # the ABI version is in the file name: dlopen caches by path, so a library
 # of another ABI can never be mapped under this name by mistake

@@ -21,11 +21,14 @@ attempt), plus once per ``optimize`` for the chi² trajectory.  The control
 law is ``cuba_tpu``'s (``_make_lm_run``): lambda0 = tau * max diag,
 attenuation clamped to [1/3, 2/3], nu doubling, x8 escalation when the
 solve fails, and the accepted trial's residual packs carried into the next
-build.
+build.  Given a :class:`PhaseMarks`, ``optimize`` marks the boundaries of
+its five loop phases as it goes.  ``optimize_profiled`` is ``cuba_tpu``'s
+host-stepped driver with its own control law and exact per-phase timing.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -42,6 +45,22 @@ from cuba_tpu_torch.solver.structure import BAStructure
 _DENSE_MAX_PB = 4096
 _SOLVERS = ("pcg", "band_cr", "band_lr", "dense_cholesky")
 
+# the reference's 8-phase TimeProfile (cuba_tpu engine.PROFILE_ITEMS)
+PROFILE_ITEMS = (
+    "0: Initialize Optimizer",
+    "1: Build Structure",
+    "2: Compute Error",
+    "3: Build System",
+    "4: Schur Complement",
+    "5: Symbolic Decomposition",
+    "6: Numerical Decomposition",
+    "7: Update Solution",
+)
+# the five phases of the LM loop; "5: Symbolic Decomposition" stays 0 (no
+# solver here has a symbolic pass of its own at optimize time)
+LOOP_PHASES = tuple(PROFILE_ITEMS[i] for i in (2, 3, 4, 6, 7))
+_ERROR, _BUILD, _SCHUR, _DECOMP, _UPDATE = LOOP_PHASES
+
 
 class State(NamedTuple):
     qs: torch.Tensor  # [total_p, 4]
@@ -56,6 +75,43 @@ class LMResult(NamedTuple):
     nattempts: int  # damped solves (inner trials)
     cg_steps: int  # CG steps over all attempts (0 on the band path)
     host_reads: int  # device-to-host reads the loop made
+    final_lambda: float  # the damping at exit, in the compute dtype
+
+
+def _no_mark(_phase) -> None:
+    pass
+
+
+class PhaseMarks:
+    """The phase boundaries of one ``optimize``: each :meth:`mark` closes
+    the span since the previous one and charges it to a phase of
+    :data:`LOOP_PHASES` (or to none).  On the card a mark is a CUDA event
+    recorded on the current stream, with no synchronisation; on the CPU,
+    where torch runs synchronously, the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+        self.mark(None)
+
+    def mark(self, phase: Optional[str]) -> None:
+        if self.cuda:
+            t = torch.cuda.Event(enable_timing=True)
+            t.record()
+        else:
+            t = time.perf_counter()
+        self.marks.append((phase, t))
+
+    def seconds(self) -> dict:
+        """{phase: seconds} over :data:`LOOP_PHASES`; waits for the last
+        event on the card."""
+        out = dict.fromkeys(LOOP_PHASES, 0.0)
+        if self.cuda:
+            self.marks[-1][1].synchronize()
+        for (_, a), (phase, b) in zip(self.marks, self.marks[1:]):
+            if phase is not None:
+                out[phase] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
+        return out
 
 
 def _set_exact_fp32() -> None:
@@ -221,16 +277,19 @@ class BlockSolverEngine:
         Vob = band_cr.ob_from_dense(Dm, self.lr["obr"], self.lr["obc"])
         return band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev, max(refine, 1))
 
-    def _solve(self, sys, lam):
+    def _solve(self, sys, lam, mark=_no_mark):
         """One damped trial solve.  Returns (xp [P, 6], xl [L, 3], ok,
-        cg_steps, host_reads)."""
+        cg_steps, host_reads).  ``mark`` closes the Schur complement's
+        phase (the factors and the formation) and the decomposition's (the
+        reduced solve and the back-substitution)."""
         if not self.use_rows:
-            return self._solve_aos(sys, lam)
+            return self._solve_aos(sys, lam, mark)
         HppT, HllT, HplT = sys
         plan, rc, P = self.plan, self.rc, self.num_p
         iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
                                                  self.num_l, plan, rc)
         if self.solver == "pcg":
+            mark(_SCHUR)
             xT, ok, k = rows.pcg_solve_rows(
                 HppT, HplT, W, lam, bscT, P, self.num_l, plan, rc,
                 self.config.pcg_max_iterations, self.config.pcg_tol,
@@ -245,17 +304,21 @@ class BlockSolverEngine:
                 else:
                     D, U = band_cr.from_dense(rows.schur_dense(HppT, W, HplT, lam, P, plan, rc),
                                               self.band_m)
+                mark(_SCHUR)
                 x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
             elif self.solver == "band_lr":
                 if plan.v2:
                     D, U, Vob = rows.schur_band(HppT, W, HplT, lam, P, plan, rc, with_ob=True)
+                    mark(_SCHUR)
                     x, ok, reads = band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev,
                                                              max(refine, 1))
                 else:
-                    x, ok, reads = self._woodbury(
-                        rows.schur_dense(HppT, W, HplT, lam, P, plan, rc), rhs, refine)
+                    Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
+                    mark(_SCHUR)
+                    x, ok, reads = self._woodbury(Dm, rhs, refine)
             else:
                 Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
+                mark(_SCHUR)
                 # the blocked trisolve kernels on the card (cuba_tpu takes
                 # them on the TPU), with one extra refinement sweep for the
                 # inverted-diagonal-block substitution's larger residual, as
@@ -267,12 +330,13 @@ class BlockSolverEngine:
                                                              use_kernels=use_ts)
             xp, k = x[:6 * P].reshape(P, 6), 0
         xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
+        mark(_DECOMP)
         return xp, xl, ok, k, reads
 
-    def _solve_aos(self, sys, lam):
+    def _solve_aos(self, sys, lam, mark=_no_mark):
         """The AoS path's trial solve (cuba_tpu's non-MXU branch): the Schur
         reduction with any of the four solvers, or the diagonal pose-only
-        or landmark-only solve."""
+        or landmark-only solve (all of it the decomposition's phase)."""
         Hpp, bp, Hll, bl, Hpl = sys
         P, L, dt = self.num_p, self.num_l, self.dtype
         if P and L:
@@ -281,12 +345,14 @@ class BlockSolverEngine:
                                                    self.sc, P)
             k = 0
             if self.solver == "pcg":
+                mark(_SCHUR)
                 op = pcg.SchurOperator(Hpp_d, Hpl, W, self.sc, P, L)
                 xp, ok, k = pcg.pcg_solve(op, bsc, self.config.pcg_max_iterations,
                                           self.config.pcg_tol)
                 reads = k + 1
             else:
                 Dm = schur.assemble_dense(Hpp_d, W, Hpl, self.sc, P, self.pad_blocks)
+                mark(_SCHUR)
                 rhs = self._reduced_rhs(bsc)
                 refine = self._refine()
                 if self.solver == "band_cr":
@@ -298,11 +364,14 @@ class BlockSolverEngine:
                     x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine)
                 xp = x[:6 * P].reshape(P, 6)
             xl = schur.back_substitute(invHll, bl, Hpl, xp, self.sc, L)
+            mark(_DECOMP)
             return xp, xl, ok, k, reads
         if P:
             xp = smallmat.solve_sym6x6(assembly.damp(Hpp, lam), bp)
+            mark(_DECOMP)
             return xp, bp.new_zeros((0, 3)), torch.isfinite(xp).all(), 0, 0
         xl = smallmat.solve_sym3x3(assembly.damp(Hll, lam), bl)
+        mark(_DECOMP)
         return bl.new_zeros((0, 6)), xl, torch.isfinite(xl).all(), 0, 0
 
     def _apply_update(self, state: State, xp, xl) -> State:
@@ -335,10 +404,17 @@ class BlockSolverEngine:
 
     # -- the LM loop -----------------------------------------------------
 
-    def optimize(self, state: State, niterations: int) -> LMResult:
+    def optimize(self, state: State, niterations: int,
+                 marks: Optional[PhaseMarks] = None) -> LMResult:
+        """The LM loop; with ``marks``, the boundaries of its phases (as
+        ``cuba_tpu``'s ``attribute_phases`` draws them: both residual
+        passes; the build with its right-hand side and the first damping;
+        the factors and the Schur formation; the reduced solve and the
+        back-substitution; the update and the accept selects)."""
         cfg, dt = self.config, self.dtype
         maxq = cfg.max_inner_iterations
         st = self.state if state is None else state
+        mark = _no_mark if marks is None else marks.mark
 
         def attenuation(rho):
             a = 1.0 - (2.0 * rho - 1.0) ** 3
@@ -346,6 +422,7 @@ class BlockSolverEngine:
 
         pack_m, pack_s, F0 = self._residuals_and_chi(st)
         F = F0.to(dt)
+        mark(_ERROR)
         lam = torch.zeros((), dtype=dt, device=self.device)
         nu = torch.full((), 2.0, dtype=dt, device=self.device)
         minus_one = torch.full((), -1.0, dtype=dt, device=self.device)
@@ -356,14 +433,17 @@ class BlockSolverEngine:
             bp, bl = self._rhs_of(sys)
             if it == 0:
                 lam = cfg.tau * self._max_diag(sys).to(dt)
+            mark(_BUILD)
             q = 0
             while True:
-                xp, xl, ok, k, solve_reads = self._solve(sys, lam)
+                xp, xl, ok, k, solve_reads = self._solve(sys, lam, mark)
                 cg += k
                 reads += solve_reads
                 trial = self._apply_update(st, xp, xl)
+                mark(_UPDATE)
                 tm, ts_, F0t = self._residuals_and_chi(trial)
                 Fhat = F0t.to(dt)
+                mark(_ERROR)
                 scale = self._scale(xp, xl, bp, bl, lam) + cfg.scale_eps
                 rho = torch.where(ok, (F - Fhat) / scale, minus_one)
                 accept = rho > 0
@@ -378,9 +458,11 @@ class BlockSolverEngine:
                 pack_s = None if pack_s is None else tuple(
                     torch.where(accept, a, b) for a, b in zip(ts_, pack_s))
                 F = torch.where(accept, Fhat, F)
+                mark(_UPDATE)
                 q += 1
                 rho_h, lam_finite = torch.stack(
                     [rho, torch.isfinite(lam).to(dt)]).tolist()
+                mark(None)
                 reads += 1
                 if not (q < maxq and rho_h < 0):
                     break
@@ -391,7 +473,91 @@ class BlockSolverEngine:
         chis_h = torch.stack(chis).cpu().numpy() if chis else np.zeros(0)
         reads += 1
         return LMResult(state=st, chis=chis_h, niters=len(chis), nattempts=natt,
-                        cg_steps=cg, host_reads=reads)
+                        cg_steps=cg, host_reads=reads, final_lambda=float(lam))
+
+    def optimize_profiled(self, state: State, niterations: int):
+        """``cuba_tpu``'s host-stepped LM driver with per-phase timers
+        (``engine.optimize_profiled``): each phase ends in a synchronisation
+        of the card before the host clock is read.  Returns (LMResult,
+        {PROFILE_ITEMS key: seconds}).
+
+        Its control law is that driver's, not :meth:`optimize`'s: a failed
+        or rejected attempt multiplies lambda by nu (no
+        ``numerical_escalation``), the accepted attempt does not count in q,
+        and the residuals are recomputed at the top of every outer
+        iteration.  The whole trial solve, Schur formation included, is
+        charged to "6: Numerical Decomposition", so "4: Schur Complement"
+        and "5: Symbolic Decomposition" stay 0."""
+        cfg, dt = self.config, self.dtype
+        st = self.state if state is None else state
+        prof = dict.fromkeys(PROFILE_ITEMS, 0.0)
+        cuda = self.device.type == "cuda"
+
+        def tick():
+            if cuda:
+                torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def lam_dev(lam):
+            return torch.tensor(lam, dtype=dt, device=self.device)
+
+        chis = []
+        lam, nu = 0.0, 2.0
+        natt = cg = reads = 0
+        for it in range(niterations):
+            t0 = tick()
+            pack_m, pack_s, F_dev = self._residuals_and_chi(st)
+            F = float(F_dev)
+            reads += 1
+            prof[_ERROR] += tick() - t0
+
+            t0 = tick()
+            sys = self._build(pack_m, pack_s, st)
+            bp, bl = self._rhs_of(sys)
+            prof[_BUILD] += tick() - t0
+
+            if it == 0:
+                lam = cfg.tau * float(self._max_diag(sys))
+                reads += 1
+
+            q, rho = 0, -1.0
+            while q < cfg.max_inner_iterations and rho < 0:
+                t0 = tick()
+                xp, xl, ok, k, solve_reads = self._solve(sys, lam_dev(lam))
+                cg += k
+                reads += solve_reads
+                prof[_DECOMP] += tick() - t0
+
+                t0 = tick()
+                trial = self._apply_update(st, xp, xl)
+                prof[_UPDATE] += tick() - t0
+
+                t0 = tick()
+                Fhat = float(self._residuals_and_chi(trial)[2])
+                prof[_ERROR] += tick() - t0
+
+                scale = float(self._scale(xp, xl, bp, bl, lam_dev(lam))) + cfg.scale_eps
+                rho = (F - Fhat) / scale if bool(ok) else -1.0
+                reads += 3
+                natt += 1
+                if rho > 0:
+                    a = 1.0 - (2.0 * rho - 1.0) ** 3
+                    lam *= float(np.clip(a, cfg.attenuation_min, cfg.attenuation_max))
+                    nu = 2.0
+                    F = Fhat
+                    st = trial
+                    break
+                lam *= nu
+                nu *= 2.0
+                q += 1
+
+            chis.append(F)
+            if q == cfg.max_inner_iterations or rho <= 0 or not np.isfinite(lam):
+                break
+        result = LMResult(state=st, chis=np.array(chis), niters=len(chis), nattempts=natt,
+                          cg_steps=cg, host_reads=reads,
+                          final_lambda=float(lam_dev(lam)))
+        return result, prof
 
     def chi_squares(self, state: State) -> np.ndarray:
         """Per-edge unrobustified chi² in the caller's edge insertion order

@@ -708,3 +708,78 @@ def test_aos_slice_on_card_matches_plain(cuda, monkeypatch, fix):
     _against_plain(synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
                    BAConfig(dtype=torch.float32, device="cuda"), "aos", ("accum_segsum",),
                    edit=edit)
+
+
+def _api_graph(config):
+    prob = synthetic.generate(num_poses=40, num_landmarks=600, seed=4)
+    ba = synthetic.build_graph(prob, config)
+    ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(5.991), EdgeType.MONOCULAR)
+    ba.set_robust_kernels(RobustKernelType.HUBER, np.sqrt(7.815), EdgeType.STEREO)
+    return ba
+
+
+def test_profiled_run_on_card_matches_plain(cuda):
+    """optimize(n, profile=True) on the card: the plain loop's trajectory
+    to 5e-3 per iteration, every kernel of its path launched, phases 2, 3,
+    6 and 7 timed and 4 and 5 at 0."""
+    plain = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    plain.initialize()
+    plain.optimize(6)
+    segmm.reset_launches()
+    ba = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    ba.initialize()
+    ba.optimize(6, profile=True)
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum", "schur_fused"))
+    got = np.array([s.chi2 for s in ba.batch_statistics()])
+    want = np.array([s.chi2 for s in plain.batch_statistics()])
+    np.testing.assert_allclose(got, want, rtol=5e-3)
+    prof = ba.time_profile()
+    assert {k for k, v in prof.items() if v == 0.0} == {"4: Schur Complement",
+                                                        "5: Symbolic Decomposition"}
+    assert ba.attributed_phases() == set()
+
+
+def test_event_split_sums_to_the_wall_on_card(cuda):
+    ba = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    ba.initialize()
+    ba.optimize(4)
+    marks = ba._pending_attr[0][1]
+    assert marks.cuda and all(isinstance(t, torch.cuda.Event) for _, t in marks.marks)
+    prof = ba.time_profile()
+    phases = ("2: Compute Error", "3: Build System", "4: Schur Complement",
+              "6: Numerical Decomposition", "7: Update Solution")
+    assert all(prof[k] > 0 for k in phases)
+    total = prof["optimize (fused device loop)"]
+    assert abs(sum(prof[k] for k in phases) - total) <= 1e-6 * total
+    assert ba.attributed_phases() == set(phases)
+
+
+def test_chi_squared_after_an_edit_on_card(cuda):
+    ba = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    ba.initialize()
+    edges = list(ba._mono_edges) + list(ba._stereo_edges)
+    assert ba.chi_squared(edges[1]) == 0.0
+    ba.optimize(4)
+    want = ba._engine.chi_squares(ba._state)
+    ba.remove_edge(edges[0])
+    got = np.array([ba.chi_squared(e) for e in edges])
+    assert np.all(np.isfinite(got)) and np.all(got >= 0)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    ba = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    ba.initialize()
+    ba.optimize(4)
+    path = str(tmp_path / "ckpt.npz")
+    ba.save_checkpoint(path)
+    fresh = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
+    fresh.load_checkpoint(path)
+    assert ([(s.iteration, s.chi2) for s in fresh.batch_statistics()]
+            == [(s.iteration, s.chi2) for s in ba.batch_statistics()])
+    fresh.initialize()
+    for a, b in zip(fresh._engine.state, ba._state):
+        assert torch.equal(a, b)
+    fresh.optimize(3)
+    chis = np.array([s.chi2 for s in fresh.batch_statistics()])
+    assert np.all(np.isfinite(chis)) and chis[-1] <= ba.batch_statistics()[-1].chi2

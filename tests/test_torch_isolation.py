@@ -77,6 +77,79 @@ def test_aos_path_runs_without_jax():
     assert "isolated" in r.stdout
 
 
+_API_DRIVE = """
+import contextlib, io, os, shutil, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from cuba_tpu_torch import BAConfig, native
+from cuba_tpu_torch.io import bal, json_io, synthetic
+from cuba_tpu_torch.reference.solver import RefProblem, ReferenceSolver
+from cuba_tpu_torch.samples import sample_bal
+from cuba_tpu_torch.solver.engine import PROFILE_ITEMS
+cfg = BAConfig(dtype=torch.float64, device="cpu")
+tmp = tempfile.mkdtemp()
+src = synthetic.build_graph(synthetic.generate(num_poses=6, num_landmarks=50, seed=2), cfg)
+json_io.write_graph(src, os.path.join(tmp, "g.json"))
+ba = json_io.read_graph(os.path.join(tmp, "g.json"), cfg)
+ba.initialize()
+ref = ReferenceSolver(RefProblem.from_structure(ba._engine.structure, ba._kernels))
+ba.optimize(3, profile=True)
+chis = [s.chi2 for s in ba.batch_statistics()]
+ref_chis = ref.optimize(3)
+assert np.allclose(chis, ref_chis, rtol=1e-6), (chis, ref_chis)
+assert tuple(ba.time_profile()) == PROFILE_ITEMS and ba.time_profile()["6: Numerical Decomposition"] > 0
+ba.save_checkpoint(os.path.join(tmp, "c.npz"))
+again = json_io.read_graph(os.path.join(tmp, "g.json"), cfg)
+again.load_checkpoint(os.path.join(tmp, "c.npz"))
+assert [s.chi2 for s in again.batch_statistics()] == chis
+assert all(np.array_equal(again.pose_vertex(i).q, ba.pose_vertex(i).q) for i in range(6))
+toy = os.path.join(%(repo)r, "data", "bal_toy.txt.gz")
+b = bal.read_bal(toy, cfg)
+b.initialize()
+b.optimize(2)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    sample_bal.main([toy, "--iters", "2", "--cpu"])
+assert "reprojection RMSE" in out.getvalue(), out.getvalue()
+assert os.path.dirname(native.SRC) == os.path.join(%(repo)r, "cuba_tpu_torch", "csrc")
+assert native.backend() == "c++" or shutil.which("g++") is None
+leaked = sorted(m for m in sys.modules
+                if m in ("jax", "cuba_tpu") or m.startswith(("jax.", "cuba_tpu.")))
+assert not leaked, leaked
+print("isolated", chis[-1])
+""" % {"repo": REPO}
+
+
+def test_public_api_runs_without_jax():
+    """JSON and BAL readers, the oracle's copy, the profiled loop, the time
+    profile, a checkpoint round trip and a sample, in a process without
+    JAX, with the symbolic pass built from the port's own source."""
+    r = _python(_API_DRIVE, REPO)
+    assert r.returncode == 0, r.stderr
+    assert "isolated" in r.stdout
+
+
+def test_port_opens_and_builds_nothing_of_cuba_tpu():
+    """No module of the port names a path under ``cuba_tpu/``: a quoted
+    ``"cuba_tpu"`` path component or a ``"cuba_tpu/..."`` string."""
+    import re
+
+    from cuba_tpu_torch import native
+
+    pkg = os.path.join(REPO, "cuba_tpu_torch")
+    assert os.path.commonpath([native.SRC, pkg]) == pkg
+    assert os.path.commonpath([native.BUILD_DIR, pkg]) == pkg
+    for name in cudalib.SOURCES.values():
+        assert os.path.commonpath([name, pkg]) == pkg
+    pattern = re.compile(r"[\"']cuba_tpu[\"'/]")
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith((".py", ".cu")):
+                text = open(os.path.join(root, f)).read()
+                assert not pattern.search(text), os.path.join(root, f)
+
+
 def test_sources_import_no_jax():
     pkg = os.path.join(REPO, "cuba_tpu_torch")
     seen = set()
@@ -90,7 +163,9 @@ def test_sources_import_no_jax():
                     "from cuba_tpu import", "torch.compile", "import bench", "from bench"):
             assert bad not in text, (path, bad)
     assert {"assembly.py", "schur.py", "pcg.py", "projection.py", "jacobians.py",
-            "smallmat.py", "rows.py", "band_cr.py", "chip_smoke.py"} <= seen
+            "smallmat.py", "rows.py", "band_cr.py", "chip_smoke.py", "json_io.py", "bal.py",
+            "solver.py", "sample_ba_from_file.py", "sample_bal.py",
+            "sample_comparison_with_reference.py"} <= seen
 
 
 def test_kernel_source_and_binding_import_without_nvcc():
