@@ -134,6 +134,27 @@ Phases (any failure exits non-zero, before the result line):
    ``--profiled``, ``sample_bal`` on the Ladybug file,
    ``sample_comparison_with_reference`` at its defaults): each must exit 0
    with finite, falling chi² lines.
+16. fp64 on the card (``BAConfig(dtype=float64, device="cuda")``): the
+   fp64 builds of kernels 1-10 (entries ``cuba_<name>_f64`` of
+   ``csrc/segmm.cu``) and, in the dense solve, ``cholesky_ex`` +
+   ``solve_triangular`` (the ``trisolve.cu`` kernels are fp32 only, as
+   ``cuba_tpu``'s are).  Phase 5's fp32 trajectory is logged against the
+   recorded fp64 one (``CHI2_FP64_TRAJECTORY``, copied from
+   ``docs/_parity_kitti00_fp64.json``; not gated).  Then, for each path, a
+   warm-up run on whose engine every fp64 kernel of the path is held to its
+   fp64 plain version at its call sites (gathers, placements and the
+   transpose bit for bit, sums within 1e-13 of each output's sum of
+   |terms|, a second launch bit for bit; timed as in phase 2), and a
+   counted run in which every launch must be an fp64 one
+   (``LAUNCHES_F64`` equal to ``LAUNCHES``): the kitti00 loop (``auto`` ->
+   ``band_cr`` m = 22 on v2, kernels 1, 3-8), kitti07 (``dense_cholesky``
+   on v2, kernels 2-7 and 9) and the kitti00 odometry graph with the v2
+   gate closed (v1, ``band_cr``, kernels 1-7 and 10), each ``optimize(10)``
+   within 1e-6 of its recorded fp64 trajectory at every iteration, each
+   profiled; the three-chord graph (AoS, kernel 6) and pcg4096 (rows +
+   PCG) at ``optimize(3)``, each within 1e-8 per iteration of the same run
+   with the plain versions on the card; and ``sample_ba_from_file
+   --synthetic --fp64`` as a subprocess on the card.
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
@@ -142,7 +163,8 @@ the same function where there is one (``index_select`` for the gathers,
 ``extract_diag_blocks``, ``solve_triangular`` for the sweeps, ``mv`` for the
 matvec) and computes the kernel's bound on this card: the larger of the
 bytes it must move (each input read once, each output written once, for
-this run's data) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s.
+this run's data) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s
+(its fp64 ones over 34 TFLOP/s).
 
 After each path's counted run one more ``optimize(10)`` of a fresh graph
 runs under ``torch.profiler`` (device activity only) and logs the device
@@ -153,7 +175,8 @@ The line before the last is a JSON object with one entry per kernel and
 path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
 ``dense`` from phases 8-9 at kitti07, ``dense-kitti00`` from phase 9's
 kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13, ``bal``
-from phase 15;
+from phase 15, ``band-fp64``, ``dense-fp64``, ``v1-fp64``, ``aos-fp64`` and
+``pcg-fp64`` from phase 16, each entry with its ``dtype``;
 ``"site"`` names a second call site of one kernel).  ``launches`` is the
 kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
@@ -198,14 +221,42 @@ CHI2_FP64_FINAL = {
     ("kitti07_scale", 10): 148331.12,
 }
 CHI2_REL_BAND = 5e-3
+# the same records' chi² after each of the 10 iterations
+# (docs/_parity_kitti00_fp64.json, cuba_tpu in fp64), which phase 16's fp64
+# runs on the card must meet per iteration to CHI2_FP64_RTOL
+CHI2_FP64_TRAJECTORY = {
+    "kitti00_scale_loop": (
+        4785262.696139738, 1293215.5800415375, 1029946.8585131207, 992869.8939932929,
+        965980.4329075422, 946523.9796933774, 934647.7569399917, 928643.1061359957,
+        926285.2779947994, 925601.0501801923,
+    ),
+    "kitti00_scale": (
+        4713347.908070361, 1281806.3048493601, 1027507.450415333, 991016.8415941017,
+        964332.3851512186, 944920.3122008743, 933045.9983509793, 927103.0491380619,
+        924837.1379081398, 924193.9967762125,
+    ),
+    "kitti07_scale": (
+        804702.4119413802, 210405.22378571687, 167563.04590730136, 161763.49863762167,
+        156998.98808696453, 153154.52579939592, 150556.30578664228, 149121.04074117038,
+        148518.97349157964, 148331.11946796652,
+    ),
+}
+CHI2_FP64_RTOL = 1e-6
+# phase 16's shorter fp64 runs (AoS, PCG) against the same runs with the
+# plain versions on the card, per iteration
+FP64_PLAIN_RTOL = 1e-8
+FP64_SHORT_ITERS = 3
 # one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): device
-# memory rate and fp32 rate outside the tensor cores, per millisecond
+# memory rate and fp32 and fp64 rates outside the tensor cores, per
+# millisecond
 HBM_BYTES_PER_MS = 3.35e9
 FP32_FLOPS_PER_MS = 67e9
+FP64_FLOPS_PER_MS = 34e9
 REPEATS = 25
 PROFILE_TRIES = 3  # profiler sessions interleaved_times may take to split its rounds
 FLUSH_BYTES = 128 << 20  # read before every cold call: 2.5x the H100's 50 MB L2
 SEGSUM_RTOL = 1e-5
+SEGSUM_RTOL_F64 = 1e-13  # the same bound for the fp64 builds (phase 16)
 # the blocked sweeps against their plain versions: each entry within this
 # share of the largest |entry|.  Both sum in exact fp32 in other orders
 # (warp butterflies against cuBLAS), and a rounding difference in one
@@ -268,6 +319,16 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_STAMP = [time.perf_counter()]
+
+
+def stamp(what: str) -> None:
+    """Log the seconds since the previous stamp (or the start)."""
+    now = time.perf_counter()
+    log(f"{what}: {now - _STAMP[0]:.2f} s")
+    _STAMP[0] = now
 
 
 def make_graph(prob, config, fix=None):
@@ -408,11 +469,19 @@ def _profiled_rounds(fns, labels, torch, cold):
     return call_ms, [r[1::2] for r in rounds if len(r) == 2 * len(labels)], marks
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, fp64: bool = False):
     """(bound_ms, bound_by): the least time this card could take to move
-    ``nbytes`` and do ``flops`` fp32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / FP32_FLOPS_PER_MS
+    ``nbytes`` and do ``flops`` fp32 (or, with ``fp64``, fp64) operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_MS
+    t_ops = flops / (FP64_FLOPS_PER_MS if fp64 else FP32_FLOPS_PER_MS)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sum_rtol(t) -> float:
+    """The kernel-against-plain bound of a sum over tensor ``t``'s values,
+    as a share of each output's sum of |terms|: SEGSUM_RTOL in fp32,
+    SEGSUM_RTOL_F64 in fp64."""
+    return SEGSUM_RTOL_F64 if t.element_size() == 8 else SEGSUM_RTOL
 
 
 def gather_case(call, kern, plain, src, ids, torch):
@@ -423,7 +492,7 @@ def gather_case(call, kern, plain, src, ids, torch):
     cols = int(torch.unique(ids[valid]).numel())
     D, N = src.shape[0], ids.shape[0]
     safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
-    return ("exact", call, kern, plain, (4 * (N + D * N + D * cols), 0),
+    return ("exact", call, kern, plain, (4 * N + src.element_size() * (D * N + D * cols), 0),
             lambda: src.index_select(1, safe))
 
 
@@ -447,8 +516,8 @@ def segsum_case(call, kern, plain, vals, ids, num_out, csr, torch):
     notes = dict(group=csr.group, rows=segmm.row_chunk(D, N, csr.group), D=D, segments=num_out,
                  entries=nv, max_len=int(lengths.max()) if num_out else 0,
                  empty=int((lengths == 0).sum()))
-    return ((vals, ids, num_out), call, kern, plain, (4 * (N + D * nv + D * num_out), D * nv),
-            library, notes)
+    return ((vals, ids, num_out), call, kern, plain,
+            (4 * N + vals.element_size() * (D * nv + D * num_out), D * nv), library, notes)
 
 
 def check_kernels(engine, torch, segmm):
@@ -459,7 +528,7 @@ def check_kernels(engine, torch, segmm):
     plan, rc = engine.plan, engine.rc
     st = engine.state
     total_p = st.qs.shape[0]
-    psrc = torch.zeros((12, plan.p_res_pad), dtype=torch.float32, device=st.qs.device)
+    psrc = torch.zeros((12, plan.p_res_pad), dtype=st.qs.dtype, device=st.qs.device)
     psrc[:, :total_p] = torch.cat([st.qs, st.ts, engine.cams], dim=1).T
     pack_m, _pack_s, _chi = engine._residuals_and_chi(st)
     g12, err, Xc, inv_z = pack_m
@@ -467,7 +536,7 @@ def check_kernels(engine, torch, segmm):
     v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], rc.omegaT_m,
                                        engine.kernels[0], 2)
     HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(st)[:2])
-    lam = torch.ones((), dtype=torch.float32, device=st.qs.device)
+    lam = torch.ones((), dtype=st.qs.dtype, device=st.qs.device)
     iv9 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, plan, rc)[0]
     src12 = torch.cat([iv9, HllT[9:12]])
     if plan.rg_m is not None:
@@ -498,18 +567,20 @@ def check_kernels(engine, torch, segmm):
             segmm.accum_segsum, segmm.accum_segsum_plain, v42, rc.pose_acc_m, engine.num_p,
             rc.csr_pose_m, torch),
     }
-    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
+    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
 
 
 def segsum_bound(segmm, vals, ids, num_out):
-    """A segment sum's bound: SEGSUM_RTOL times each output's sum of |vals|."""
-    return SEGSUM_RTOL * segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+    """A segment sum's bound: :func:`sum_rtol` times each output's sum of
+    |vals|."""
+    return sum_rtol(vals) * segmm.accum_segsum_plain(vals.abs(), ids, num_out)
 
 
-def compare_cases(cases, torch, bound_of):
-    """Each case's kernel against its plain version: equal bit for bit
-    ("exact"), or within ``bound_of(*kind)`` elementwise; and a second
-    launch equal bit for bit to the first.  A case is (kind, call, kernel,
+def compare_cases(cases, torch, bound_of, dtype=None):
+    """Each case's kernel against its plain version, both of ``dtype``
+    (float32 by default; the bound's operations counted in it): equal bit
+    for bit ("exact"), or within ``bound_of(*kind)`` elementwise; and a
+    second launch equal bit for bit to the first.  A case is (kind, call, kernel,
     plain, (bytes, flops), library call or None[, notes]); its label is the
     wrapper's name, with ``:site`` where one wrapper has two call sites.
     Then the kernel, the plain version and the library call of every case
@@ -519,11 +590,12 @@ def compare_cases(cases, torch, bound_of):
     library_device_ms, cold_device_ms, plain_cold_device_ms,
     library_cold_device_ms, **notes}}."""
     out, fns = {}, {}
+    dtype = torch.float32 if dtype is None else dtype
     for name, (kind, call, kern, plain, work, library, *notes) in cases.items():
         got = call(kern)
         torch.cuda.synchronize()
         ref = call(plain)
-        if got.shape != ref.shape or got.dtype != torch.float32:
+        if got.shape != ref.shape or got.dtype != dtype or ref.dtype != dtype:
             fail(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}, "
                  f"plain {tuple(ref.shape)} {ref.dtype}")
         diff = (got - ref).abs()
@@ -538,7 +610,7 @@ def compare_cases(cases, torch, bound_of):
             fail(f"{name}: two launches on the same input gave different bits")
         err = float(diff.max()) if diff.numel() else 0.0
         del got, ref, diff, again
-        bound_ms, bound_by = bound(*work)
+        bound_ms, bound_by = bound(*work, fp64=dtype == torch.float64)
         out[name] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                          **(notes[0] if notes else {}))
         fns[(name, "kernel")] = lambda call=call, kern=kern: call(kern)
@@ -587,55 +659,57 @@ def first_attempt(engine):
 def schur_case(W, G, plan, sc, csr, segmm, torch):
     """schur_fused's case (:func:`schur_work`), with its launch and the
     build's attributes as notes.  No single PyTorch call computes it."""
-    launch = segmm.schur_fused_launch(plan)
+    launch = segmm.schur_fused_launch(plan, W.dtype)
     return (("schur",), lambda f: f(W, G, *sc, csr=csr), segmm.schur_fused,
-            segmm.schur_fused_plain, schur_work(plan, sc, csr, torch), None,
-            {**launch, **segmm.kernel_attributes("schur_fused", launch)})
+            segmm.schur_fused_plain, schur_work(plan, sc, csr, torch, W.element_size()), None,
+            {**launch, **segmm.kernel_attributes("schur_fused", launch, W.dtype)})
 
 
-def schur_work(plan, sc, csr, torch):
-    """schur_fused's (bytes, flops): the W and G columns its triplets read;
-    the index tables its kernel reads, one int a CSR entry (``csr.pairs``,
-    the size of ``csr.order``), the lane offsets, one lane order entry an
-    output lane, and sb; and its output; 3 multiply-adds for each of the 36
-    outputs of a triplet."""
+def schur_work(plan, sc, csr, torch, size=4):
+    """schur_fused's (bytes, flops) for values of ``size`` bytes: the W and
+    G columns its triplets read; the index tables its kernel reads, one int
+    a CSR entry (``csr.pairs``, the size of ``csr.order``), the lane
+    offsets, one lane order entry an output lane, and sb; and its output; 3
+    multiply-adds for each of the 36 outputs of a triplet."""
     sb, li, lj, _lk = sc[1:]
     base = (sb.long() * plan.slot_block).repeat_interleave(plan.chunk)
     valid = (li >= 0) & (lj >= 0)
     cols = sum(int(torch.unique((base + x.long())[valid]).numel()) for x in (li, lj))
     lanes = plan.num_chunks * plan.kwin
     index = csr.order.numel() + csr.offs.numel() + lanes + sb.numel()
-    return 4 * (18 * cols + index + 36 * lanes), 216 * int(valid.sum())
+    return size * (18 * cols + 36 * lanes) + 4 * index, 216 * int(valid.sum())
 
 
 def band_case(gT, dbT, plan, rc, segmm):
     """compact_to_band's case (:func:`band_work`).  Exact: a placement.  No
     single PyTorch call computes it."""
     args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, plan.pad_blocks, plan.wg)
-    launch = segmm.compact_to_band_launch(plan.pad_blocks)
+    launch = segmm.compact_to_band_launch(plan.pad_blocks, gT.dtype)
     return ("exact", lambda f: f(*args, table=rc.band_table), segmm.compact_to_band,
-            segmm.compact_to_band_plain, band_work(plan, rc), None,
-            {**launch, **segmm.kernel_attributes("compact_to_band", launch)})
+            segmm.compact_to_band_plain, band_work(plan, rc, gT.element_size()), None,
+            {**launch, **segmm.kernel_attributes("compact_to_band", launch, gT.dtype)})
 
 
-def band_work(plan, rc):
-    """compact_to_band's (bytes, flops): the table entries it places (36
-    floats a filled slot), the slot ids, the diagonal, the occupancy and its
-    output; one add per diagonal element."""
+def band_work(plan, rc, size=4):
+    """compact_to_band's (bytes, flops) for values of ``size`` bytes: the
+    table entries it places (36 values a filled slot), the slot ids, the
+    diagonal, the occupancy and its output; one add per diagonal element."""
     PB = plan.pad_blocks
     M = PB // 64
     n_slots = int((rc.iru >= 0).sum())
-    return 4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + 2 * M + M * 384 * 768), 36 * PB
+    return (size * (36 * n_slots + 36 * PB + M * 384 * 768) + 4 * (2 * rc.iru.numel() + 2 * M),
+            36 * PB)
 
 
-def dense_work(plan, rc):
-    """compact_to_dense's (bytes, flops): the table entries it places (36
-    floats a filled slot), the slot ids, the diagonal, the occupancy and its
-    [6PB, 6PB] output; one add per diagonal element."""
+def dense_work(plan, rc, size=4):
+    """compact_to_dense's (bytes, flops) for values of ``size`` bytes: the
+    table entries it places (36 values a filled slot), the slot ids, the
+    diagonal, the occupancy and its [6PB, 6PB] output; one add per diagonal
+    element."""
     PB = plan.pad_blocks
     n_slots = int((rc.iru >= 0).sum())
-    return (4 * (36 * n_slots + 2 * rc.iru.numel() + 36 * PB + rc.occ2.numel() + 36 * PB * PB),
-            36 * PB)
+    return (size * (36 * n_slots + 36 * PB + 36 * PB * PB)
+            + 4 * (2 * rc.iru.numel() + rc.occ2.numel()), 36 * PB)
 
 
 def check_schur_kernels(engine, torch, segmm, HplT, W):
@@ -663,10 +737,10 @@ def check_schur_kernels(engine, torch, segmm, HplT, W):
 
     def bound_of(*kind):
         if kind == ("schur",):
-            return SEGSUM_RTOL * segmm.schur_fused_plain(W.abs(), HplT.abs(), *sc)
+            return sum_rtol(W) * segmm.schur_fused_plain(W.abs(), HplT.abs(), *sc)
         return segsum_bound(segmm, *kind)
 
-    out.update(compare_cases(cases, torch, bound_of))
+    out.update(compare_cases(cases, torch, bound_of, engine.dtype))
     return out
 
 
@@ -685,7 +759,7 @@ def check_band_kernels(engine, torch, segmm, cr_timings=True):
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
     out.update(compare_cases({"compact_to_band": band_case(gT, dbT, plan, rc, segmm)},
-                             torch, None))
+                             torch, None, engine.dtype))
     if not cr_timings:
         return out
 
@@ -708,13 +782,13 @@ def check_band_kernels(engine, torch, segmm, cr_timings=True):
     return out
 
 
-def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
+def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True, trisolve_kernels=True):
     """Phase 9: every kernel of the dense path against its plain version on
     the engine's plan and first-attempt tensors (kernels 1-7 as
-    :func:`check_schur_kernels` with ``schur_kernels``, then kernels 9 and
-    11-14), the whole ``cholesky_solve`` against the same call under
-    ``use_plain()``, and the two sweeps against ``torch.linalg.
-    solve_triangular``.  Returns the kernel entries."""
+    :func:`check_schur_kernels` with ``schur_kernels``, then kernels 9 and,
+    with ``trisolve_kernels``, 11-14), the whole ``cholesky_solve`` against
+    the same call under ``use_plain()``, and the two sweeps against
+    ``torch.linalg.solve_triangular``.  Returns the kernel entries."""
     from cuba_tpu_torch.solver import dense_cholesky, rows, trisolve
 
     plan, rc = engine.plan, engine.rc
@@ -724,6 +798,14 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
     dense_args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
+    dense_launch = segmm.compact_to_dense_launch(PB, gT.dtype)
+    dense_case = (
+        "exact", lambda f: f(*dense_args, table=rc.dense_table), segmm.compact_to_dense,
+        segmm.compact_to_dense_plain, dense_work(plan, rc, gT.element_size()), None,
+        {**dense_launch, **segmm.kernel_attributes("compact_to_dense", dense_launch, gT.dtype)})
+    if not trisolve_kernels:
+        out.update(compare_cases({"compact_to_dense": dense_case}, torch, None, engine.dtype))
+        return out
     A = segmm.compact_to_dense(*dense_args, table=rc.dense_table)
     n = A.shape[0]
     rhs = bscT.new_zeros(n)
@@ -738,15 +820,11 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True):
     z = trisolve.solve_upper(L, invd, y)
     x = (s * z).contiguous()
     K = n // trisolve.BLOCK
-    dense_launch = segmm.compact_to_dense_launch(PB)
     # a sweep reads L's strictly-lower blocks (invd takes the place of its
     # diagonal blocks), invd and the vector, and writes its result
     tri_bytes = 4 * ((n * n - K * trisolve.BLOCK ** 2) // 2 + K * trisolve.BLOCK ** 2 + 2 * n)
     cases = {
-        "compact_to_dense": (
-            "exact", lambda f: f(*dense_args, table=rc.dense_table),
-            segmm.compact_to_dense, segmm.compact_to_dense_plain, dense_work(plan, rc), None,
-            {**dense_launch, **segmm.kernel_attributes("compact_to_dense", dense_launch)}),
+        "compact_to_dense": dense_case,
         "extract_diag_blocks": (
             "exact", lambda f: f(L), trisolve.extract_diag_blocks,
             trisolve.extract_diag_blocks_plain, (8 * K * trisolve.BLOCK ** 2, 0),
@@ -863,22 +941,22 @@ def with_chords(prob, C: int):
         mono_w=np.concatenate([prob.mono_w, np.ones(n)]))
 
 
-def run_path(prob, config, torch, label, fix=None):
-    """initialize() + optimize(ITERS) through the public API, timed."""
+def run_path(prob, config, torch, label, fix=None, iters=ITERS):
+    """initialize() + optimize(iters) through the public API, timed."""
     ba = make_graph(prob, config, fix)
     t0 = time.perf_counter()
     ba.initialize()
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ba.optimize(ITERS)
+    ba.optimize(iters)
     torch.cuda.synchronize()
     t_opt = time.perf_counter() - t0
     r = ba.last_result
     chis = np.array([s.chi2 for s in ba.batch_statistics()])
     log(f"{label}: solver {ba._engine.solver}, band_m {ba._engine.band_m}, "
         f"route {ba._engine.path}")
-    log(f"{label}: initialize {t_init:.4f} s, optimize({ITERS}) {t_opt:.4f} s, "
+    log(f"{label}: initialize {t_init:.4f} s, optimize({iters}) {t_opt:.4f} s, "
         f"niters {r.niters}, attempts {r.nattempts}, cg_steps {r.cg_steps}, "
         f"host_reads {r.host_reads}")
     log(f"{label}: chi2 per iteration {chis.tolist()}")
@@ -918,12 +996,12 @@ def expected_kernels(engine):
     return expected
 
 
-def counted_run(prob, config, torch, segmm, label, expect_route, fix=None):
+def counted_run(prob, config, torch, segmm, label, expect_route, fix=None, iters=ITERS):
     """The path's counted run: launch counts set to 0 just before it and
     read just after; every kernel of its route must have launched.
     Returns (ba, chis, t_opt, launches)."""
     segmm.reset_launches()
-    ba, chis, _t_init, t_opt = run_path(prob, config, torch, label, fix)
+    ba, chis, _t_init, t_opt = run_path(prob, config, torch, label, fix, iters)
     launches = dict(segmm.LAUNCHES)
     log(f"launches ({label}): {json.dumps(launches)}")
     if ba._engine.path != expect_route:
@@ -1053,12 +1131,12 @@ def check_v1_kernels(engine, torch, segmm):
     m4.diagonal(dim1=1, dim2=2).add_(rows.damped_diagonal_T(HppT, lam, engine.num_p, PB))
     n_occ = int((rc.occ > 0).sum())
     log(f"band_transpose at PB {PB}: {n_occ} of {rc.occ.numel()} 64x128-block tiles occupied")
-    nbytes = 4 * (36 * PB * PB + rc.occ.numel() + n_occ * 36 * 64 * 128)
+    nbytes = m4.element_size() * (36 * PB * PB + n_occ * 36 * 64 * 128) + 4 * rc.occ.numel()
     out.update(compare_cases({"band_transpose": (
         "exact", lambda f: f(m4, rc.occ, PB), segmm.band_transpose, segmm.band_transpose_plain,
         (nbytes, 0),
         lambda: m4.view(6, 6, PB, PB).permute(2, 0, 3, 1).reshape(6 * PB, 6 * PB).contiguous(),
-    )}, torch, None))
+    )}, torch, None, engine.dtype))
     return out, (HppT, HplT, lam, W)
 
 
@@ -1128,7 +1206,7 @@ def check_aos_kernels(engine, torch, segmm):
             lambda f: f(prod, sc.mul_k, n_hsc, csr=sc.csr_mul), segmm.accum_segsum,
             segmm.accum_segsum_plain, prod, sc.mul_k, n_hsc, sc.csr_mul, torch),
     }
-    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind))
+    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
 
 
 def compare_solvers(chis, chis_dense, label):
@@ -1145,13 +1223,13 @@ def compare_solvers(chis, chis_dense, label):
         fail(f"{label}: band_lr and dense_cholesky trajectories disagree")
 
 
-def compare_trajectories(chis, chis_ref, label, what="kernel vs plain"):
+def compare_trajectories(chis, chis_ref, label, what="kernel vs plain", rtol=TRAJ_RTOL):
     n = min(len(chis), len(chis_ref))
     if n < 2 or len(chis) != len(chis_ref):
         fail(f"{label}: trajectories differ in length: {len(chis)} vs {len(chis_ref)}")
     rel = np.abs(chis[:n] - chis_ref[:n]) / np.abs(chis_ref[:n])
-    log(f"{label}: {what} chi2: max rel diff {rel.max():.3e} (rtol {TRAJ_RTOL})")
-    if not np.all(rel <= TRAJ_RTOL):
+    log(f"{label}: {what} chi2: max rel diff {rel.max():.3e} (rtol {rtol})")
+    if not np.all(rel <= rtol):
         fail(f"{label}: {what} chi2 trajectories disagree")
 
 
@@ -1398,6 +1476,60 @@ def check_oracle(torch):
                          "card fp32 vs fp64 oracle")
 
 
+def fp64_records(chis, graph, label, gate=True):
+    """A run's chi² per iteration against the recorded fp64 trajectory of
+    ``graph``; with ``gate``, every iteration within CHI2_FP64_RTOL."""
+    rec = np.array(CHI2_FP64_TRAJECTORY[graph])
+    n = min(len(chis), len(rec))
+    rel = np.abs(np.asarray(chis[:n]) - rec[:n]) / rec[:n]
+    log(f"{label}: chi2 vs the fp64 record of {graph} per iteration: max rel diff "
+        f"{rel.max():.3e} (rtol {CHI2_FP64_RTOL}{'' if gate else ', not gated'}); "
+        f"{[float(f'{x:.3e}') for x in rel]}")
+    if gate and not (len(chis) == len(rec) and np.all(rel <= CHI2_FP64_RTOL)):
+        fail(f"{label}: the fp64 run left the recorded fp64 trajectory of {graph}")
+
+
+def fp64_run(prob, config, torch, segmm, label, expect, check, graph=None,
+             iters=ITERS, fix=None):
+    """Phase 16's run of one path in fp64: a warm-up run, on whose engine
+    ``check(engine)`` holds the fp64 kernels to their fp64 plain versions
+    at the path's call sites; then the counted run (:func:`counted_run`):
+    the engine's attributes as ``expect`` says ({name: value}), every launch
+    an fp64 one, and with ``graph`` every iteration within CHI2_FP64_RTOL
+    of its record.  Returns (kernel entries, launches, chis, warm wall,
+    attempts)."""
+    wba, _chis, _ti, t_cold = run_path(prob, config, torch, f"{label} warm-up", fix, iters)
+    got = {k: getattr(wba._engine, k) for k in expect}
+    if got != expect:
+        fail(f"{label}: the engine took {got}, expected {expect}")
+    kern = check(wba._engine)
+    del wba
+    ba, chis, t_opt, launches = counted_run(prob, config, torch, segmm, f"{label} path",
+                                            expect["path"], fix, iters)
+    attempts = ba.last_result.nattempts
+    del ba
+    f64 = dict(segmm.LAUNCHES_F64)
+    log(f"fp64 launches ({label}): {json.dumps(f64)}")
+    if f64 != launches:
+        fail(f"{label}: launches other than the fp64 builds: {launches} against {f64}")
+    if graph is not None:
+        fp64_records(chis, graph, label)
+    log(f"{label}: optimize({iters}) {t_opt} s (cold {t_cold} s)")
+    return kern, launches, chis, t_opt, attempts
+
+
+def fp64_against_plain(prob, config, torch, label, chis, iters):
+    """A phase 16 fp64 run against the same run with the plain versions on
+    the card: FP64_PLAIN_RTOL per iteration."""
+    from cuba_tpu_torch.ops import segmm
+
+    with segmm.use_plain():
+        _p, plain, _ti, t_plain = run_path(prob, config, torch, f"{label} plain", iters=iters)
+    del _p
+    compare_trajectories(chis, plain, label, "fp64 kernel vs fp64 plain", FP64_PLAIN_RTOL)
+    return t_plain
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-poses", type=int, default=4096)
@@ -1478,6 +1610,7 @@ def main() -> None:
     log(f"pcg walls ({card}): initialize {t_init} s, optimize({ITERS}) {t_opt} s; cold "
         f"initialize {t_init0} s, optimize {t_opt0} s; plain optimize {t_opt_plain} s")
     del _ba
+    stamp("phases 1-4")
 
     # phase 5: the band path (solver="auto") on the kitti00-scale loop graph
     kprob = synthetic.generate(**KITTI)
@@ -1523,6 +1656,7 @@ def main() -> None:
         f"initialize {kt_init0} s, optimize {kt_opt0} s; plain initialize {kt_init_p} s, "
         f"plain optimize {kt_opt_plain} s")
     del _kba
+    stamp("phases 5-7")
 
     # phase 8: the dense path (solver="auto") on the kitti07-scale graph
     dprob = synthetic.generate(**KITTI07)
@@ -1592,6 +1726,7 @@ def main() -> None:
         f"initialize {dt_init0} s, optimize {dt_opt0} s; plain initialize {dt_init_p} s, "
         f"plain optimize {dt_opt_plain} s")
     del _dba
+    stamp("phases 8-10")
 
     # phase 11: the v1 formation on the kitti00 odometry graph, v2 gate closed
     from cuba_tpu_torch.solver import rows
@@ -1652,6 +1787,7 @@ def main() -> None:
     compare_trajectories(vchis, gchis, "kitti00 odometry", "v1 vs gate-open v2")
     log(f"v1 walls ({card}): optimize({ITERS}) {vt_opt} s (cold {vt_opt0} s, plain "
         f"{vt_opt_plain} s); the gate-open v2 run {gt_opt} s")
+    stamp("phase 11")
 
     # phase 12: band_lr on the MXU path, two loop chords
     dnconfig = BAConfig(dtype=torch.float32, device="cuda", solver="dense_cholesky")
@@ -1684,6 +1820,7 @@ def main() -> None:
     compare_solvers(cchis, cchis_dense, "two chords")
     log(f"band_lr walls ({card}): optimize({ITERS}) {ct_opt} s (cold {ct_opt0} s, plain "
         f"{ct_opt_plain} s); dense_cholesky on the same graph {ct_opt_dense} s")
+    stamp("phase 12")
 
     # phase 13: the AoS path, three loop chords (the planner's ok fails)
     aprob = with_chords(oprob, 3)
@@ -1716,6 +1853,7 @@ def main() -> None:
         if fba._engine.path != "aos" or not fchis[-1] < fchis[0]:
             fail(f"kitti07 {label}: route {fba._engine.path!r}, chi2 {fchis.tolist()}")
         del fba
+    stamp("phase 13")
 
     # phases 14-15: the rest of the public API, the BAL path and the samples
     with tempfile.TemporaryDirectory() as tmp:
@@ -1731,19 +1869,65 @@ def main() -> None:
         run_sample("sample_bal", [bal_path], "bal (ladybug)")
         run_sample("sample_comparison_with_reference", [], "comparison_with_reference")
         log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+    stamp("phases 14-15")
+
+    # phase 16: fp64 on the card, every route, the fp64 builds of kernels 1-10
+    f64 = BAConfig(dtype=torch.float64, device="cuda")
+    fp64_records(kchis, "kitti00_scale_loop", "kitti00 loop fp32 (phase 5)", gate=False)
+    runs64 = {}
+    runs64["band-fp64"] = fp64_run(
+        kprob, f64, torch, segmm, "band-fp64",
+        dict(path="v2", solver="band_cr", band_m=KITTI_BAND_M),
+        lambda e: check_band_kernels(e, torch, segmm, cr_timings=False), "kitti00_scale_loop")
+    profile_path(kprob, f64, torch, "band-fp64", runs64["band-fp64"][3])
+    runs64["dense-fp64"] = fp64_run(
+        dprob, f64, torch, segmm, "dense-fp64", dict(path="v2", solver="dense_cholesky"),
+        lambda e: check_dense_kernels(e, torch, segmm, "kitti07 fp64", trisolve_kernels=False),
+        "kitti07_scale")
+    profile_path(dprob, f64, torch, "dense-fp64", runs64["dense-fp64"][3])
+    rows._WG_MAX = 0
+    log(f"v2 gate closed: rows._WG_MAX = {rows._WG_MAX}")
+    try:
+        runs64["v1-fp64"] = fp64_run(
+            oprob, f64, torch, segmm, "v1-fp64",
+            dict(path="v1", solver="band_cr", band_m=KITTI_BAND_M),
+            lambda e: check_v1_kernels(e, torch, segmm)[0], "kitti00_scale")
+        profile_path(oprob, f64, torch, "v1-fp64", runs64["v1-fp64"][3])
+    finally:
+        rows._WG_MAX = wg_max
+    log(f"v2 gate restored: rows._WG_MAX = {rows._WG_MAX}")
+    runs64["aos-fp64"] = fp64_run(
+        aprob, f64, torch, segmm, "aos-fp64", dict(path="aos", solver="band_lr"),
+        lambda e: check_aos_kernels(e, torch, segmm), iters=FP64_SHORT_ITERS)
+    at_plain64 = fp64_against_plain(aprob, f64, torch, "aos-fp64", runs64["aos-fp64"][2],
+                                    FP64_SHORT_ITERS)
+    p64 = BAConfig(dtype=torch.float64, solver="pcg", device="cuda")
+    runs64["pcg-fp64"] = fp64_run(
+        prob, p64, torch, segmm, "pcg-fp64", dict(path="rows", solver="pcg"),
+        lambda e: check_kernels(e, torch, segmm), iters=FP64_SHORT_ITERS)
+    pt_plain64 = fp64_against_plain(prob, p64, torch, "pcg-fp64", runs64["pcg-fp64"][2],
+                                    FP64_SHORT_ITERS)
+    run_sample("sample_ba_from_file", ["--synthetic", "--fp64"], "ba_from_file fp64 (synthetic)")
+    walls64 = {k: v[3] for k, v in runs64.items()}
+    log(f"fp64 walls ({card}): {json.dumps(walls64)}; fp32 in this run: band {kt_opt} s, "
+        f"dense {dt_opt} s, v1 {vt_opt} s; band fp64 / fp32 "
+        f"{walls64['band-fp64'] / kt_opt:.3f}; plain optimize({FP64_SHORT_ITERS}): aos "
+        f"{at_plain64} s, pcg {pt_plain64} s")
+    stamp("phase 16")
 
     entries = []
-    for path, kern, launches in (("pcg", kern_pcg, launches_pcg),
-                                 ("band", kern_band, launches_band),
-                                 ("dense", kern_dense, launches_dense),
-                                 ("dense-kitti00", kern_dense00, launches_dense00),
-                                 ("v1", kern_v1, launches_v1),
-                                 ("band_lr", kern_lr, launches_lr),
-                                 ("aos", kern_aos, launches_aos),
-                                 ("bal", kern_bal, launches_bal)):
+    paths = [("pcg", kern_pcg, launches_pcg), ("band", kern_band, launches_band),
+             ("dense", kern_dense, launches_dense),
+             ("dense-kitti00", kern_dense00, launches_dense00), ("v1", kern_v1, launches_v1),
+             ("band_lr", kern_lr, launches_lr), ("aos", kern_aos, launches_aos),
+             ("bal", kern_bal, launches_bal)]
+    paths += [(path, r[0], r[1]) for path, r in runs64.items()]
+    attempts.update({path: r[4] for path, r in runs64.items()})
+    for path, kern, launches in paths:
         for label, e in kern.items():
             name, _, site = label.partition(":")
             entries.append({"name": name, "path": path, **({"site": site} if site else {}),
+                            "dtype": "float64" if path in runs64 else "float32",
                             "route": "cuda", "source": kernel_source(name),
                             "replaces": REPLACES[name], "launches": launches[name],
                             "attempts": attempts[path], **e})
@@ -1757,6 +1941,10 @@ def main() -> None:
     names = {e["name"] for e in entries}
     if names != set(REPLACES):
         fail(f"the kernels line misses {sorted(set(REPLACES) - names)}")
+    names64 = {e["name"] for e in entries if e["dtype"] == "float64"}
+    segmm_names = {n for n in REPLACES if n not in TRISOLVE_KERNELS}
+    if names64 != segmm_names:
+        fail(f"the kernels line's fp64 entries miss {sorted(segmm_names - names64)}")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

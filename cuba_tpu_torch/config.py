@@ -18,8 +18,11 @@ class BAConfig:
     """Configuration for :class:`cuba_tpu_torch.BundleAdjustment`.
 
     Attributes:
-      dtype: compute dtype of the numeric path (float32 or float64; the CUDA
-        kernels are float32 only).
+      dtype: compute dtype of the numeric path, float32 or float64, on the
+        card as on the host.  On the card float64 runs the fp64 builds of
+        the ten ``segmm`` kernels, and its dense solve is
+        ``cholesky_ex`` + ``solve_triangular`` (the ``trisolve`` kernels
+        are float32 only, as ``cuba_tpu``'s are).
       chi_dtype: accumulation dtype of the chi² reductions.
       device: where the engine's tensors live: "cuda" (the default),
         "cuda:1", ..., or "cpu", where every kernel runs its plain torch

@@ -127,6 +127,28 @@
 //    version, one thread per output element reading m4 directly, ran at a
 //    third of this bound on the card; PERF.md keeps its time.)
 //
+// Element types.  Every kernel is a template on its element type T, built
+// for float (entry cuba_<name>) and double (cuba_<name>_f64, the same
+// parameters with double* for float*): the fp64 builds serve cuba_tpu's
+// parity mode on the card.  Both builds keep one contract: the transposed
+// [D, N] layouts, ids below 0 or out of range dropped from sums and read as
+// 0 by gathers, deterministic sums in one order (__fmaf_rn in fp32 is
+// __fma_rn in fp64), no atomics; the fp32 builds are the fp32 kernels as
+// they were, launch for launch and bit for bit.  A 16-byte access holds 4
+// floats or 2 doubles (Vec16), so the fp64 builds store double2 where the
+// fp32 ones store float4, and every index stays in elements (int32, as
+// the wrappers check).  What the fp64 builds take (ptxas for sm_90a, and
+// cudaOccupancy at the kitti00 launches): schur_fused 18-double slots (144
+// bytes, nine double2, no padding), its window loads in two batches of 18
+// double2 a thread so that the staging holds as many registers as fp32's
+// one batch of 18 float4, 128 registers, no spills, 191,632 bytes of
+// shared memory at kwin 256 and 197,776 at kwin 1024 (of 232,448), so one
+// block an SM (__launch_bounds__ minimum 1, where fp32 has 2);
+// compact_to_band 18,688 and compact_to_dense 37,376 static shared bytes
+// (the strip in doubles), 31-32 registers; band_transpose 10,944 shared
+// bytes, 32 registers; gather_cols and segsum_csr 31-32 registers, no
+// shared memory.  None spills.
+//
 // Kernels allocate nothing.  Each entry point launches on the caller's
 // stream and returns cudaGetLastError() so the Python wrapper can raise on
 // a refused launch.
@@ -140,20 +162,53 @@ constexpr int kThreads = 256;
 
 constexpr int32_t kInt32Max = 0x7fffffff;
 
-__global__ void gather_cols_kernel(const float* __restrict__ src,
-                                   const int32_t* __restrict__ ids,
-                                   float* __restrict__ out, int D, int S, int N) {
+// 16 bytes of T, loaded and stored as one access: four floats (float4) or
+// two doubles (double2).
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ type zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  static __device__ __forceinline__ type zero() { return make_double2(0.0, 0.0); }
+};
+
+// the values of a 16-byte access to v[0], v[stride], v[2 * stride], ...
+__device__ __forceinline__ void scatter16(float* v, int stride, const float4& f) {
+  v[0] = f.x;
+  v[stride] = f.y;
+  v[2 * stride] = f.z;
+  v[3 * stride] = f.w;
+}
+__device__ __forceinline__ void scatter16(double* v, int stride, const double2& f) {
+  v[0] = f.x;
+  v[stride] = f.y;
+}
+
+// a * b + c rounded once
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+template <typename T>
+__global__ void gather_cols_kernel(const T* __restrict__ src, const int32_t* __restrict__ ids,
+                                   T* __restrict__ out, int D, int S, int N) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int id = ids[n];
-  float* dst = out + n;
+  T* dst = out + n;
   if (id >= 0 && id < S) {
-    const float* col = src + id;
+    const T* col = src + id;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) dst[d * N] = col[d * S];
   } else {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) dst[d * N] = 0.0f;
+    for (int d = 0; d < D; ++d) dst[d * N] = T(0);
   }
 }
 
@@ -161,8 +216,9 @@ __global__ void gather_cols_kernel(const float* __restrict__ src,
 // threads resident to hide the latency of the walk
 constexpr int kRowChunk = 4;
 
-__device__ __forceinline__ void add_column(float (&acc)[kRowChunk], const float* rows,
-                                           int col, int N, int nr) {
+template <typename T>
+__device__ __forceinline__ void add_column(T (&acc)[kRowChunk], const T* rows, int col, int N,
+                                           int nr) {
 #pragma unroll
   for (int r = 0; r < kRowChunk; ++r) {
     if (r < nr) acc[r] += rows[r * N + col];
@@ -171,12 +227,11 @@ __device__ __forceinline__ void add_column(float (&acc)[kRowChunk], const float*
 
 // Group g of G lanes sums segment live[g] (segment g where live is null)
 // for the row chunk blockIdx.y.
-template <int G>
-__global__ void segsum_csr_kernel(const float* __restrict__ vals,
-                                  const int32_t* __restrict__ order,
+template <int G, typename T>
+__global__ void segsum_csr_kernel(const T* __restrict__ vals, const int32_t* __restrict__ order,
                                   const int32_t* __restrict__ offs,
                                   const int32_t* __restrict__ live, int count,
-                                  float* __restrict__ out, int D, int N, int num_out,
+                                  T* __restrict__ out, int D, int N, int num_out,
                                   int rows_per_chunk) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int g = t / G;
@@ -192,10 +247,10 @@ __global__ void segsum_csr_kernel(const float* __restrict__ vals,
     j = offs[s] + lane;
     end = offs[s + 1];
   }
-  const float* rows = vals + d0 * N;
-  float acc[kRowChunk];
+  const T* rows = vals + d0 * N;
+  T acc[kRowChunk];
 #pragma unroll
-  for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < kRowChunk; ++r) acc[r] = T(0);
   if (G == 1) {  // segments of a few entries: unrolling costs more than it hides
 #pragma unroll 1
     for (; j < end; ++j) add_column(acc, rows, order[j], N, nr);
@@ -215,7 +270,7 @@ __global__ void segsum_csr_kernel(const float* __restrict__ vals,
   // after the butterfly every lane holds the same sums (a + b == b + a);
   // lane r % G stores row r
   if (!on) return;
-  float* dst = out + d0 * num_out + s;
+  T* dst = out + d0 * num_out + s;
 #pragma unroll
   for (int r = 0; r < kRowChunk; ++r) {
     if (r < nr && (r & (G - 1)) == lane) dst[r * num_out] = acc[r];
@@ -223,99 +278,130 @@ __global__ void segsum_csr_kernel(const float* __restrict__ vals,
 }
 
 // out[0:n] = 0 in 16-byte stores (out from the caching allocator: aligned).
-__global__ void segsum_zero_kernel(float* __restrict__ out, int n) {
-  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
-  if (i + 4 <= n) {
-    *reinterpret_cast<float4*>(out + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+template <typename T>
+__global__ void segsum_zero_kernel(T* __restrict__ out, int n) {
+  constexpr int kVec = Vec16<T>::n;
+  const int i = kVec * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i + kVec <= n) {
+    *reinterpret_cast<typename Vec16<T>::type*>(out + i) = Vec16<T>::zero();
   } else {
-    for (int k = i; k < n; ++k) out[k] = 0.0f;
+    for (int k = i; k < n; ++k) out[k] = T(0);
   }
 }
 
-template <int G>
-void launch_segsum(const float* vals, const int32_t* order, const int32_t* offs,
-                   const int32_t* live, int num_live, float* out, int D, int N, int num_out,
+template <int G, typename T>
+void launch_segsum(const T* vals, const int32_t* order, const int32_t* offs,
+                   const int32_t* live, int num_live, T* out, int D, int N, int num_out,
                    int rows, cudaStream_t stream) {
   const int count = live != nullptr ? num_live : num_out;
   if (live != nullptr) {
     const int n = D * num_out;
-    segsum_zero_kernel<<<(n / 4 + kThreads) / kThreads, kThreads, 0, stream>>>(out, n);
+    segsum_zero_kernel<T>
+        <<<(n / Vec16<T>::n + kThreads) / kThreads, kThreads, 0, stream>>>(out, n);
   }
   if (count == 0) return;
   const dim3 grid(static_cast<unsigned int>((static_cast<int64_t>(count) * G + kThreads - 1) /
                                             kThreads),
                   static_cast<unsigned int>((D + rows - 1) / rows));
-  segsum_csr_kernel<G><<<grid, kThreads, 0, stream>>>(vals, order, offs, live, count, out, D,
-                                                       N, num_out, rows);
+  segsum_csr_kernel<G, T><<<grid, kThreads, 0, stream>>>(vals, order, offs, live, count, out,
+                                                          D, N, num_out, rows);
 }
 
 // ---- schur_fused: one block per chunk, its windows staged in shared memory
 
 constexpr int kScWin = 512;     // 2 * slot_block: the slots a chunk reads from W and G
-constexpr int kScSlot = 20;     // floats of a staged slot: its 18 values, padded to 5 float4
 constexpr int kScThreads = 256;
-constexpr int kScLoads = 36 * (kScWin / 4) / kScThreads;  // float4 of the windows a thread
+constexpr int kScLoads = 18;    // 16-byte window loads a thread has in flight (one batch)
 constexpr int kScPass = 128;    // lanes of one pass (a group of the lane order; kwin % 128 == 0)
 constexpr int kScTileStride = kScPass + 4;
 
+// Per element type: the values of a staged slot (its 18, padded to whole
+// 16-byte loads) and the blocks an SM is built for.  fp32: 20 floats (five
+// float4), 107 KB of shared memory at kwin 256, two blocks.  fp64: 18
+// doubles are nine double2, no padding; ~198 KB at kwin 1024, one block.
+template <typename T>
+struct ScTraits;
+template <>
+struct ScTraits<float> {
+  static constexpr int kSlot = 20;
+  static constexpr int kBlocks = 2;
+};
+template <>
+struct ScTraits<double> {
+  static constexpr int kSlot = 18;
+  static constexpr int kBlocks = 1;
+};
+
 // Dynamic shared memory of one block: the W and G windows slot-major
-// [2][512][kScSlot], the chunk's (li, lj) pairs in CSR order [chunk], its
+// [2][512][kSlot], the chunk's (li, lj) pairs in CSR order [chunk], its
 // lane offsets [kwin + 1] and lane order [kwin] (padded to 4 ints), and the
 // output tile [36][kScTileStride] (segmm.schur_fused_launch computes the
 // same bytes).
+template <typename T>
 size_t schur_smem_bytes(int64_t chunk, int64_t kwin) {
   const int64_t ints = (chunk + 2 * kwin + 1 + 3) / 4 * 4;
-  return static_cast<size_t>(4 * (2 * kScWin * kScSlot + ints + 36 * kScTileStride));
+  return static_cast<size_t>(sizeof(T) * (2 * kScWin * ScTraits<T>::kSlot + 36 * kScTileStride) +
+                             4 * ints);
 }
 
 // Block c stages W[:, base : base + 512] and G[:, ...] (base = sb[c] *
 // slot_block) slot-major from 16-byte loads, window rows fastest across
 // the block's threads (a warp's 32 loads are 16 bytes of 32 rows; the
-// other half of each 32-byte sector is the load 36 threads on), and the
-// chunk's pairs (pairs[q] = li | lj << 16 of CSR entry q, -1 for a dropped
-// triplet), its lane offsets relative to its first CSR entry, and its lane
-// order.  Then, a pass for each group of 128 lanes: six threads share a
-// lane, each summing the six outputs (a, b) of its block row a over the
-// lane's triplets in CSR order, from 0; the sums go through the shared
-// tile so that the stores to out are float4 rows.
-__global__ void __launch_bounds__(kScThreads, 2)
-schur_fused_kernel(const float* __restrict__ W, const float* __restrict__ G, int64_t S,
+// other half of each 32-byte sector is the load 36 threads on), in
+// batches of kScLoads loads a thread (one batch in fp32, two in fp64, so
+// that the staging holds the same registers), and the chunk's pairs
+// (pairs[q] = li | lj << 16 of CSR entry q, -1 for a dropped triplet), its
+// lane offsets relative to its first CSR entry, and its lane order.  Then,
+// a pass for each group of 128 lanes: six threads share a lane, each
+// summing the six outputs (a, b) of its block row a over the lane's
+// triplets in CSR order, from 0; the sums go through the shared tile so
+// that the stores to out are 16-byte rows.
+template <typename T>
+__global__ void __launch_bounds__(kScThreads, ScTraits<T>::kBlocks)
+schur_fused_kernel(const T* __restrict__ W, const T* __restrict__ G, int64_t S,
                    const int32_t* __restrict__ sb, const int32_t* __restrict__ pairs,
                    const int32_t* __restrict__ offs, const int32_t* __restrict__ lane_order,
-                   int slot_block, int chunk, int kwin, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* wwin = smem;                     // [512][kScSlot]
-  float* gwin = smem + kScWin * kScSlot;  // [512][kScSlot]
-  int32_t* pair = reinterpret_cast<int32_t*>(smem + 2 * kScWin * kScSlot);
+                   int slot_block, int chunk, int kwin, T* __restrict__ out) {
+  using V = typename Vec16<T>::type;
+  constexpr int kVec = Vec16<T>::n;
+  constexpr int kSlot = ScTraits<T>::kSlot;
+  constexpr int kBatches = 36 * (kScWin / kVec) / (kScLoads * kScThreads);
+  static_assert(kBatches * kScLoads * kScThreads == 36 * (kScWin / kVec),
+                "the window loads split into whole batches");
+  extern __shared__ __align__(16) float4 smem4[];
+  T* wwin = reinterpret_cast<T*>(smem4);  // [512][kSlot]
+  T* gwin = wwin + kScWin * kSlot;        // [512][kSlot]
+  int32_t* pair = reinterpret_cast<int32_t*>(wwin + 2 * kScWin * kSlot);
   int32_t* loff = pair + chunk;
   int32_t* lord = loff + kwin + 1;
-  float* tile = smem + 2 * kScWin * kScSlot + (chunk + 2 * kwin + 1 + 3) / 4 * 4;
+  T* tile = reinterpret_cast<T*>(pair + (chunk + 2 * kwin + 1 + 3) / 4 * 4);
   const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t lanes = static_cast<int64_t>(gridDim.x) * kwin;
   const int64_t base = static_cast<int64_t>(sb[c]) * slot_block;
-  // every load of the prologue is issued before any store to shared memory
-  float4 buf[kScLoads];
-#pragma unroll
-  for (int u = 0; u < kScLoads; ++u) {
-    const int v = t + u * kScThreads, r = v % 36, q4 = v / 36;
-    const float* src = (r < 18 ? W + r * S : G + (r - 18) * S) + base + 4 * q4;
-    buf[u] = __ldg(reinterpret_cast<const float4*>(src));
-  }
   const int64_t lane0 = static_cast<int64_t>(c) * kwin;
-  const int q0 = offs[lane0];
-  const int n = offs[lane0 + kwin] - q0;  // at most chunk: the chunk's own triplets
-  for (int k = t; k < n; k += kScThreads) pair[k] = pairs[q0 + k];
-  for (int l = t; l <= kwin; l += kScThreads) loff[l] = offs[lane0 + l] - q0;
-  for (int l = t; l < kwin; l += kScThreads) lord[l] = lane_order[lane0 + l];
 #pragma unroll
-  for (int u = 0; u < kScLoads; ++u) {
-    const int v = t + u * kScThreads, r = v % 36, q4 = v / 36;
-    float* dst = (r < 18 ? wwin + r : gwin + (r - 18)) + 4 * q4 * kScSlot;
-    dst[0] = buf[u].x;
-    dst[kScSlot] = buf[u].y;
-    dst[2 * kScSlot] = buf[u].z;
-    dst[3 * kScSlot] = buf[u].w;
+  for (int h = 0; h < kBatches; ++h) {
+    // every load of a batch is issued before any of its stores to shared memory
+    V buf[kScLoads];
+#pragma unroll
+    for (int u = 0; u < kScLoads; ++u) {
+      const int v = t + (h * kScLoads + u) * kScThreads, r = v % 36, qv = v / 36;
+      const T* src = (r < 18 ? W + r * S : G + (r - 18) * S) + base + kVec * qv;
+      buf[u] = __ldg(reinterpret_cast<const V*>(src));
+    }
+    if (h == 0) {
+      const int q0 = offs[lane0];
+      const int n = offs[lane0 + kwin] - q0;  // at most chunk: the chunk's own triplets
+      for (int k = t; k < n; k += kScThreads) pair[k] = pairs[q0 + k];
+      for (int l = t; l <= kwin; l += kScThreads) loff[l] = offs[lane0 + l] - q0;
+      for (int l = t; l < kwin; l += kScThreads) lord[l] = lane_order[lane0 + l];
+    }
+#pragma unroll
+    for (int u = 0; u < kScLoads; ++u) {
+      const int v = t + (h * kScLoads + u) * kScThreads, r = v % 36, qv = v / 36;
+      scatter16((r < 18 ? wwin + r : gwin + (r - 18)) + kVec * qv * kSlot, kSlot, buf[u]);
+    }
   }
   __syncthreads();
 
@@ -324,31 +410,25 @@ schur_fused_kernel(const float* __restrict__ W, const float* __restrict__ G, int
     for (int item = t; item < 6 * kScPass; item += kScThreads) {
       const int k = item / 6, a = item - 6 * k;
       const int l = lord[p0 + k];  // a lane of this pass's 128
-      float s[6];
+      T s[6];
 #pragma unroll
-      for (int b = 0; b < 6; ++b) s[b] = 0.0f;
+      for (int b = 0; b < 6; ++b) s[b] = T(0);
       const int end = loff[l + 1];
 #pragma unroll 2
       for (int q = loff[l]; q < end; ++q) {
         const int pr = pair[q];
         if (pr >= 0) {
-          const float* w = wwin + (pr & 0xffff) * kScSlot + 3 * a;
-          const float4* g4 = reinterpret_cast<const float4*>(gwin + (pr >> 16) * kScSlot);
-          const float w0 = w[0], w1 = w[1], w2 = w[2];
-          float g[kScSlot];
+          const T* w = wwin + (pr & 0xffff) * kSlot + 3 * a;
+          const V* gv = reinterpret_cast<const V*>(gwin + (pr >> 16) * kSlot);
+          const T w0 = w[0], w1 = w[1], w2 = w[2];
+          T g[kSlot];
 #pragma unroll
-          for (int j = 0; j < kScSlot / 4; ++j) {
-            const float4 f = g4[j];
-            g[4 * j] = f.x;
-            g[4 * j + 1] = f.y;
-            g[4 * j + 2] = f.z;
-            g[4 * j + 3] = f.w;
-          }
+          for (int j = 0; j < kSlot / kVec; ++j) scatter16(g + kVec * j, 1, gv[j]);
 #pragma unroll
           for (int b = 0; b < 6; ++b) {
-            float x = __fmaf_rn(w0, g[3 * b], s[b]);
-            x = __fmaf_rn(w1, g[3 * b + 1], x);
-            s[b] = __fmaf_rn(w2, g[3 * b + 2], x);
+            T x = fma_rn(w0, g[3 * b], s[b]);
+            x = fma_rn(w1, g[3 * b + 1], x);
+            s[b] = fma_rn(w2, g[3 * b + 2], x);
           }
         }
       }
@@ -356,10 +436,10 @@ schur_fused_kernel(const float* __restrict__ W, const float* __restrict__ G, int
       for (int b = 0; b < 6; ++b) tile[(a * 6 + b) * kScTileStride + l - p0] = s[b];
     }
     __syncthreads();
-    for (int v = t; v < 36 * (kScPass / 4); v += kScThreads) {
-      const int r = v / (kScPass / 4), c4 = v - r * (kScPass / 4);
-      *reinterpret_cast<float4*>(out + r * lanes + lane0 + p0 + 4 * c4) =
-          *reinterpret_cast<const float4*>(tile + r * kScTileStride + 4 * c4);
+    for (int v = t; v < 36 * (kScPass / kVec); v += kScThreads) {
+      const int r = v / (kScPass / kVec), cv = v - r * (kScPass / kVec);
+      *reinterpret_cast<V*>(out + r * lanes + lane0 + p0 + kVec * cv) =
+          *reinterpret_cast<const V*>(tile + r * kScTileStride + kVec * cv);
     }
   }
 }
@@ -377,105 +457,114 @@ constexpr int kDenseTileQ = 128;  // occupancy tile cols, pose blocks: a dense b
 // threads over (r = i*6 + j, q), q fastest, place -gT[r or its transpose,
 // slot] from the row's table entries ent[q] (slot, bit 30 for a mirror; <
 // 0 none), plus the damped diagonal dbT[r, p] where q == diag_q.
-template <int Q>
-__device__ __forceinline__ void place_blocks(const float* __restrict__ gT, int MWg,
-                                             const int32_t* ent, const float* __restrict__ dbT,
-                                             int PB, int p, int diag_q, float* strip) {
+template <int Q, typename T>
+__device__ __forceinline__ void place_blocks(const T* __restrict__ gT, int MWg, const int32_t* ent,
+                                             const T* __restrict__ dbT, int PB, int p, int diag_q,
+                                             T* strip) {
   for (int v = threadIdx.x; v < 36 * Q; v += kCbThreads) {
     const int r = v / Q, q = v - r * Q;
     const int i = r / 6, j = r - 6 * i;
     const int en = ent[q];
-    float val = 0.0f;
+    T val = T(0);
     if (en >= 0) val = -gT[((en & kMirror) ? j * 6 + i : r) * MWg + (en & (kMirror - 1))];
     if (q == diag_q) val += dbT[r * PB + p];
     strip[i * 6 * Q + 6 * q + j] = val;
   }
 }
 
-// The strip's six rows of 6Q floats (zeros where strip is null) to dst,
-// row i at dst + i * stride4, as float4.
-template <int Q>
-__device__ __forceinline__ void store_strip(float4* dst, int stride4, const float4* strip) {
-  constexpr int kRowQuads = 6 * Q / 4;
-  for (int v = threadIdx.x; v < 6 * kRowQuads; v += kCbThreads) {
-    const int i = v / kRowQuads;
-    dst[i * stride4 + v - i * kRowQuads] =
-        strip != nullptr ? strip[v] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+// The strip's six rows of 6Q values (zeros where strip is null) to dst,
+// row i at dst + i * stride, in 16-byte stores (stride in those).
+template <int Q, typename T>
+__device__ __forceinline__ void store_strip(typename Vec16<T>::type* dst, int stride,
+                                            const typename Vec16<T>::type* strip) {
+  constexpr int kRowVecs = 6 * Q / Vec16<T>::n;
+  for (int v = threadIdx.x; v < 6 * kRowVecs; v += kCbThreads) {
+    const int i = v / kRowVecs;
+    dst[i * stride + v - i * kRowVecs] = strip != nullptr ? strip[v] : Vec16<T>::zero();
   }
 }
 
-// Block (p, e) writes rows 6p .. 6p+5 of band tile column e (384 floats
+// Block (p, e) writes rows 6p .. 6p+5 of band tile column e (384 values
 // each): zeros where tile (p / 64, e) is unoccupied; else its 64 table
 // entries are read once and placed (place_blocks) into a [6, 384] strip,
-// the diagonal where e == 0 and q == p % 64, and the strip goes out as
-// float4 rows.
+// the diagonal where e == 0 and q == p % 64, and the strip goes out in
+// 16-byte rows.
+template <typename T>
 __global__ void __launch_bounds__(kCbThreads)
-compact_to_band_kernel(const float* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
-                       const float* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
-                       float* __restrict__ out) {
-  __shared__ __align__(16) float strip[6 * kBandRows];
+compact_to_band_kernel(const T* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
+                       const T* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
+                       T* __restrict__ out) {
+  using V = typename Vec16<T>::type;
+  __shared__ __align__(16) T strip[6 * kBandRows];
   __shared__ int32_t ent[kBandTile];
   const int p = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
   const int k = p / kBandTile, pr = p - k * kBandTile;
-  float4* dst = reinterpret_cast<float4*>(out + (k * kBandRows + 6 * pr) * (2 * kBandRows) +
-                                          e * kBandRows);
+  V* dst = reinterpret_cast<V*>(out + (k * kBandRows + 6 * pr) * (2 * kBandRows) +
+                                e * kBandRows);
+  constexpr int kStride = 2 * kBandRows / Vec16<T>::n;
   // the occupancy and the table row are loaded together (one latency)
   const int en_t = t < kBandTile ? table[p * (2 * kBandTile) + e * kBandTile + t] : -1;
   if (occ[2 * k + e] <= 0) {  // uniform across the block
-    store_strip<kBandTile>(dst, 2 * kBandRows / 4, nullptr);
+    store_strip<kBandTile, T>(dst, kStride, nullptr);
     return;
   }
   if (t < kBandTile) ent[t] = en_t;
   __syncthreads();
   place_blocks<kBandTile>(gT, MWg, ent, dbT, PB, p, e == 0 ? pr : -1, strip);
   __syncthreads();
-  store_strip<kBandTile>(dst, 2 * kBandRows / 4, reinterpret_cast<const float4*>(strip));
+  store_strip<kBandTile, T>(dst, kStride, reinterpret_cast<const V*>(strip));
 }
 
 // Block (p, e) writes rows 6p .. 6p+5 of dense columns 768e .. 768e+767
 // (pose blocks 128e .. 128e+127): zeros where the 64x128-block tile (p /
 // 64, e) is unoccupied; else table[p, 128e : 128e+128] is read once and
 // placed into a [6, 768] strip, the diagonal where 128e + q == p, and the
-// strip goes out as float4 rows.  gridDim.y = PB / 128.
+// strip goes out in 16-byte rows.  gridDim.y = PB / 128.
+template <typename T>
 __global__ void __launch_bounds__(kCbThreads)
-compact_to_dense_kernel(const float* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
-                        const float* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
-                        float* __restrict__ out) {
-  __shared__ __align__(16) float strip[6 * 6 * kDenseTileQ];
+compact_to_dense_kernel(const T* __restrict__ gT, int MWg, const int32_t* __restrict__ table,
+                        const T* __restrict__ dbT, int PB, const int32_t* __restrict__ occ,
+                        T* __restrict__ out) {
+  using V = typename Vec16<T>::type;
+  __shared__ __align__(16) T strip[6 * 6 * kDenseTileQ];
   __shared__ int32_t ent[kDenseTileQ];
   const int p = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
   const int n = 6 * PB;
-  float4* dst = reinterpret_cast<float4*>(out + 6 * p * n + e * (6 * kDenseTileQ));
+  V* dst = reinterpret_cast<V*>(out + 6 * p * n + e * (6 * kDenseTileQ));
   const int en_t = t < kDenseTileQ ? table[p * PB + e * kDenseTileQ + t] : -1;
   if (occ[(p / kDenseTileP) * static_cast<int>(gridDim.y) + e] <= 0) {  // uniform
-    store_strip<kDenseTileQ>(dst, n / 4, nullptr);
+    store_strip<kDenseTileQ, T>(dst, n / Vec16<T>::n, nullptr);
     return;
   }
   if (t < kDenseTileQ) ent[t] = en_t;
   __syncthreads();
   place_blocks<kDenseTileQ>(gT, MWg, ent, dbT, PB, p, p - e * kDenseTileQ, strip);
   __syncthreads();
-  store_strip<kDenseTileQ>(dst, n / 4, reinterpret_cast<const float4*>(strip));
+  store_strip<kDenseTileQ, T>(dst, n / Vec16<T>::n, reinterpret_cast<const V*>(strip));
 }
 
 constexpr int kTpQ = 32;             // pose columns per band_transpose block
 constexpr int kTpCols = 6 * kTpQ;    // its 192 output columns, one per thread
-constexpr int kTpStride = kTpQ + 6;  // shared row stride: 38 floats
+// Shared row stride, in elements: 38.  The reads (6i + j) * 38 + q of a
+// warp (q = t / 6, j = t % 6) meet at most two to a bank in fp32 (32 banks
+// of 4 bytes) and at most two to a bank pair in fp64 (a half-warp's 8-byte
+// reads over 16 pairs); no stride from 32 to 49 does better in either.
+constexpr int kTpStride = kTpQ + 6;
 
-__global__ void band_transpose_kernel(const float* __restrict__ m4,
-                                      const int32_t* __restrict__ occ, int64_t PB,
-                                      float* __restrict__ out) {
-  __shared__ float tile[36 * kTpStride];
+template <typename T>
+__global__ void band_transpose_kernel(const T* __restrict__ m4, const int32_t* __restrict__ occ,
+                                      int64_t PB, T* __restrict__ out) {
+  __shared__ T tile[36 * kTpStride];
   const int64_t p = blockIdx.x;
   const int64_t q0 = static_cast<int64_t>(blockIdx.y) * kTpQ;
   const int64_t n = 6 * PB;
   const int t = threadIdx.x;
-  float* dst = out + 6 * p * n + 6 * q0 + t;
+  T* dst = out + 6 * p * n + 6 * q0 + t;
   // the block's 32 columns share one 64x128-block occupancy tile: the branch
   // is uniform across the block
   if (occ[(p / kDenseTileP) * (PB / kDenseTileQ) + q0 / kDenseTileQ] <= 0) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) dst[i * n] = 0.0f;
+    for (int i = 0; i < 6; ++i) dst[i * n] = T(0);
     return;
   }
   for (int k = t; k < 36 * kTpQ; k += kTpCols) {
@@ -492,32 +581,24 @@ unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
+// ---- the entry points, one template each; extern "C" below instantiates
+// them for float (cuba_<entry>) and double (cuba_<entry>_f64)
 
-extern "C" {
-
-// src [D, S], ids [N] int32, out [D, N]; all contiguous fp32/int32, with
-// D*S and D*N within int32.
-int cuba_gather_cols(const float* src, const int32_t* ids, float* out,
-                     int64_t D, int64_t S, int64_t N, void* stream) {
+template <typename T>
+int gather_cols(const T* src, const int32_t* ids, T* out, int64_t D, int64_t S, int64_t N,
+                void* stream) {
   if (D * S > kInt32Max || D * N > kInt32Max) return static_cast<int>(cudaErrorInvalidValue);
   if (D * N > 0) {
-    gather_cols_kernel<<<blocks_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    gather_cols_kernel<T><<<blocks_for(N), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         src, ids, out, static_cast<int>(D), static_cast<int>(S), static_cast<int>(N));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals [D, N], order [offs[num_out]] int32 (column of vals per CSR entry),
-// offs [num_out + 1] int32, out [D, num_out]; group G in {1, 2, 4, 8, 16,
-// 32} lanes per segment, rows (1 to 4) rows per chunk; D*N, D*num_out and
-// num_out*G within int32.  live (or null) lists the num_live non-empty
-// segments: then out is zeroed first and only those are summed.  Neither
-// the row chunking nor live changes any output's summation order, only how
-// the work is spread.
-int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs,
-                    const int32_t* live, int64_t num_live, float* out, int64_t D, int64_t N,
-                    int64_t num_out, int64_t group, int64_t rows, void* stream) {
+template <typename T>
+int segsum_csr(const T* vals, const int32_t* order, const int32_t* offs, const int32_t* live,
+               int64_t num_live, T* out, int64_t D, int64_t N, int64_t num_out, int64_t group,
+               int64_t rows, void* stream) {
   if (D * N > kInt32Max || D * num_out > kInt32Max || num_out * group > kInt32Max - kThreads ||
       rows < 1 || rows > kRowChunk || (D + rows - 1) / rows > 65535 || num_live > num_out) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -527,37 +608,30 @@ int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs
     const int r = static_cast<int>(rows), c = static_cast<int>(num_live);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (group) {
-      case 1: launch_segsum<1>(vals, order, offs, live, c, out, d, n, m, r, st); break;
-      case 2: launch_segsum<2>(vals, order, offs, live, c, out, d, n, m, r, st); break;
-      case 4: launch_segsum<4>(vals, order, offs, live, c, out, d, n, m, r, st); break;
-      case 8: launch_segsum<8>(vals, order, offs, live, c, out, d, n, m, r, st); break;
-      case 16: launch_segsum<16>(vals, order, offs, live, c, out, d, n, m, r, st); break;
-      case 32: launch_segsum<32>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 1: launch_segsum<1, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 2: launch_segsum<2, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 4: launch_segsum<4, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 8: launch_segsum<8, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 16: launch_segsum<16, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
+      case 32: launch_segsum<32, T>(vals, order, offs, live, c, out, d, n, m, r, st); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// W, G [18, S], 16-byte aligned, S % 4 == 0, S >= (max sb + 2) * slot_block;
-// sb [C]; pairs/offs: the per-lane CSR (offs [C*kwin + 1]) with pairs[q] =
-// li | lj << 16 of entry q's triplet, -1 where it is dropped; lane_order
-// [C*kwin]: a permutation of each chunk's lanes within groups of 128; out
-// [36, C*kwin], 16-byte aligned.  slot_block 256 (a 512-slot window), chunk
-// the plan's (at least the entries of a chunk's lanes), kwin a multiple of
-// 128.
-int cuba_schur_fused(const float* W, const float* G, int64_t S, const int32_t* sb,
-                     const int32_t* pairs, const int32_t* offs, const int32_t* lane_order,
-                     int64_t slot_block, int64_t chunk, int64_t kwin, int64_t C, float* out,
-                     void* stream) {
-  const size_t smem = schur_smem_bytes(chunk, kwin);
+template <typename T>
+int schur_fused(const T* W, const T* G, int64_t S, const int32_t* sb, const int32_t* pairs,
+                const int32_t* offs, const int32_t* lane_order, int64_t slot_block,
+                int64_t chunk, int64_t kwin, int64_t C, T* out, void* stream) {
+  const size_t smem = schur_smem_bytes<T>(chunk, kwin);
   if (2 * slot_block != kScWin || kwin % kScPass != 0 || chunk <= 0 || C > kInt32Max ||
       smem > 232448) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* fn = reinterpret_cast<const void*>(schur_fused_kernel);
+  const void* fn = reinterpret_cast<const void*>(schur_fused_kernel<T>);
   if (C * kwin == 0) return static_cast<int>(cudaGetLastError());
-  // above 48 KB only after this opt-in; cheap, and idempotent
+  // above 48 KB only after this opt-in (per instantiation); cheap, and idempotent
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -570,59 +644,50 @@ int cuba_schur_fused(const float* W, const float* G, int64_t S, const int32_t* s
   return static_cast<int>(cudaGetLastError());
 }
 
-// gT [36, MWg]; table [PB, 128]; dbT [36, PB]; occ [2M]; out [M*384, 768],
-// 16-byte aligned; PB = 64 M; M*384*768 and 36*MWg within int32.
-int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
-                         const float* dbT, int64_t PB, const int32_t* occ, int64_t M,
-                         float* out, void* stream) {
+template <typename T>
+int compact_to_band(const T* gT, int64_t MWg, const int32_t* table, const T* dbT, int64_t PB,
+                    const int32_t* occ, int64_t M, T* out, void* stream) {
   if (PB != M * kBandTile || M * kBandRows * 2 * kBandRows > kInt32Max ||
       36 * MWg > kInt32Max) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M > 0) {
-    compact_to_band_kernel<<<dim3(static_cast<unsigned int>(PB), 2), kCbThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    compact_to_band_kernel<T><<<dim3(static_cast<unsigned int>(PB), 2), kCbThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         gT, static_cast<int>(MWg), table, dbT, static_cast<int>(PB), occ, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// gT [36, MWg]; table [PB, PB]; dbT [36, PB]; occ [PB/64 * PB/128];
-// out [6PB, 6PB], 16-byte aligned; PB a multiple of 128; 36*PB^2 and
-// 36*MWg within int32.
-int cuba_compact_to_dense(const float* gT, int64_t MWg, const int32_t* table,
-                          const float* dbT, int64_t PB, const int32_t* occ, float* out,
-                          void* stream) {
+template <typename T>
+int compact_to_dense(const T* gT, int64_t MWg, const int32_t* table, const T* dbT, int64_t PB,
+                     const int32_t* occ, T* out, void* stream) {
   if (PB % kDenseTileQ != 0 || 36 * PB * PB > kInt32Max || 36 * MWg > kInt32Max) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (PB > 0) {
     const dim3 grid(static_cast<unsigned int>(PB), static_cast<unsigned int>(PB / kDenseTileQ));
-    compact_to_dense_kernel<<<grid, kCbThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    compact_to_dense_kernel<T><<<grid, kCbThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         gT, static_cast<int>(MWg), table, dbT, static_cast<int>(PB), occ, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// m4 [36, PB, PB]; occ [PB/64 * PB/128]; out [6PB, 6PB]; PB a multiple of 128.
-int cuba_band_transpose(const float* m4, const int32_t* occ, int64_t PB, float* out,
-                        void* stream) {
+template <typename T>
+int band_transpose(const T* m4, const int32_t* occ, int64_t PB, T* out, void* stream) {
   if (PB > 0) {
     const dim3 grid(static_cast<unsigned int>(PB), static_cast<unsigned int>(PB / kTpQ));
-    band_transpose_kernel<<<grid, kTpCols, 0, static_cast<cudaStream_t>(stream)>>>(
+    band_transpose_kernel<T><<<grid, kTpCols, 0, static_cast<cudaStream_t>(stream)>>>(
         m4, occ, PB, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the build made of a kernel: out = {registers a thread, local
-// (spilled) bytes a thread, static shared bytes, blocks an SM can hold at
-// `smem` dynamic shared bytes}.  which: 0 compact_to_band, 1 schur_fused,
-// 2 compact_to_dense.
-int cuba_segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
-  const void* fns[] = {reinterpret_cast<const void*>(compact_to_band_kernel),
-                       reinterpret_cast<const void*>(schur_fused_kernel),
-                       reinterpret_cast<const void*>(compact_to_dense_kernel)};
+template <typename T>
+int segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
+  const void* fns[] = {reinterpret_cast<const void*>(compact_to_band_kernel<T>),
+                       reinterpret_cast<const void*>(schur_fused_kernel<T>),
+                       reinterpret_cast<const void*>(compact_to_dense_kernel<T>)};
   if (which < 0 || which > 2) return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = fns[which];
   const int threads = which == 1 ? kScThreads : kCbThreads;
@@ -643,6 +708,119 @@ int cuba_segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
   out[2] = static_cast<int64_t>(attr.sharedSizeBytes);
   out[3] = blocks;
   return 0;
+}
+
+}  // namespace
+
+// Every entry has an _f64 twin with the same parameters, double* in place
+// of float*: the same kernel built for fp64 (segmm.py picks the symbol by
+// the tensors' dtype).
+extern "C" {
+
+// src [D, S], ids [N] int32, out [D, N]; all contiguous fp32/int32, with
+// D*S and D*N within int32.
+int cuba_gather_cols(const float* src, const int32_t* ids, float* out,
+                     int64_t D, int64_t S, int64_t N, void* stream) {
+  return gather_cols(src, ids, out, D, S, N, stream);
+}
+
+int cuba_gather_cols_f64(const double* src, const int32_t* ids, double* out,
+                         int64_t D, int64_t S, int64_t N, void* stream) {
+  return gather_cols(src, ids, out, D, S, N, stream);
+}
+
+// vals [D, N], order [offs[num_out]] int32 (column of vals per CSR entry),
+// offs [num_out + 1] int32, out [D, num_out]; group G in {1, 2, 4, 8, 16,
+// 32} lanes per segment, rows (1 to 4) rows per chunk; D*N, D*num_out and
+// num_out*G within int32.  live (or null) lists the num_live non-empty
+// segments: then out is zeroed first and only those are summed.  Neither
+// the row chunking nor live changes any output's summation order, only how
+// the work is spread.
+int cuba_segsum_csr(const float* vals, const int32_t* order, const int32_t* offs,
+                    const int32_t* live, int64_t num_live, float* out, int64_t D, int64_t N,
+                    int64_t num_out, int64_t group, int64_t rows, void* stream) {
+  return segsum_csr(vals, order, offs, live, num_live, out, D, N, num_out, group, rows, stream);
+}
+
+int cuba_segsum_csr_f64(const double* vals, const int32_t* order, const int32_t* offs,
+                        const int32_t* live, int64_t num_live, double* out, int64_t D, int64_t N,
+                        int64_t num_out, int64_t group, int64_t rows, void* stream) {
+  return segsum_csr(vals, order, offs, live, num_live, out, D, N, num_out, group, rows, stream);
+}
+
+// W, G [18, S], 16-byte aligned, rows a multiple of 16 bytes, S >= (max sb
+// + 2) * slot_block; sb [C]; pairs/offs: the per-lane CSR (offs [C*kwin +
+// 1]) with pairs[q] = li | lj << 16 of entry q's triplet, -1 where it is
+// dropped; lane_order [C*kwin]: a permutation of each chunk's lanes within
+// groups of 128; out [36, C*kwin], 16-byte aligned.  slot_block 256 (a
+// 512-slot window), chunk the plan's (at least the entries of a chunk's
+// lanes), kwin a multiple of 128.
+int cuba_schur_fused(const float* W, const float* G, int64_t S, const int32_t* sb,
+                     const int32_t* pairs, const int32_t* offs, const int32_t* lane_order,
+                     int64_t slot_block, int64_t chunk, int64_t kwin, int64_t C, float* out,
+                     void* stream) {
+  return schur_fused(W, G, S, sb, pairs, offs, lane_order, slot_block, chunk, kwin, C, out,
+                     stream);
+}
+
+int cuba_schur_fused_f64(const double* W, const double* G, int64_t S, const int32_t* sb,
+                         const int32_t* pairs, const int32_t* offs, const int32_t* lane_order,
+                         int64_t slot_block, int64_t chunk, int64_t kwin, int64_t C, double* out,
+                         void* stream) {
+  return schur_fused(W, G, S, sb, pairs, offs, lane_order, slot_block, chunk, kwin, C, out,
+                     stream);
+}
+
+// gT [36, MWg]; table [PB, 128]; dbT [36, PB]; occ [2M]; out [M*384, 768],
+// 16-byte aligned; PB = 64 M; M*384*768 and 36*MWg within int32.
+int cuba_compact_to_band(const float* gT, int64_t MWg, const int32_t* table,
+                         const float* dbT, int64_t PB, const int32_t* occ, int64_t M,
+                         float* out, void* stream) {
+  return compact_to_band(gT, MWg, table, dbT, PB, occ, M, out, stream);
+}
+
+int cuba_compact_to_band_f64(const double* gT, int64_t MWg, const int32_t* table,
+                             const double* dbT, int64_t PB, const int32_t* occ, int64_t M,
+                             double* out, void* stream) {
+  return compact_to_band(gT, MWg, table, dbT, PB, occ, M, out, stream);
+}
+
+// gT [36, MWg]; table [PB, PB]; dbT [36, PB]; occ [PB/64 * PB/128];
+// out [6PB, 6PB], 16-byte aligned; PB a multiple of 128; 36*PB^2 and
+// 36*MWg within int32.
+int cuba_compact_to_dense(const float* gT, int64_t MWg, const int32_t* table,
+                          const float* dbT, int64_t PB, const int32_t* occ, float* out,
+                          void* stream) {
+  return compact_to_dense(gT, MWg, table, dbT, PB, occ, out, stream);
+}
+
+int cuba_compact_to_dense_f64(const double* gT, int64_t MWg, const int32_t* table,
+                              const double* dbT, int64_t PB, const int32_t* occ, double* out,
+                              void* stream) {
+  return compact_to_dense(gT, MWg, table, dbT, PB, occ, out, stream);
+}
+
+// m4 [36, PB, PB]; occ [PB/64 * PB/128]; out [6PB, 6PB]; PB a multiple of 128.
+int cuba_band_transpose(const float* m4, const int32_t* occ, int64_t PB, float* out,
+                        void* stream) {
+  return band_transpose(m4, occ, PB, out, stream);
+}
+
+int cuba_band_transpose_f64(const double* m4, const int32_t* occ, int64_t PB, double* out,
+                            void* stream) {
+  return band_transpose(m4, occ, PB, out, stream);
+}
+
+// What the build made of a kernel: out = {registers a thread, local
+// (spilled) bytes a thread, static shared bytes, blocks an SM can hold at
+// `smem` dynamic shared bytes}.  which: 0 compact_to_band, 1 schur_fused,
+// 2 compact_to_dense.
+int cuba_segmm_attributes(int64_t which, int64_t smem, int64_t* out) {
+  return segmm_attributes<float>(which, smem, out);
+}
+
+int cuba_segmm_attributes_f64(int64_t which, int64_t smem, int64_t* out) {
+  return segmm_attributes<double>(which, smem, out);
 }
 
 }  // extern "C"

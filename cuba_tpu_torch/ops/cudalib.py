@@ -10,7 +10,13 @@ Dispatch: a CPU tensor takes a wrapper's plain torch version, a CUDA tensor
 the kernel (or an exception: there is no fallback).  :func:`use_plain`
 switches CUDA tensors to the plain versions too, for the comparisons in the
 tests and ``chip_smoke.py``.  Every kernel launch adds one to
-``LAUNCHES[wrapper name]``.
+``LAUNCHES[wrapper name]`` (:func:`count`), and an fp64 launch to
+``LAUNCHES_F64[wrapper name]`` as well.
+
+Element types: ``csrc/segmm.cu`` builds each of its kernels for float32
+and float64 (entry ``cuba_<name>`` and its twin ``cuba_<name>_f64``,
+:func:`symbol`); a call takes the one float dtype of its float inputs
+(:func:`float_dtype`).  ``csrc/trisolve.cu`` is float32 only.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ LAUNCHES = {
     "solve_upper": 0,
     "matvec": 0,
 }
+# the same counts, of fp64 launches only
+LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 _FORCE_PLAIN = [False]
 
 _lock = threading.Lock()
@@ -58,6 +66,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCHES_F64[k] = 0
+
+
+def count(name: str, dtype: torch.dtype) -> None:
+    """One launch of wrapper ``name``'s kernel, built for ``dtype``."""
+    LAUNCHES[name] += 1
+    if dtype == torch.float64:
+        LAUNCHES_F64[name] += 1
 
 
 @contextlib.contextmanager
@@ -182,7 +198,32 @@ def check_int32(what: str, *sizes: int) -> None:
         raise ValueError(f"{what}: {max(sizes)} elements exceed the kernel's int32 indexing")
 
 
+FLOAT_DTYPES = (torch.float32, torch.float64)
+
+
+def float_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The one float dtype of a call's float inputs, float32 or float64;
+    TypeError for another dtype or for inputs of both."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(FLOAT_DTYPES):
+        raise TypeError(f"expected float32 or float64 inputs of one dtype, got "
+                        f"{sorted(str(d) for d in dtypes)}")
+    return dtypes.pop()
+
+
+def symbol(entry: str, dtype: torch.dtype) -> str:
+    """The C entry point of ``entry``'s kernel built for ``dtype``:
+    ``entry`` for float32, ``entry + "_f64"`` for float64."""
+    if dtype == torch.float32:
+        return entry
+    if dtype == torch.float64:
+        return entry + "_f64"
+    raise TypeError(f"{entry}: no kernel built for {dtype}")
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D tensor of ``dtype``
+    (for a float input, the call's :func:`float_dtype`)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:

@@ -1,9 +1,10 @@
 """Gathers, segment sums and the Schur formation over transposed
-``[D, N]`` fp32 tables.
+``[D, N]`` fp32 or fp64 tables.
 
 Port of the ten one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``.
 Each wrapper keeps its TPU kernel's
-argument list, output shape and layout (fp32) and invalid-id rules:
+argument list, output shape and layout and invalid-id rules; its output
+takes its inputs' dtype:
 
 * gathers ``resident_gather`` / ``windowed_gather`` / ``tiled_gather``:
   ``out[:, n] = src[:, ids[n]]``, 0 where ``ids[n] < 0`` or ``>= S``;
@@ -29,10 +30,12 @@ a call site are built once per structure by the planner
 build a missing CSR on the spot (which only tests do).
 
 Dispatch (``ops/cudalib.py``): a CPU tensor takes the ``*_plain`` torch
-version, a CUDA tensor the kernel (or an exception: there is no fallback).
+version, a CUDA tensor the kernel built for its dtype (float32: entry
+``cuba_<name>``; float64: ``cuba_<name>_f64``; anything else, or a call
+mixing the two, raises: there is no fallback).
 :func:`use_plain` switches CUDA tensors to the plain versions too, for the
 comparisons in the tests and ``chip_smoke.py``.  Every kernel launch adds
-one to ``LAUNCHES[wrapper name]``.
+one to ``LAUNCHES[wrapper name]``, an fp64 one to ``LAUNCHES_F64`` too.
 
 The host plans (:class:`TilePlan`, :class:`AccumWindowPlan`,
 :class:`SchurPlan` and their planners) are NumPy copies of ``cuba_tpu``'s:
@@ -53,7 +56,7 @@ from cuba_tpu_torch import native
 from cuba_tpu_torch.ops import cudalib
 # re-exported: the launch counts, the plain-version switch and the build
 from cuba_tpu_torch.ops.cudalib import (  # noqa: F401
-    LAUNCHES, build_kernels, reset_launches, use_plain)
+    LAUNCHES, LAUNCHES_F64, build_kernels, reset_launches, use_plain)
 
 # ---------------------------------------------------------------------------
 # host plans (NumPy copies of cuba_tpu/ops/segmm.py's planners)
@@ -495,30 +498,39 @@ _SIGNATURES = {
     "cuba_compact_to_dense": [_vp, _i64, _vp, _vp, _i64, _vp, _vp, _vp],
     "cuba_band_transpose": [_vp, _vp, _i64, _vp, _vp],
 }
+# each entry's fp64 twin takes the same arguments
+_SIGNATURES.update({cudalib.symbol(k, torch.float64): v for k, v in list(_SIGNATURES.items())})
 
 
 def _kernel_lib() -> ctypes.CDLL:
     return cudalib.library("segmm", _SIGNATURES)
 
 
+def _entry(name: str, dtype: torch.dtype):
+    """The library's entry point ``name`` built for ``dtype``."""
+    return getattr(_kernel_lib(), cudalib.symbol(name, dtype))
+
+
 def _launch_gather(name: str, src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    cudalib.check(src, "src", torch.float32, 2)
+    dt = cudalib.float_dtype(src)
+    cudalib.check(src, "src", dt, 2)
     cudalib.check(ids, "ids", torch.int32, 1)
     D, S = src.shape
     N = ids.shape[0]
     cudalib.check_int32(name, D * S, D * N)
-    out = torch.empty((D, N), dtype=torch.float32, device=src.device)
+    out = torch.empty((D, N), dtype=dt, device=src.device)
     if D * N == 0:
         return out
-    cudalib.call(name, src, _kernel_lib().cuba_gather_cols,
+    cudalib.call(name, src, _entry("cuba_gather_cols", dt),
                  src.data_ptr(), ids.data_ptr(), out.data_ptr(), D, S, N)
-    LAUNCHES[name] += 1
+    cudalib.count(name, dt)
     return out
 
 
 def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
                    csr: SegmentCSR) -> torch.Tensor:
-    cudalib.check(vals, "vals", torch.float32, 2)
+    dt = cudalib.float_dtype(vals)
+    cudalib.check(vals, "vals", dt, 2)
     cudalib.check(csr.order, "csr.order", torch.int32, 1)
     cudalib.check(csr.offs, "csr.offs", torch.int32, 1)
     if csr.offs.shape[0] != num_out + 1:
@@ -530,14 +542,14 @@ def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
             raise ValueError("csr tensors must be on the device of vals")
     D, N = vals.shape
     cudalib.check_int32(name, D * N, D * num_out, num_out * MAX_GROUP)
-    out = torch.empty((D, num_out), dtype=torch.float32, device=vals.device)
+    out = torch.empty((D, num_out), dtype=dt, device=vals.device)
     if D * num_out == 0:
         return out
     live, num_live = (None, 0) if csr.live is None else (csr.live.data_ptr(), csr.live.numel())
-    cudalib.call(name, vals, _kernel_lib().cuba_segsum_csr,
+    cudalib.call(name, vals, _entry("cuba_segsum_csr", dt),
                  vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(), live, num_live,
                  out.data_ptr(), D, N, num_out, csr.group, row_chunk(D, N, csr.group))
-    LAUNCHES[name] += 1
+    cudalib.count(name, dt)
     return out
 
 
@@ -660,29 +672,33 @@ def schur_fused_plain(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr=None):
 
 
 SCHUR_WINDOW = 512  # slots a chunk reads from W and from G (2 * slot_block; kScWin)
-SCHUR_SLOT = 20  # floats of a staged slot: its 18 values, padded to 5 float4 (kScSlot)
+SCHUR_SLOT = 20  # floats of a staged fp32 slot: its 18 values, padded to 5 float4 (kSlot)
+SCHUR_SLOT_F64 = 18  # doubles of a staged fp64 slot: its 18 values, 9 double2, no padding
+_SCHUR_SLOTS = {torch.float32: SCHUR_SLOT, torch.float64: SCHUR_SLOT_F64}
 SCHUR_THREADS = 256  # threads a block (one block per chunk; kScThreads), six a lane
 
 
-def schur_fused_launch(plan: SchurPlan) -> dict:
-    """``schur_fused_kernel``'s launch at the plan: a ``grid`` of one block
-    per chunk, ``threads`` a block and ``smem`` dynamic shared bytes (the W
-    and G windows [2, 512, 20] floats, the chunk's pairs, lane offsets and
-    lane order padded to 4 ints, and a [36, 132] output tile)."""
+def schur_fused_launch(plan: SchurPlan, dtype: torch.dtype = torch.float32) -> dict:
+    """``schur_fused_kernel``'s launch at the plan for ``dtype``: a ``grid``
+    of one block per chunk, ``threads`` a block and ``smem`` dynamic shared
+    bytes (the W and G windows [2, 512, slot] values, slot SCHUR_SLOT in
+    fp32 and SCHUR_SLOT_F64 in fp64; the chunk's pairs, lane offsets and
+    lane order padded to 4 ints; and a [36, 132] output tile of values)."""
     ints = (plan.chunk + 2 * plan.kwin + 1 + 3) // 4 * 4
+    values = 2 * SCHUR_WINDOW * _SCHUR_SLOTS[dtype] + 36 * (SCHUR_PASS + 4)
     return dict(grid=[plan.num_chunks], threads=SCHUR_THREADS,
-                smem=4 * (2 * SCHUR_WINDOW * SCHUR_SLOT + ints + 36 * (SCHUR_PASS + 4)))
+                smem=dtype.itemsize * values + 4 * ints)
 
 
-def kernel_attributes(name: str, launch: dict) -> dict:
+def kernel_attributes(name: str, launch: dict, dtype: torch.dtype = torch.float32) -> dict:
     """What the build made of ``schur_fused``'s, ``compact_to_band``'s or
-    ``compact_to_dense``'s kernel: ``registers`` and ``spill_bytes`` a
-    thread, and ``blocks_per_sm`` at the launch's threads and dynamic
-    shared bytes (schur_fused's alone; on the card only)."""
+    ``compact_to_dense``'s kernel for ``dtype``: ``registers`` and
+    ``spill_bytes`` a thread, and ``blocks_per_sm`` at the launch's threads
+    and dynamic shared bytes (schur_fused's alone; on the card only)."""
     which = {"compact_to_band": 0, "schur_fused": 1, "compact_to_dense": 2}[name]
     out = (ctypes.c_int64 * 4)()
-    err = _kernel_lib().cuba_segmm_attributes(which, launch["smem"] if which == 1 else 0,
-                                              ctypes.addressof(out))
+    err = _entry("cuba_segmm_attributes", dtype)(which, launch["smem"] if which == 1 else 0,
+                                                  ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name}: kernel attributes not read (cudaError {err})")
     return dict(registers=out[0], spill_bytes=out[1], blocks_per_sm=out[3])
@@ -709,11 +725,12 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
         raise ValueError("sb/li/lj/lk do not match the plan")
     if not cudalib.use_kernel(W, G, sb, li, lj, lk):
         return schur_fused_plain(W, G, plan, sb, li, lj, lk)
+    dt = cudalib.float_dtype(W, G)
     for t, name in ((W, "W"), (G, "G")):
-        cudalib.check(t, name, torch.float32, 2)
-        if t.data_ptr() % 16 or t.shape[1] % 4:
+        cudalib.check(t, name, dt, 2)
+        if t.data_ptr() % 16 or t.shape[1] * t.element_size() % 16:
             raise ValueError(f"schur_fused: {name} must be 16-byte aligned with rows of a "
-                             f"multiple of 4 floats (16-byte window copies)")
+                             f"multiple of 16 bytes (16-byte window copies)")
     cudalib.check(sb, "sb", torch.int32, 1)
     if csr is None or csr.pairs is None or csr.lane_order is None:
         raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
@@ -729,12 +746,12 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
         raise ValueError(f"schur_fused: the kernel takes a {SCHUR_WINDOW}-slot window and "
                          f"kwin a multiple of {SCHUR_PASS}, not slot_block {plan.slot_block}, "
                          f"kwin {KW}")
-    out = torch.empty((36, C * KW), dtype=torch.float32, device=W.device)
-    cudalib.call("schur_fused", W, _kernel_lib().cuba_schur_fused,
+    out = torch.empty((36, C * KW), dtype=dt, device=W.device)
+    cudalib.call("schur_fused", W, _entry("cuba_schur_fused", dt),
                  W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), csr.pairs.data_ptr(),
                  csr.offs.data_ptr(), csr.lane_order.data_ptr(), plan.slot_block, plan.chunk,
                  KW, C, out.data_ptr())
-    LAUNCHES["schur_fused"] += 1
+    cudalib.count("schur_fused", dt)
     return out
 
 
@@ -764,11 +781,12 @@ def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, tabl
 BAND_THREADS = 192  # threads a block of compact_to_band_kernel and compact_to_dense_kernel
 
 
-def compact_to_band_launch(PB: int) -> dict:
-    """``compact_to_band_kernel``'s launch: a ``grid`` of one block per
-    (pose row, tile column), ``threads`` a block and its static ``smem``
-    (the [6, 384] strip and the row's 64 table entries)."""
-    return dict(grid=[PB, 2], threads=BAND_THREADS, smem=4 * (6 * 6 * BAND_TILE + BAND_TILE))
+def compact_to_band_launch(PB: int, dtype: torch.dtype = torch.float32) -> dict:
+    """``compact_to_band_kernel``'s launch for ``dtype``: a ``grid`` of one
+    block per (pose row, tile column), ``threads`` a block and its static
+    ``smem`` (the [6, 384] strip of values and the row's 64 table entries)."""
+    return dict(grid=[PB, 2], threads=BAND_THREADS,
+                smem=dtype.itemsize * 6 * 6 * BAND_TILE + 4 * BAND_TILE)
 
 
 def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
@@ -791,8 +809,9 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
                          f"{tuple(occ_band.shape)} do not fit PB={PB}, Wg={Wg}")
     if not cudalib.use_kernel(gT, iru, icu, dbT, occ_band):
         return compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB, Wg)
-    cudalib.check(gT, "gT", torch.float32, 2)
-    cudalib.check(dbT, "dbT", torch.float32, 2)
+    dt = cudalib.float_dtype(gT, dbT)
+    cudalib.check(gT, "gT", dt, 2)
+    cudalib.check(dbT, "dbT", dt, 2)
     cudalib.check(occ_band, "occ_band", torch.int32, 1)
     if table is None:
         raise ValueError("compact_to_band: the kernel needs table=band_table(iru, icu, PB)")
@@ -800,12 +819,11 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
     if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
     cudalib.check_int32("compact_to_band", M * 6 * BAND_TILE * 12 * BAND_TILE, gT.numel())
-    out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=torch.float32,
-                      device=gT.device)
-    cudalib.call("compact_to_band", gT, _kernel_lib().cuba_compact_to_band,
+    out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=dt, device=gT.device)
+    cudalib.call("compact_to_band", gT, _entry("cuba_compact_to_band", dt),
                  gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
                  occ_band.data_ptr(), M, out.data_ptr())
-    LAUNCHES["compact_to_band"] += 1
+    cudalib.count("compact_to_band", dt)
     return out
 
 
@@ -832,13 +850,13 @@ def compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *, table=N
     return out.reshape(6 * PB, 6 * PB)
 
 
-def compact_to_dense_launch(PB: int) -> dict:
-    """``compact_to_dense_kernel``'s launch: a ``grid`` of one block per
-    (pose row, column tile of DENSE_TILE_Q pose blocks), ``threads`` a
-    block and its static ``smem`` (the [6, 768] strip and the tile's 128
-    table entries)."""
+def compact_to_dense_launch(PB: int, dtype: torch.dtype = torch.float32) -> dict:
+    """``compact_to_dense_kernel``'s launch for ``dtype``: a ``grid`` of one
+    block per (pose row, column tile of DENSE_TILE_Q pose blocks),
+    ``threads`` a block and its static ``smem`` (the [6, 768] strip of
+    values and the tile's 128 table entries)."""
     return dict(grid=[PB, PB // DENSE_TILE_Q], threads=BAND_THREADS,
-                smem=4 * (6 * 6 * DENSE_TILE_Q + DENSE_TILE_Q))
+                smem=dtype.itemsize * 6 * 6 * DENSE_TILE_Q + 4 * DENSE_TILE_Q)
 
 
 def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
@@ -862,8 +880,9 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
                          f"{tuple(occ2.shape)} do not fit PB={PB}, Wg={Wg}")
     if not cudalib.use_kernel(gT, iru, icu, dbT, occ2):
         return compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB, Wg)
-    cudalib.check(gT, "gT", torch.float32, 2)
-    cudalib.check(dbT, "dbT", torch.float32, 2)
+    dt = cudalib.float_dtype(gT, dbT)
+    cudalib.check(gT, "gT", dt, 2)
+    cudalib.check(dbT, "dbT", dt, 2)
     cudalib.check(occ2, "occ2", torch.int32, 1)
     if table is None:
         raise ValueError("compact_to_dense: the kernel needs table=dense_table(iru, icu, PB)")
@@ -871,11 +890,11 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
     if tuple(table.shape) != (PB, PB) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
     cudalib.check_int32("compact_to_dense", 36 * PB * PB, gT.numel())
-    out = torch.empty((6 * PB, 6 * PB), dtype=torch.float32, device=gT.device)
-    cudalib.call("compact_to_dense", gT, _kernel_lib().cuba_compact_to_dense,
+    out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=gT.device)
+    cudalib.call("compact_to_dense", gT, _entry("cuba_compact_to_dense", dt),
                  gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
                  occ2.data_ptr(), out.data_ptr())
-    LAUNCHES["compact_to_dense"] += 1
+    cudalib.count("compact_to_dense", dt)
     return out
 
 
@@ -901,10 +920,11 @@ def band_transpose(m4, occ, PB: int):
         raise ValueError(f"m4 {tuple(m4.shape)}, occ {tuple(occ.shape)} does not fit PB={PB}")
     if not cudalib.use_kernel(m4, occ):
         return band_transpose_plain(m4, occ, PB)
-    cudalib.check(m4, "m4", torch.float32, 3)
+    dt = cudalib.float_dtype(m4)
+    cudalib.check(m4, "m4", dt, 3)
     cudalib.check(occ, "occ", torch.int32, 1)
-    out = torch.empty((6 * PB, 6 * PB), dtype=torch.float32, device=m4.device)
-    cudalib.call("band_transpose", m4, _kernel_lib().cuba_band_transpose,
+    out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=m4.device)
+    cudalib.call("band_transpose", m4, _entry("cuba_band_transpose", dt),
                  m4.data_ptr(), occ.data_ptr(), PB, out.data_ptr())
-    LAUNCHES["band_transpose"] += 1
+    cudalib.count("band_transpose", dt)
     return out

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from cuba_tpu_torch.ops.segmm import (BAND_THREADS, BAND_TILE, DENSE_TILE_P, DENSE_TILE_Q,
-                                      SCHUR_SLOT, SCHUR_THREADS, SCHUR_WINDOW, SchurPlan,
-                                      SegmentCSR)
+                                      SCHUR_SLOT, SCHUR_SLOT_F64, SCHUR_THREADS, SCHUR_WINDOW,
+                                      SchurPlan, SegmentCSR)
 from cuba_tpu_torch.solver.trisolve import (BLOCK, DIAG_LOADS, DIAG_PASS, LOWER_TILE,
                                             MATVEC_ACCS, QUADS, THREADS, UPPER_TILE,
                                             diag_launch, matvec_slices, solve_upper_tile)
@@ -40,24 +40,26 @@ def fma32(a, b, c):
 
 
 def segsum_walk(vals: np.ndarray, csr: SegmentCSR, group: Optional[int] = None) -> np.ndarray:
-    """The CUDA segment sum's exact fp32 summation order, in NumPy (for
-    tests): lane k of segment s's group of G lanes (``group``, by default
-    the CSR's, as the kernel takes it) sums entries offs[s] + k,
+    """The CUDA segment sum's exact summation order, in NumPy (for tests):
+    lane k of segment s's group of G lanes (``group``, by default the
+    CSR's, as the kernel takes it) sums entries offs[s] + k,
     offs[s] + k + G, ... in order, from 0; then, for o = G/2, ..., 1, every
-    lane adds lane (k xor o)'s partial.  Returns [D, num_out] fp32."""
-    vals = np.asarray(vals, np.float32)
+    lane adds lane (k xor o)'s partial.  Returns [D, num_out] in fp64 for
+    fp64 ``vals`` (the kernel's fp64 build), else in fp32."""
+    dt = np.float64 if np.asarray(vals).dtype == np.float64 else np.float32
+    vals = np.asarray(vals, dt)
     order, offs = csr.order.cpu().numpy(), csr.offs.cpu().numpy()
     G = csr.group if group is None else group
-    out = np.zeros((vals.shape[0], offs.size - 1), np.float32)
+    out = np.zeros((vals.shape[0], offs.size - 1), dt)
     lanes = np.arange(G)
     for s in np.flatnonzero(np.diff(offs)):
         cols = order[offs[s]:offs[s + 1]]
-        part = np.zeros((G, vals.shape[0]), np.float32)
+        part = np.zeros((G, vals.shape[0]), dt)
         for k in range(min(G, cols.size)):
             run = vals[:, cols[k::G]]
             # cumsum adds left to right: the lane's serial chain, from +0
             part[k] = np.cumsum(np.concatenate([part[k][:, None], run], axis=1), axis=1,
-                                dtype=np.float32)[:, -1]
+                                dtype=dt)[:, -1]
         o = G // 2
         while o:
             part = part + part[lanes ^ o]
@@ -94,21 +96,25 @@ def schur_fused_walk(W, G, plan: SchurPlan, sb, li, lj, csr: SegmentCSR) -> np.n
     return out.reshape(36, lanes)
 
 
-def schur_stage_walk():
-    """``schur_fused_kernel``'s staging of the W and G windows, in NumPy:
-    for load u < 36*512/4 / SCHUR_THREADS of thread t, v = t + u *
-    SCHUR_THREADS, the float4 it reads is row r = v % 36 (W's rows 0-17,
-    G's 18-35) at column quad q4 = v // 36 of the window, and its four
-    floats go to shared word r' + (4*q4 + c) * SCHUR_SLOT, c < 4, with r' =
-    r for W, and for G (r - 18) plus the W window's SCHUR_WINDOW *
-    SCHUR_SLOT words.  Returns (r, q4, words), of shapes [loads, threads],
-    [loads, threads] and [loads, threads, 4]."""
-    loads = 36 * SCHUR_WINDOW // 4 // SCHUR_THREADS
+def schur_stage_walk(dtype=torch.float32):
+    """``schur_fused_kernel``'s staging of the W and G windows for
+    ``dtype``, in NumPy: a 16-byte load holds V = 4 floats or 2 doubles;
+    for load u < 36*512/V / SCHUR_THREADS of thread t (in batches of 18: one
+    in fp32, two in fp64), v = t + u * SCHUR_THREADS, the load reads row
+    r = v % 36 (W's rows 0-17, G's 18-35) at column group q = v // 36 of
+    the window, and its V values go to shared element r' + (V*q + c) *
+    slot, c < V, with r' = r for W, and for G (r - 18) plus the W
+    window's SCHUR_WINDOW * slot elements (slot SCHUR_SLOT in fp32,
+    SCHUR_SLOT_F64 in fp64).  Returns (r, q, elements), of shapes [loads,
+    threads], [loads, threads] and [loads, threads, V]."""
+    V = 16 // dtype.itemsize
+    slot = SCHUR_SLOT if dtype == torch.float32 else SCHUR_SLOT_F64
+    loads = 36 * SCHUR_WINDOW // V // SCHUR_THREADS
     v = np.arange(SCHUR_THREADS)[None, :] + SCHUR_THREADS * np.arange(loads)[:, None]
-    r, q4 = v % 36, v // 36
-    row = np.where(r < 18, r, r - 18 + SCHUR_WINDOW * SCHUR_SLOT)
-    words = row[..., None] + (4 * q4[..., None] + np.arange(4)) * SCHUR_SLOT
-    return r, q4, words
+    r, q = v % 36, v // 36
+    row = np.where(r < 18, r, r - 18 + SCHUR_WINDOW * slot)
+    words = row[..., None] + (V * q[..., None] + np.arange(V)) * slot
+    return r, q, words
 
 
 def compact_to_band_walk(gT, table, dbT, occ, PB: int) -> np.ndarray:

@@ -9,8 +9,8 @@ and the per-iteration chi2.
 Usage:  python -m cuba_tpu_torch.samples.sample_ba_from_file <graph.json> [--iters 10]
         python -m cuba_tpu_torch.samples.sample_ba_from_file --synthetic [--poses N --landmarks M]
 
-On the card unless given ``--cpu``; ``--fp64`` on the card raises (the CUDA
-kernels are fp32 only).
+On the card unless given ``--cpu``; ``--fp64`` runs in float64 on either
+(on the card through the fp64 builds of the CUDA kernels).
 """
 
 import argparse

@@ -181,10 +181,6 @@ class BlockSolverEngine:
         self.dtype = config.dtype
         self.chi_dtype = config.chi_dtype
         if self.device.type == "cuda":
-            if self.dtype != torch.float32:
-                raise NotImplementedError(
-                    "the CUDA kernels are fp32 only; fp64 kernels are a ROADMAP item"
-                )
             _set_exact_fp32()
         self.kernels = tuple((int(k[0]), float(k[1])) for k in kernels)
         self.num_p, self.num_l = s.num_p, s.num_l

@@ -98,10 +98,19 @@ def test_segsum_kernel_matches_plain(cuda, name, regime, D):
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
-    src = torch.zeros((3, 10), dtype=torch.float64, device=cuda)
+    """float16 has no build and one call takes one float dtype (float32
+    and float64 are both valid input)."""
+    src = torch.zeros((3, 10), dtype=torch.float16, device=cuda)
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         segmm.resident_gather(src, ids)
+    gT = torch.zeros((36, 64), device=cuda)
+    dbT = torch.zeros((36, 64), dtype=torch.float64, device=cuda)
+    occ = torch.ones(2, dtype=torch.int32, device=cuda)
+    iru = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+    table = torch.full((64, 128), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        segmm.compact_to_band(gT, iru, iru, dbT, occ, 64, 64, table=table)
     with pytest.raises(ValueError):
         segmm.resident_gather(torch.zeros((10, 3), device=cuda).T, ids)
     with pytest.raises(ValueError):
@@ -783,3 +792,172 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     fresh.optimize(3)
     chis = np.array([s.chi2 for s in fresh.batch_statistics()])
     assert np.all(np.isfinite(chis)) and chis[-1] <= ba.batch_statistics()[-1].chi2
+
+
+# ---- fp64: the same kernels built for double (entries cuba_<name>_f64)
+
+
+def _f64_counted(name, call):
+    """``call()`` must launch ``name``'s fp64 kernel once (LAUNCHES and
+    LAUNCHES_F64 each up by one)."""
+    before = (segmm.LAUNCHES[name], segmm.LAUNCHES_F64[name])
+    got = call()
+    torch.cuda.synchronize()
+    assert (segmm.LAUNCHES[name], segmm.LAUNCHES_F64[name]) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float64
+    return got
+
+
+@pytest.mark.parametrize("D", [1, 3, 12])
+@pytest.mark.parametrize("name", ["resident_gather", "windowed_gather", "tiled_gather"])
+def test_gather_kernel_matches_plain_fp64(cuda, name, D):
+    rng = np.random.default_rng(D)
+    src = torch.from_numpy(rng.standard_normal((D, 5000))).to(cuda)
+    ids = torch.from_numpy(_ids(rng, 70001, 5000)).to(cuda)
+    args = {"resident_gather": (), "windowed_gather": (None, None),
+            "tiled_gather": (None, None)}[name]
+    got = _f64_counted(name, lambda: getattr(segmm, name)(src, ids, *args))
+    assert torch.equal(got, getattr(segmm, name + "_plain")(src, ids, *args))
+    assert torch.equal(got, getattr(segmm, name)(src, ids, *args))
+
+
+@pytest.mark.parametrize("D", [3, 42])
+@pytest.mark.parametrize("regime", ["empty", "sparse", "length1", "mean12", "mean400",
+                                    "one100k"])
+@pytest.mark.parametrize("name", ["accum_segsum", "accum_segsum_windowed", "tiled_segsum"])
+def test_segsum_kernel_matches_plain_fp64(cuda, name, regime, D):
+    """Within 1e-13 of each output's sum of |vals| of the plain version,
+    bit for bit the fp64 walk of its order, and the same bits twice."""
+    rng = np.random.default_rng(1)
+    ids_np, num_out = _segment_ids(rng, regime)
+    vals_np = rng.standard_normal((D, ids_np.size))
+    vals, ids = torch.from_numpy(vals_np).to(cuda), torch.from_numpy(ids_np).to(cuda)
+    csr = segmm.segment_csr(ids, num_out, cuda)
+    args = {"accum_segsum": (), "accum_segsum_windowed": (None, None),
+            "tiled_segsum": (None, None)}[name]
+    got = _f64_counted(name, lambda: getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
+    want = getattr(segmm, name + "_plain")(vals, ids, num_out, *args)
+    bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+    assert bool(((got - want).abs() <= 1e-13 * bound).all())
+    walk = walks.segsum_walk(vals_np, csr)
+    assert np.array_equal(got.cpu().numpy().view(np.int64), walk.view(np.int64))
+    assert torch.equal(got, getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
+
+
+def _f64(plan_tuple):
+    plan, rc, PB, W, G, gT, dbT = plan_tuple
+    return plan, rc, PB, W.double(), G.double(), gT.double(), dbT.double()
+
+
+def test_schur_fused_kernel_matches_plain_fp64(any_plan):
+    plan, rc, _PB, W, G, _gT, _dbT = _f64(any_plan)
+    args = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
+    got = _f64_counted("schur_fused", lambda: segmm.schur_fused(W, G, *args, csr=rc.csr_sc))
+    want = segmm.schur_fused_plain(W, G, *args)
+    bound = segmm.schur_fused_plain(W.abs(), G.abs(), *args)
+    assert bool(((got - want).abs() <= 1e-13 * bound).all())
+    assert torch.equal(got, segmm.schur_fused(W, G, *args, csr=rc.csr_sc))
+    # the fp32 kernel on the same values rounds: the fp64 one does not
+    got32 = segmm.schur_fused(W.float(), G.float(), *args, csr=rc.csr_sc)
+    assert float((got32.double() - want).abs().max()) > float((got - want).abs().max())
+
+
+def test_compact_to_band_kernel_matches_plain_fp64(any_plan):
+    plan, rc, PB, _W, _G, gT, dbT = _f64(any_plan)
+    args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, PB, plan.wg)
+    got = _f64_counted("compact_to_band",
+                       lambda: segmm.compact_to_band(*args, table=rc.band_table))
+    assert torch.equal(got, segmm.compact_to_band_plain(*args))
+    assert torch.equal(got, segmm.compact_to_band(*args, table=rc.band_table))
+
+
+def test_compact_to_dense_kernel_matches_plain_fp64(band_plan):
+    plan, rc, PB, _W, _G, gT, dbT = _f64(band_plan)
+    args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
+    got = _f64_counted("compact_to_dense",
+                       lambda: segmm.compact_to_dense(*args, table=rc.dense_table))
+    assert torch.equal(got, segmm.compact_to_dense_plain(*args))
+    assert torch.equal(got, segmm.compact_to_dense(*args, table=rc.dense_table))
+
+
+def test_band_transpose_kernel_matches_plain_fp64(cuda):
+    PB = 256
+    rng = np.random.default_rng(11)
+    m4 = torch.from_numpy(rng.standard_normal((36, PB, PB))).to(cuda)
+    occ = torch.from_numpy((rng.random(PB // 64 * PB // 128) < 0.5).astype(np.int32)).to(cuda)
+    got = _f64_counted("band_transpose", lambda: segmm.band_transpose(m4, occ, PB))
+    assert torch.equal(got, segmm.band_transpose_plain(m4, occ, PB))
+    assert torch.equal(got, segmm.band_transpose(m4, occ, PB))
+
+
+def test_build_reports_the_fp64_formation_kernels(kitti_plan):
+    """The fp64 builds at the kitti00 launch and at the planner's largest
+    kwin: schur_fused one block an SM, the placements at least four,
+    none spilling."""
+    sc = kitti_plan[0].schur
+    big = segmm.SchurPlan(sc.chunk, sc.slot_block, 1024, 1, *([None] * 5), 0, 0, True)
+    for name, launch, least in (
+            ("schur_fused", segmm.schur_fused_launch(sc, torch.float64), 1),
+            ("schur_fused", segmm.schur_fused_launch(big, torch.float64), 1),
+            ("compact_to_band", segmm.compact_to_band_launch(kitti_plan[2]), 4),
+            ("compact_to_dense", segmm.compact_to_dense_launch(kitti_plan[2]), 4)):
+        attrs = segmm.kernel_attributes(name, launch, torch.float64)
+        print(name, "fp64", launch, attrs)
+        assert attrs["registers"] > 0 and attrs["blocks_per_sm"] >= least, (name, attrs)
+        assert attrs["spill_bytes"] == 0, (name, attrs)
+
+
+def _fp64_against_plain(prob, config, route, niters=4, edit=None):
+    """The fp64 engine on the card against the same run with the plain
+    versions: every launch an fp64 one, chi² within 1e-10 per iteration."""
+    segmm.reset_launches()
+    ba, got = _graph_run(prob, config, niters=niters, edit=edit)
+    assert ba._engine.path == route
+    launched = {n for n, c in segmm.LAUNCHES.items() if c}
+    assert launched and all(segmm.LAUNCHES_F64[n] == segmm.LAUNCHES[n] for n in launched)
+    with segmm.use_plain():
+        _, want = _graph_run(prob, config, niters=niters, edit=edit)
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    assert got[-1] < got[0]
+    return launched
+
+
+def test_v2_band_fp64_on_card_matches_plain(cuda):
+    launched = _fp64_against_plain(
+        synthetic.generate(num_poses=150, num_landmarks=1400, seed=2),
+        BAConfig(dtype=torch.float64, solver="band_cr", device="cuda"), "v2")
+    assert {"schur_fused", "compact_to_band", "tiled_segsum", "tiled_gather"} <= launched
+
+
+def test_v2_dense_fp64_on_card_matches_plain(cuda):
+    """fp64 dense_cholesky: compact_to_dense in fp64, the solve by
+    cholesky_ex and solve_triangular (no trisolve kernel)."""
+    launched = _fp64_against_plain(
+        synthetic.generate(num_poses=10, num_landmarks=90, seed=7),
+        BAConfig(dtype=torch.float64, device="cuda"), "v2")
+    assert "compact_to_dense" in launched
+    assert not launched & {"extract_diag_blocks", "solve_lower", "solve_upper", "matvec"}
+
+
+def test_v1_fp64_on_card_matches_plain(cuda, monkeypatch):
+    monkeypatch.setattr(rows, "_WG_MAX", 0)
+    launched = _fp64_against_plain(
+        synthetic.generate(num_poses=150, num_landmarks=1400, seed=2),
+        BAConfig(dtype=torch.float64, solver="band_cr", device="cuda"), "v1")
+    assert {"schur_fused", "band_transpose"} <= launched
+
+
+def test_pcg_fp64_on_card_matches_plain(cuda):
+    launched = _fp64_against_plain(
+        synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
+        BAConfig(dtype=torch.float64, solver="pcg", device="cuda"), "rows")
+    assert {"tiled_gather", "tiled_segsum"} <= launched
+
+
+def test_aos_fp64_on_card_matches_plain(cuda, monkeypatch):
+    monkeypatch.setattr(rows, "plan_row_tables", lambda s, pad_blocks=0, lr=None: (None, None))
+    launched = _fp64_against_plain(
+        synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
+        BAConfig(dtype=torch.float64, device="cuda"), "aos")
+    assert launched == {"accum_segsum"}
