@@ -155,6 +155,41 @@ Phases (any failure exits non-zero, before the result line):
    PCG) at ``optimize(3)``, each within 1e-8 per iteration of the same run
    with the plain versions on the card; and ``sample_ba_from_file
    --synthetic --fp64`` as a subprocess on the card.
+17. The landmark-sharded LM (``cuba_tpu_torch/parallel/``) on the card.
+   a. The kitti00 loop through ``BAConfig(mesh=<a one-rank NCCL group>)``
+   in this process, counted: ``auto`` must resolve to ``band_cr`` with 22
+   CR blocks on the rows route (v2), every kernel of the route must
+   launch, and the ``optimize(10)`` trajectory must equal phase 5's bit
+   for bit (one shard is the whole graph; a one-rank all-reduce is the
+   identity); then a single-device run and a mesh run in turns, walls
+   logged, and one profiled mesh run.  b. MESH_RANKS = 4 ranks spawned on
+   the one card over gloo (``parallel.launch.spawn``; any rank's failure,
+   or MESH_TIMEOUT, ends the run), each building the same graph through
+   the public API: the
+   kitti00 loop in fp32 (``band_cr``, m = 22: final chi² within
+   CHI2_REL_BAND of the fp64 record, every iteration within 5e-3 of
+   phase 5's run) and in fp64 (every iteration within 1e-6 of the
+   recorded fp64 trajectory), the two-chord graph (``band_lr`` on v2,
+   within 5e-3 of phase 12's run per iteration), kitti07
+   (``dense_cholesky``, kernels 9 and 11-14 in the replicated solve,
+   within CHI2_REL_BAND of its fp64 record), pcg4096 (``solver="pcg"``,
+   ``optimize(3)``, within 5e-3 of phase 3's first three iterations) and
+   the three-chord graph (phase 13's structure through
+   ``MultiChipSolverAdapter(aos=True)``, since each of its shards plans:
+   the AoS shard body, kernel 6, where ``band_lr`` is an explicit
+   ``dense_cholesky``; ``optimize(3)`` within 2e-2 of phase 13's per
+   iteration).  Every rank's trajectory and estimates must equal every
+   other rank's bit for bit, each case take its route and solver, and
+   every kernel of the route (:func:`expected_kernels` of the route facts
+   the rank reports) launch on every rank; each rank also logs its
+   device-busy share of one more kitti00 loop run under
+   ``torch.profiler``.  Walls are logged as what they are: four processes
+   sharing one card, with gloo staging every collective through the
+   host.  c. Rank 0's shard of the
+   kitti00 loop (``rows_shard.shard_structures``, planned as the ranks
+   plan it) in this process: kernels 1-7 against their plain versions at
+   its call sites, as in phase 6, and ``compact_to_band`` on the sum of the
+   four shards' compact tables (what the all-reduce delivers).
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
@@ -176,7 +211,8 @@ path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
 ``dense`` from phases 8-9 at kitti07, ``dense-kitti00`` from phase 9's
 kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13, ``bal``
 from phase 15, ``band-fp64``, ``dense-fp64``, ``v1-fp64``, ``aos-fp64`` and
-``pcg-fp64`` from phase 16, each entry with its ``dtype``;
+``pcg-fp64`` from phase 16, ``mesh`` from phase 17c with the launches of
+rank 0's kitti00 loop run in 17b, each entry with its ``dtype``;
 ``"site"`` names a second call site of one kernel).  ``launches`` is the
 kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
@@ -968,32 +1004,39 @@ def run_path(prob, config, torch, label, fix=None, iters=ITERS):
     return ba, chis, t_init, t_opt
 
 
-def expected_kernels(engine):
-    """The kernel wrappers an engine's route and solver run the LM loop
-    through."""
+def expected_kernels(facts):
+    """The kernel wrappers that a route and solver run the LM loop through,
+    from an engine's route facts (``drive.route_facts``: a rank's come back
+    in its results)."""
+    import torch
+
     from cuba_tpu_torch.solver import trisolve
 
-    if not engine.use_rows:
+    path, solver = str(facts["path"]), str(facts["solver"])
+    if path == "aos":
         return {"accum_segsum"}  # the AoS path's segment sums
-    plan = engine.plan
     expected = {"tiled_gather", "tiled_segsum",
-                "windowed_gather" if plan.rg_m is not None else "resident_gather"}
-    for paw in (plan.paw_m, plan.paw_s, plan.paw_b):
-        expected.add("accum_segsum_windowed" if paw.ok else "accum_segsum")
-    if plan.schur is not None:
+                "windowed_gather" if bool(facts["windowed"]) else "resident_gather"}
+    for ok in facts["paw_ok"]:
+        expected.add("accum_segsum_windowed" if ok else "accum_segsum")
+    if path == "v1":
+        expected |= {"schur_fused", "band_transpose"}
+    elif path == "v2":
         expected.add("schur_fused")
-        if not plan.v2:
-            expected.add("band_transpose")
-        elif engine.solver in ("band_cr", "band_lr"):
-            expected.add("compact_to_band")
-        else:
-            expected.add("compact_to_dense")
-    if engine.solver == "dense_cholesky" and trisolve.usable(6 * engine.pad_blocks,
-                                                             engine.dtype):
+        expected.add("compact_to_band" if solver in ("band_cr", "band_lr") else "compact_to_dense")
+    dtype = getattr(torch, str(facts["dtype"]))
+    if solver == "dense_cholesky" and trisolve.usable(6 * int(facts["pad_blocks"]), dtype):
         expected |= {"extract_diag_blocks", "solve_lower", "solve_upper"}
-        if engine.config.refinement_steps > 0:
+        if int(facts["refine"]) > 0:
             expected.add("matvec")
     return expected
+
+
+def engine_kernels(engine):
+    """:func:`expected_kernels` of an engine in this process."""
+    from cuba_tpu_torch.parallel import drive
+
+    return expected_kernels(drive.route_facts(engine))
 
 
 def counted_run(prob, config, torch, segmm, label, expect_route, fix=None, iters=ITERS):
@@ -1008,7 +1051,7 @@ def counted_run(prob, config, torch, segmm, label, expect_route, fix=None, iters
         fail(f"{label}: route {ba._engine.path!r}, expected {expect_route!r}")
     if not chis[-1] < chis[0]:
         fail(f"{label}: chi2 did not fall: {chis.tolist()}")
-    missing = sorted(n for n in expected_kernels(ba._engine) if launches[n] == 0)
+    missing = sorted(n for n in engine_kernels(ba._engine) if launches[n] == 0)
     if missing:
         fail(f"kernels of the {label} never launched: {missing}")
     return ba, chis, t_opt, launches
@@ -1317,7 +1360,7 @@ def check_public_api(prob, config, plain_chis, torch, segmm, tmp, card):
         fail(f"profiled kitti00: the phases at 0 are {sorted(zero)}, expected 4 and 5")
     if ba.attributed_phases():
         fail(f"profiled kitti00: attributed phases {ba.attributed_phases()}")
-    missing = sorted(n for n in expected_kernels(ba._engine) if launches[n] == 0)
+    missing = sorted(n for n in engine_kernels(ba._engine) if launches[n] == 0)
     if missing:
         fail(f"kernels of the profiled kitti00 run never launched: {missing}")
 
@@ -1530,6 +1573,199 @@ def fp64_against_plain(prob, config, torch, label, chis, iters):
     return t_plain
 
 
+# phase 17: the landmark-sharded LM (cuba_tpu_torch/parallel/)
+MESH_RANKS = 4
+MESH_TIMEOUT = 600.0  # seconds before every spawned rank is killed
+
+
+def mesh_one_rank(kprob, kconfig, kchis, torch, segmm):
+    """Phase 17a: the kitti00 loop through ``BAConfig(mesh=<a one-rank
+    NCCL group>)`` in this process, counted: ``band_cr`` with 22 CR blocks
+    on the rows route (v2), every kernel of the route launched, and the
+    trajectory phase 5's bit for bit; then one single-device run and one
+    more mesh run in turns for the walls.  Returns (the global structure,
+    its robust kernels, the counted launches)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+        try:
+            mconfig = dataclasses.replace(kconfig, mesh=dist.group.WORLD)
+            ba, chis, t_opt, launches = counted_run(kprob, mconfig, torch, segmm,
+                                                    "mesh S=1 (nccl) path", "v2")
+            eng = ba._engine
+            if (eng.solver, eng.band_m) != ("band_cr", KITTI_BAND_M):
+                fail(f"mesh S=1: {eng.solver!r} with band_m {eng.band_m}, expected band_cr / "
+                     f"{KITTI_BAND_M}")
+            if not np.array_equal(chis, kchis):
+                fail(f"mesh S=1: the trajectory is not phase 5's bit for bit: {chis.tolist()} "
+                     f"against {kchis.tolist()}")
+            structure, kernels = eng.structure, ba._kernels
+            del ba, eng
+            _b, _c, _ti, t_single = run_path(kprob, kconfig, torch, "single-device, in turns")
+            _m, mchis, _ti, t_mesh = run_path(kprob, mconfig, torch, "mesh S=1, in turns")
+            del _b, _m
+            if not np.array_equal(mchis, kchis):
+                fail("mesh S=1: the second run left phase 5's trajectory")
+            profile_path(kprob, mconfig, torch, "mesh S=1 (nccl) path", t_opt)
+        finally:
+            dist.destroy_process_group()
+    log(f"mesh S=1 (nccl) walls: optimize({ITERS}) {t_opt} s and {t_mesh} s against the "
+        f"single-device {t_single} s between them; trajectory equal to phase 5's bit for bit")
+    return structure, kernels, launches
+
+
+def mesh_cases(kprob, cprob, dprob, prob, astructure, akernels, torch):
+    """Phase 17b's cases: the graphs of phases 5, 12, 8 and 3 through the
+    public API with ``BAConfig(mesh=group)``, and phase 13's structure
+    through ``MultiChipSolverAdapter`` on the AoS body, each with its
+    expected (path, solver, band_m)."""
+    f32, f64 = torch.float32, torch.float64
+    cases = {
+        "loop": (kprob, dict(dtype=f32), ITERS, ("v2", "band_cr", KITTI_BAND_M)),
+        "loop-fp64": (kprob, dict(dtype=f64), ITERS, ("v2", "band_cr", KITTI_BAND_M)),
+        "2chords": (cprob, dict(dtype=f32), ITERS, ("v2", "band_lr", 0)),
+        "kitti07": (dprob, dict(dtype=f32), ITERS, ("v2", "dense_cholesky", 0)),
+        "pcg4096": (prob, dict(dtype=f32, solver="pcg"), FP64_SHORT_ITERS, ("rows", "pcg", 0)),
+    }
+    expect = {name: e for name, (_p, _c, _i, e) in cases.items()}
+    out = [dict(name=name, kind="api", problem=p, config=cfg, iters=iters, per_edge=False,
+                trace=name == "loop")
+           for name, (p, cfg, iters, _e) in cases.items()]
+    # each shard of the three-chord graph plans (the single-device plan
+    # fails on the whole graph's windows): the case asks for the AoS body,
+    # as phase 11 closes the v2 gate
+    out.append(dict(name="3chords", kind="engine", structure=astructure, kernels=akernels,
+                    config=dict(dtype=f32), iters=FP64_SHORT_ITERS, aos=True))
+    expect["3chords"] = ("aos", "dense_cholesky", 0)
+    return out, expect
+
+
+def mesh_ranks(cases, expect, refs, torch):
+    """Phase 17b: MESH_RANKS ranks on the card over gloo, spawned (each on
+    cuda:0; a rank's failure or MESH_TIMEOUT fails the run).  Every rank's
+    trajectory and estimates must equal every other rank's bit for bit,
+    each case take its expected route and solver and launch every kernel
+    of it on every rank, and meet its gate against ``refs``.  Returns rank
+    0's results."""
+    from cuba_tpu_torch.parallel import drive, launch
+
+    t0 = time.perf_counter()
+    try:
+        res = launch.spawn(drive.run_cases, MESH_RANKS, backend="gloo", device="cuda",
+                           timeout=MESH_TIMEOUT, args=(cases,))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"mesh ranks: {e}")
+    log(f"mesh: {MESH_RANKS} ranks on one card over gloo, {time.perf_counter() - t0:.2f} s "
+        "(four processes share the card; gloo stages every collective through the host)")
+    for r, out in enumerate(res):
+        if out["modules"].size:
+            fail(f"mesh rank {r} imported {out['modules'].tolist()}")
+    for case in cases:
+        name = case["name"]
+        r0 = res[0]
+        keys = ("chis", "pose_t", "pose_q", "lm_Xw") if case["kind"] == "api" else (
+            "chis", "qs", "ts", "Xws")
+        for k in keys:
+            if not all(np.array_equal(out[f"{name}.{k}"], r0[f"{name}.{k}"]) for out in res):
+                fail(f"mesh {name}: the ranks' {k} differ")
+        got = (str(r0[f"{name}.path"]), str(r0[f"{name}.solver"]), int(r0[f"{name}.band_m"]))
+        if got[:2] != expect[name][:2] or (expect[name][2] and got[2] != expect[name][2]):
+            fail(f"mesh {name}: took {got}, expected {expect[name]}")
+        for r, out in enumerate(res):
+            launched = dict(zip(drive.LAUNCH_NAMES, out[f"{name}.launches"].tolist()))
+            facts = {k[len(name) + 1:]: v for k, v in out.items() if k.startswith(f"{name}.")}
+            missing = sorted(n for n in expected_kernels(facts) if launched[n] == 0)
+            if missing:
+                fail(f"mesh {name}: rank {r} never launched {missing}")
+        chis = r0[f"{name}.chis"]
+        log(f"mesh {name}: {got}, initialize {[float(o[f'{name}.init_wall']) for o in res]} s, "
+            f"optimize({case['iters']}) {[float(o[f'{name}.wall']) for o in res]} s, attempts "
+            f"{int(r0[f'{name}.nattempts'])}; chi2 {chis.tolist()}; launches (rank 0) "
+            + json.dumps(dict(zip(drive.LAUNCH_NAMES, r0[f"{name}.launches"].tolist()))))
+        if not (np.all(np.isfinite(chis)) and chis[-1] < chis[0]):
+            fail(f"mesh {name}: chi2 not finite and falling")
+        refs[name](chis)
+        if case.get("trace"):
+            for r, out in enumerate(res):
+                spans = list(zip(out[f"{name}.trace_start"], out[f"{name}.trace_end"]))
+                wall_ms = 1e3 * float(out[f"{name}.trace_wall"])
+                busy = union_us(spans) / 1e3
+                log(f"profile (mesh {name}, rank {r}): {len(spans)} device kernels and copies "
+                    f"over {int(out[f'{name}.trace_attempts'])} attempts; device busy "
+                    f"{busy:.4f} ms of {wall_ms:.4f} ms profiled wall "
+                    f"({100 * busy / wall_ms:.1f}% busy)")
+    return res[0]
+
+
+def mesh_gates(kchis, cchis, dchis, chis_pcg, achis):
+    """Phase 17b's gate of each case, on rank 0's trajectory."""
+    def loop(chis):
+        ref = CHI2_FP64_FINAL[("kitti00_scale_loop", ITERS)]
+        rel = abs(chis[-1] - ref) / ref
+        log(f"mesh loop: final chi2 {chis[-1]:.2f} vs fp64 record {ref:.2f}: rel {rel:.3e}")
+        if not rel < CHI2_REL_BAND:
+            fail("mesh loop: the final chi2 is outside the recorded fp64 band")
+        compare_trajectories(chis, kchis, "mesh loop", "4 ranks vs single-device (phase 5)")
+
+    def kitti07(chis):
+        ref = CHI2_FP64_FINAL[("kitti07_scale", ITERS)]
+        rel = abs(chis[-1] - ref) / ref
+        log(f"mesh kitti07: final chi2 {chis[-1]:.2f} vs fp64 record {ref:.2f}: rel {rel:.3e}")
+        if not rel < CHI2_REL_BAND:
+            fail("mesh kitti07: the final chi2 is outside the recorded fp64 band")
+
+    return {
+        "loop": loop,
+        "loop-fp64": lambda chis: fp64_records(chis, "kitti00_scale_loop", "mesh loop-fp64"),
+        "2chords": lambda chis: compare_trajectories(chis, cchis, "mesh 2chords",
+                                                     "4 ranks vs single-device (phase 12)"),
+        "kitti07": kitti07,
+        "pcg4096": lambda chis: compare_trajectories(
+            chis, chis_pcg[:FP64_SHORT_ITERS], "mesh pcg4096", "4 ranks vs phase 3"),
+        "3chords": lambda chis: compare_trajectories(
+            chis, achis[:FP64_SHORT_ITERS], "mesh 3chords",
+            "4 ranks (AoS, dense_cholesky) vs phase 13 (band_lr)", SOLVER_RTOL),
+    }
+
+
+def check_mesh_kernels(structure, kernels, config, torch, segmm):
+    """Phase 17c: the kernels at a shard's sites.  Rank 0's shard of
+    MESH_RANKS (``rows_shard.shard_structures``) planned as the ranks plan
+    it, in this process: kernels 1-7 at the call sites of
+    :func:`check_schur_kernels` on its tables and first-attempt tensors,
+    and ``compact_to_band`` on the table the all-reduce delivers: the sum
+    of every shard's compact table at the first attempt's global lambda
+    and damped diagonal."""
+    from cuba_tpu_torch.parallel import rows_shard
+    from cuba_tpu_torch.solver import engine as engine_mod
+    from cuba_tpu_torch.solver import rows
+
+    shards = rows_shard.shard_structures(structure, MESH_RANKS)
+    engines = [engine_mod.BlockSolverEngine(sh, kernels, config) for sh in shards]
+    if any(e.path != "v2" for e in engines):
+        fail(f"mesh shards: routes {[e.path for e in engines]}, expected v2")
+    systems = [e._build(*e._residuals_and_chi(e.state)[:2]) for e in engines]
+    HppT = sum(s[0] for s in systems)
+    lam = config.tau * torch.stack([rows.max_diagonal_T(HppT, s[1]) for s in systems]).max()
+    Ws = [rows.prepare_factors(HppT, HllT, HplT, lam, e.num_p, e.num_l, e.plan, e.rc)[1]
+          .contiguous() for e, (_h, HllT, HplT) in zip(engines, systems)]
+    e0 = engines[0]
+    log(f"mesh shard 0 of {MESH_RANKS}: L {e0.num_l}, slots {e0.structure.n_hpl}, "
+        f"mono edges {e0.structure.mono.count}, triplets {e0.structure.mul_i.shape[0]}")
+    out = check_schur_kernels(e0, torch, segmm, systems[0][2], Ws[0])
+    gT = sum(rows.schur_compact(W, s[2], e.plan, e.rc) for W, s, e in zip(Ws, systems, engines))
+    dbT = rows.damped_diagonal_T(HppT, lam, e0.num_p, e0.plan.pad_blocks)
+    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, e0.plan, e0.rc, segmm)},
+                             torch, None, e0.dtype))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-poses", type=int, default=4096)
@@ -1597,7 +1833,7 @@ def main() -> None:
     log(f"launches (pcg path): {json.dumps(launches_pcg)}")
     if not chis[-1] < chis[0]:
         fail(f"chi2 did not fall: {chis[0]} -> {chis[-1]}")
-    missing = sorted(n for n in expected_kernels(ba._engine) if launches_pcg[n] == 0)
+    missing = sorted(n for n in engine_kernels(ba._engine) if launches_pcg[n] == 0)
     if missing:
         fail(f"kernels of the pcg path never launched: {missing}")
     del ba
@@ -1641,7 +1877,7 @@ def main() -> None:
         f"(band {CHI2_REL_BAND})")
     if not rel < CHI2_REL_BAND:
         fail("kitti00 final chi2 is outside the recorded fp64 band")
-    missing = sorted(n for n in expected_kernels(kba._engine) if launches_band[n] == 0)
+    missing = sorted(n for n in engine_kernels(kba._engine) if launches_band[n] == 0)
     if missing:
         fail(f"kernels of the band path never launched: {missing}")
     del kba
@@ -1687,7 +1923,7 @@ def main() -> None:
         f"(band {CHI2_REL_BAND})")
     if not rel < CHI2_REL_BAND:
         fail("kitti07 final chi2 is outside the recorded fp64 band")
-    missing = sorted(n for n in expected_kernels(dba._engine) if launches_dense[n] == 0)
+    missing = sorted(n for n in engine_kernels(dba._engine) if launches_dense[n] == 0)
     if missing:
         fail(f"kernels of the dense path never launched: {missing}")
     del dba
@@ -1834,6 +2070,7 @@ def main() -> None:
     aba, achis, at_opt, launches_aos = counted_run(aprob, kconfig, torch, segmm,
                                                    "aos path", "aos")
     attempts["aos"] = aba.last_result.nattempts
+    astructure, akernels = aba._engine.structure, aba._kernels
     del aba
     profile_path(aprob, kconfig, torch, "aos path", at_opt)
     with segmm.use_plain():
@@ -1915,12 +2152,25 @@ def main() -> None:
         f"{at_plain64} s, pcg {pt_plain64} s")
     stamp("phase 16")
 
+    # phase 17: the landmark-sharded LM on the card
+    mstructure, mkernels, _launches = mesh_one_rank(kprob, kconfig, kchis, torch, segmm)
+    stamp("phase 17a")
+    cases, expect = mesh_cases(kprob, cprob, dprob, prob, astructure, akernels, torch)
+    r0 = mesh_ranks(cases, expect, mesh_gates(kchis, cchis, dchis, chis, achis), torch)
+    from cuba_tpu_torch.parallel import drive
+
+    launches_mesh = dict(zip(drive.LAUNCH_NAMES, r0["loop.launches"].tolist()))
+    attempts["mesh"] = int(r0["loop.nattempts"])
+    stamp("phase 17b")
+    kern_mesh = check_mesh_kernels(mstructure, mkernels, kconfig, torch, segmm)
+    stamp("phase 17c")
+
     entries = []
     paths = [("pcg", kern_pcg, launches_pcg), ("band", kern_band, launches_band),
              ("dense", kern_dense, launches_dense),
              ("dense-kitti00", kern_dense00, launches_dense00), ("v1", kern_v1, launches_v1),
              ("band_lr", kern_lr, launches_lr), ("aos", kern_aos, launches_aos),
-             ("bal", kern_bal, launches_bal)]
+             ("bal", kern_bal, launches_bal), ("mesh", kern_mesh, launches_mesh)]
     paths += [(path, r[0], r[1]) for path, r in runs64.items()]
     attempts.update({path: r[4] for path, r in runs64.items()})
     for path, kern, launches in paths:

@@ -8,7 +8,7 @@ card by default; the host only when asked for (``device="cpu"``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -57,6 +57,15 @@ class BAConfig:
         ``time_profile()`` after a run reads them and scales the five loop
         phases to that run's measured wall.  Exact per-phase host timing
         is still available via ``optimize(n, profile=True)``.
+      mesh: run the optimizer over several processes, landmark-sharded
+        (``parallel/sharding.py``).  ``None`` (the default) runs on one
+        device.  Otherwise a ``torch.distributed`` process group, or a 1-D
+        ``DeviceMesh`` whose ``mesh_dim_names`` are ``("landmarks",)``;
+        its size is the shard count.  Every rank of the group builds the
+        same graph and makes the same calls; ``device`` is where this
+        rank's tensors live.  Poses are replicated, the landmarks and
+        their edges split into contiguous blocks, and the reduced system
+        is summed over the group and solved on every rank.
     """
 
     dtype: torch.dtype = torch.float32
@@ -74,6 +83,7 @@ class BAConfig:
     refinement_steps: int = 1
     pose_block_pad: int = 128
     phase_attribution: bool = True
+    mesh: Optional[object] = None  # a ProcessGroup, or a DeviceMesh with a "landmarks" dim
 
     def resolve_device(self) -> torch.device:
         return torch.device(self.device)

@@ -2,7 +2,10 @@
 
 ``structure_from_numpy`` reads, by attribute, any object with the field
 names of ``cuba_tpu``'s ``BAStructure`` (NumPy arrays), so the tests can run
-both packages on one compiled structure.
+both packages on one compiled structure.  ``landmarks_from_sharded``
+takes ``cuba_tpu``'s sharded landmarks (``ShardedProblem.Xws`` [S, lm_pad,
+3]) to global order; the port's ranks hand out global order themselves
+(``MultiChipEngine.global_state``).
 """
 
 from __future__ import annotations
@@ -52,3 +55,14 @@ def state_from_numpy(qs, ts, Xws, device, dtype) -> State:
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     return State(t(qs), t(ts), t(Xws))
+
+
+def landmarks_from_sharded(Xws_s, lm_shard, lm_local, lm_pad_active: int = 0,
+                           n_fixed: int = 0) -> np.ndarray:
+    """``cuba_tpu``'s sharded landmarks (``ShardedProblem.Xws`` [S, lm_pad,
+    3], ``lm_shard``, ``lm_local``) in global order: the active landmarks,
+    then the ``n_fixed`` fixed ones from shard 0's tail at
+    ``lm_pad_active``."""
+    Xws_s = np.asarray(Xws_s)
+    active = Xws_s[np.asarray(lm_shard), np.asarray(lm_local)]
+    return np.concatenate([active, Xws_s[0, lm_pad_active:lm_pad_active + n_fixed]])

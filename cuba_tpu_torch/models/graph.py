@@ -7,8 +7,10 @@ objects; ``profile=True`` runs the host-stepped driver with exact phase
 timing), ``batch_statistics``, ``time_profile`` and ``attributed_phases``
 (the reference's 8-phase TimeProfile), ``chi_squared``,
 ``save_checkpoint`` / ``load_checkpoint`` (``.npz`` files either package
-reads) and ``clear``.  Multi-device (``cuba_tpu``'s ``BAConfig.mesh``) is
-not ported yet.
+reads) and ``clear``.  With ``BAConfig(mesh=group)`` every rank of the
+group makes the same calls and the engine is landmark-sharded
+(``parallel/sharding.py``); the estimates, statistics and per-edge chi²
+are the same on every rank.
 """
 
 from __future__ import annotations
@@ -165,7 +167,13 @@ class BundleAdjustment:
             self._mono_edges, self._stereo_edges,
         )
         t_structure = time.perf_counter() - t0
-        self._engine = BlockSolverEngine(structure, self._kernels, self.config)
+        if self.config.mesh is not None:
+            from cuba_tpu_torch.parallel.sharding import MultiChipSolverAdapter
+
+            self._engine = MultiChipSolverAdapter(structure, self._kernels, self.config,
+                                                  self.config.mesh)
+        else:
+            self._engine = BlockSolverEngine(structure, self._kernels, self.config)
         if self._engine.device.type == "cuda":
             torch.cuda.synchronize(self._engine.device)
         self._state = self._engine.state
@@ -208,7 +216,8 @@ class BundleAdjustment:
         self._finalize()
 
     def _finalize(self) -> None:
-        """Write the optimized estimates back into the vertex objects."""
+        """Write the optimized estimates back into the vertex objects (on
+        a mesh, every rank's: the state is the gathered global one)."""
         s = self._engine.structure
         qs = self._state.qs.double().cpu().numpy()
         ts = self._state.ts.double().cpu().numpy()

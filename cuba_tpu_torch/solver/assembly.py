@@ -14,6 +14,7 @@ vertices carry ids past the active range and are dropped, as
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -57,7 +58,7 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num: int,
     outside [0, num) are dropped.  On the card: the CSR segment-sum kernel
     over the [D, N] transpose, in the CSR's fixed order."""
     tail = data.shape[1:]
-    vals = data.reshape(data.shape[0], -1).T.contiguous()
+    vals = data.reshape(data.shape[0], math.prod(tail)).T.contiguous()
     return segmm.accum_segsum(vals, ids, num, csr=csr).T.reshape((num,) + tail)
 
 

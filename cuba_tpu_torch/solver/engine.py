@@ -36,8 +36,8 @@ import torch
 
 from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.ops import se3, smallmat
-from cuba_tpu_torch.solver import (assembly, band_cr, dense_cholesky, edgerows, pcg, rows,
-                                   schur, trisolve)
+from cuba_tpu_torch.solver import (assembly, band_cr, comm, dense_cholesky, edgerows, pcg,
+                                   rows, schur, trisolve)
 from cuba_tpu_torch.solver.structure import BAStructure
 
 # "auto" takes the dense solver up to this many padded pose blocks
@@ -163,20 +163,53 @@ def resolve_solver(s: BAStructure, config: BAConfig):
     return solver, band_m, pad_blocks, lr
 
 
+def resolve_device(config: BAConfig) -> torch.device:
+    """The config's device; raises for the card where there is none."""
+    device = config.resolve_device()
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"BAConfig.device is {str(config.device)!r} (the default is the card) but "
+            'torch.cuda.is_available() is False: pass BAConfig(device="cpu") to run '
+            "on the host")
+    return device
+
+
+def check_solver(solver: str, config: BAConfig) -> None:
+    if solver not in _SOLVERS:
+        raise ValueError(f"unknown solver {config.solver!r}")
+
+
 class BlockSolverEngine:
-    """Owns the device tables of one problem structure and runs the LM loop."""
+    """Owns the device tables of one problem structure and runs the LM loop.
+
+    The loop (:meth:`optimize`, :meth:`optimize_profiled`) reads the
+    problem only through the engine's steps: residuals and chi², build,
+    max diagonal, solve, update and gain-ratio scale.  Each step calls
+    :mod:`solver.comm` where ``cuba_tpu``'s sharded engine has a
+    collective; with ``group`` None those calls are identities.
+    ``parallel.sharding.MultiChipEngine`` runs the same loop over one
+    landmark shard and its process group."""
+
+    group = None  # the landmark shards' process group; None: one device
 
     def __init__(self, structure: BAStructure, kernels, config: BAConfig):
-        self.device = config.resolve_device()
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"BAConfig.device is {str(config.device)!r} (the default is the card) but "
-                'torch.cuda.is_available() is False: pass BAConfig(device="cpu") to run '
-                "on the host")
-        self.solver, self.band_m, self.pad_blocks, lr = resolve_solver(structure, config)
-        if self.solver not in _SOLVERS:
-            raise ValueError(f"unknown solver {config.solver!r}")
-        self.structure = s = structure
+        device = resolve_device(config)
+        solver, band_m, pad_blocks, lr = resolve_solver(structure, config)
+        check_solver(solver, config)
+        plan, rc = rows.plan_rows(
+            structure, device, config.dtype, pad_blocks=0 if solver == "pcg" else pad_blocks,
+            dense=solver == "dense_cholesky", lr=lr)
+        self._setup(structure, kernels, config, device, solver, band_m, pad_blocks, lr,
+                    plan, rc)
+
+    def _setup(self, s: BAStructure, kernels, config: BAConfig, device, solver, band_m,
+               pad_blocks, lr, plan, rc) -> None:
+        """The engine's tables: the rows front end's (``plan``, ``rc``, as
+        ``rows.plan_rows`` made them for ``solver``) or, with no plan, the
+        AoS path's."""
+        self.device = device
+        self.solver, self.band_m, self.pad_blocks = solver, band_m, pad_blocks
+        self.structure = s
         self.config = config
         self.dtype = config.dtype
         self.chi_dtype = config.chi_dtype
@@ -184,10 +217,7 @@ class BlockSolverEngine:
             _set_exact_fp32()
         self.kernels = tuple((int(k[0]), float(k[1])) for k in kernels)
         self.num_p, self.num_l = s.num_p, s.num_l
-        self.plan, self.rc = rows.plan_rows(
-            s, self.device, self.dtype,
-            pad_blocks=0 if self.solver == "pcg" else self.pad_blocks,
-            dense=self.solver == "dense_cholesky", lr=lr)
+        self.plan, self.rc = plan, rc
         # the rows front end where cuba_tpu's plans hold, else the AoS path
         self.use_rows = self.plan is not None
         # band_lr's host Woodbury plan and its loop columns (ob_i, ob_j,
@@ -225,13 +255,15 @@ class BlockSolverEngine:
 
     def _residuals_and_chi(self, state: State):
         """(pack_m, pack_s, chi): the rows front end's packs, or the AoS
-        path's (err [E, mdim], Xc [E, 3]); None for an absent edge type."""
+        path's (err [E, mdim], Xc [E, 3]); None for an absent edge type.
+        chi is all-reduced over the landmark shards."""
         s = self.structure
         if self.use_rows:
-            return rows.edge_rows(
+            pack_m, pack_s, chi = rows.edge_rows(
                 state.qs, state.ts, state.Xws, self.cams, self.kernels, self.chi_dtype,
                 (s.mono.count, s.stereo.count), self.plan, self.rc,
             )
+            return pack_m, pack_s, comm.all_reduce_sum(chi, self.group)
         chi = torch.zeros((), dtype=self.chi_dtype, device=self.device)
         packs = []
         for ec, mdim, kern in zip(self.edges, (2, 3), self.kernels):
@@ -242,19 +274,28 @@ class BlockSolverEngine:
                                               mdim)
             chi = chi + assembly.chi_sum(err, ec.omega, kern, self.chi_dtype)
             packs.append((err, Xc))
-        return packs[0], packs[1], chi
+        return packs[0], packs[1], comm.all_reduce_sum(chi, self.group)
 
     def _build(self, pack_m, pack_s, state: Optional[State] = None):
         """The system: (HppT, HllT, HplT) on the rows front end, (Hpp, bp,
         Hll, bl, Hpl) on the AoS path, whose Jacobians also read the poses
-        of ``state``, the state the packs were computed at."""
+        of ``state``, the state the packs were computed at.  The pose rows
+        (HppT; Hpp and bp) are all-reduced over the landmark shards."""
         if self.use_rows:
-            return rows.build_system_rows(pack_m, pack_s, self.kernels, self.num_p,
-                                          self.num_l, self.plan, self.rc)
+            HppT, HllT, HplT = rows.build_system_rows(pack_m, pack_s, self.kernels,
+                                                      self.num_p, self.num_l, self.plan,
+                                                      self.rc)
+            return comm.all_reduce_sum(HppT, self.group), HllT, HplT
         edges = tuple(None if pack is None else (ec, pack[0], pack[1], mdim)
                       for ec, pack, mdim in zip(self.edges, (pack_m, pack_s), (2, 3)))
-        return assembly.build_system(state.qs, self.cams, self.num_p, self.num_l,
-                                     self.structure.n_hpl, edges, self.kernels)
+        Hpp, bp, Hll, bl, Hpl = assembly.build_system(state.qs, self.cams, self.num_p,
+                                                      self.num_l, self.structure.n_hpl,
+                                                      edges, self.kernels)
+        if self.group is not None and self.num_p:
+            P = self.num_p
+            p42 = comm.all_reduce_sum(torch.cat([Hpp.reshape(P, 36), bp], 1), self.group)
+            Hpp, bp = p42[:, :36].reshape(P, 6, 6), p42[:, 36:]
+        return Hpp, bp, Hll, bl, Hpl
 
     def _refine(self) -> int:
         return self.config.refinement_steps if self.dtype == torch.float32 else 0
@@ -283,12 +324,12 @@ class BlockSolverEngine:
         HppT, HllT, HplT = sys
         plan, rc, P = self.plan, self.rc, self.num_p
         iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
-                                                 self.num_l, plan, rc)
+                                                 self.num_l, plan, rc, group=self.group)
         if self.solver == "pcg":
             mark(_SCHUR)
             xT, ok, k = rows.pcg_solve_rows(
                 HppT, HplT, W, lam, bscT, P, self.num_l, plan, rc,
-                self.config.pcg_max_iterations, self.config.pcg_tol,
+                self.config.pcg_max_iterations, self.config.pcg_tol, group=self.group,
             )
             xp, reads = xT.T, k + 1
         else:
@@ -296,7 +337,8 @@ class BlockSolverEngine:
             refine = self._refine()
             if self.solver == "band_cr":
                 if plan.v2:
-                    D, U = rows.schur_band(HppT, W, HplT, lam, P, plan, rc)
+                    D, U = rows.band_from_compact(self._schur_table(W, HplT), HppT, lam, P,
+                                                  plan, rc)
                 else:
                     D, U = band_cr.from_dense(rows.schur_dense(HppT, W, HplT, lam, P, plan, rc),
                                               self.band_m)
@@ -304,7 +346,8 @@ class BlockSolverEngine:
                 x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
             elif self.solver == "band_lr":
                 if plan.v2:
-                    D, U, Vob = rows.schur_band(HppT, W, HplT, lam, P, plan, rc, with_ob=True)
+                    D, U, Vob = rows.band_from_compact(self._schur_table(W, HplT), HppT, lam,
+                                                       P, plan, rc, with_ob=True)
                     mark(_SCHUR)
                     x, ok, reads = band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev,
                                                              max(refine, 1))
@@ -313,7 +356,11 @@ class BlockSolverEngine:
                     mark(_SCHUR)
                     x, ok, reads = self._woodbury(Dm, rhs, refine)
             else:
-                Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
+                if plan.v2:
+                    Dm = rows.dense_from_compact(self._schur_table(W, HplT), HppT, lam, P,
+                                                 plan, rc)
+                else:
+                    Dm = rows.schur_dense_v1(HppT, W, HplT, lam, P, plan, rc)
                 mark(_SCHUR)
                 # the blocked trisolve kernels on the card (cuba_tpu takes
                 # them on the TPU), with one extra refinement sweep for the
@@ -329,6 +376,16 @@ class BlockSolverEngine:
         mark(_DECOMP)
         return xp, xl, ok, k, reads
 
+    def _schur_table(self, W, HplT):
+        """The v2 compact Schur table gT, all-reduced over the landmark
+        shards."""
+        return comm.all_reduce_sum(rows.schur_compact(W, HplT, self.plan, self.rc),
+                                   self.group)
+
+    def _schur_operator(self, Hpp_d, Hpl, W):
+        """The AoS path's matrix-free Schur operator."""
+        return pcg.SchurOperator(Hpp_d, Hpl, W, self.sc, self.num_p, self.num_l)
+
     def _solve_aos(self, sys, lam, mark=_no_mark):
         """The AoS path's trial solve (cuba_tpu's non-MXU branch): the Schur
         reduction with any of the four solvers, or the diagonal pose-only
@@ -338,16 +395,17 @@ class BlockSolverEngine:
         if P and L:
             Hpp_d = assembly.damp(Hpp, lam)
             invHll, W, bsc = schur.prepare_factors(bp, assembly.damp(Hll, lam), bl, Hpl,
-                                                   self.sc, P)
+                                                   self.sc, P, group=self.group)
             k = 0
             if self.solver == "pcg":
                 mark(_SCHUR)
-                op = pcg.SchurOperator(Hpp_d, Hpl, W, self.sc, P, L)
-                xp, ok, k = pcg.pcg_solve(op, bsc, self.config.pcg_max_iterations,
+                xp, ok, k = pcg.pcg_solve(self._schur_operator(Hpp_d, Hpl, W), bsc,
+                                          self.config.pcg_max_iterations,
                                           self.config.pcg_tol)
                 reads = k + 1
             else:
-                Dm = schur.assemble_dense(Hpp_d, W, Hpl, self.sc, P, self.pad_blocks)
+                blocks = comm.all_reduce_sum(schur.schur_blocks(W, Hpl, self.sc), self.group)
+                Dm = schur.dense_from_blocks(Hpp_d, blocks, self.sc, P, self.pad_blocks)
                 mark(_SCHUR)
                 rhs = self._reduced_rhs(bsc)
                 refine = self._refine()
@@ -368,7 +426,8 @@ class BlockSolverEngine:
             return xp, bp.new_zeros((0, 3)), torch.isfinite(xp).all(), 0, 0
         xl = smallmat.solve_sym3x3(assembly.damp(Hll, lam), bl)
         mark(_DECOMP)
-        return bl.new_zeros((0, 6)), xl, torch.isfinite(xl).all(), 0, 0
+        ok = comm.all_reduce_min(torch.isfinite(xl).all(), self.group)
+        return bl.new_zeros((0, 6)), xl, ok, 0, 0
 
     def _apply_update(self, state: State, xp, xl) -> State:
         """Left-compose the pose steps and add the landmark steps (active
@@ -389,14 +448,19 @@ class BlockSolverEngine:
         return HppT[36:42].T, HllT[9:12].T
 
     def _max_diag(self, sys):
+        """Max over the block-diagonal entries, floored at 0, and over the
+        landmark shards."""
         if self.use_rows:
-            return rows.max_diagonal_T(sys[0], sys[1])
-        return assembly.max_diagonal(sys[0], sys[2])
+            m = rows.max_diagonal_T(sys[0], sys[1])
+        else:
+            m = assembly.max_diagonal(sys[0], sys[2])
+        return comm.all_reduce_max(m, self.group)
 
-    @staticmethod
-    def _scale(xp, xl, bp, bl, lam):
-        """Gain-ratio denominator sum x * (lambda x + b)."""
-        return (xp * (lam * xp + bp)).sum() + (xl * (lam * xl + bl)).sum()
+    def _scale(self, xp, xl, bp, bl, lam):
+        """Gain-ratio denominator sum x * (lambda x + b); the landmark part
+        all-reduced over the landmark shards."""
+        return (xp * (lam * xp + bp)).sum() + comm.all_reduce_sum((xl * (lam * xl + bl)).sum(),
+                                                                  self.group)
 
     # -- the LM loop -----------------------------------------------------
 

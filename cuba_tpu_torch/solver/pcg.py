@@ -26,20 +26,26 @@ class SchurOperator(NamedTuple):
     num_p: int
     num_l: int
 
-    def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """x [P,6] -> Hsc x [P,6]."""
+    def slot_product(self, x: torch.Tensor) -> torch.Tensor:
+        """W (Hpl^T x) summed by pose over the slots [P,6]."""
         sc = self.sc
         a = segment_sum(torch.einsum("kij,ki->kj", self.Hpl, x[sc.hpl_row]), sc.hpl_col,
                         self.num_l, sc.csr_col)
-        y2 = segment_sum(torch.einsum("kij,kj->ki", self.W, a[sc.hpl_col]), sc.hpl_row,
-                         self.num_p, sc.csr_row)
-        return torch.einsum("pij,pj->pi", self.Hpp_d, x) - y2
+        return segment_sum(torch.einsum("kij,kj->ki", self.W, a[sc.hpl_col]), sc.hpl_row,
+                           self.num_p, sc.csr_row)
+
+    def slot_diagonal(self) -> torch.Tensor:
+        """W Hpl^T summed by pose over the slots [P,6,6]."""
+        contrib = torch.einsum("kil,kjl->kij", self.W, self.Hpl)
+        return segment_sum(contrib, self.sc.hpl_row, self.num_p, self.sc.csr_row)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """x [P,6] -> Hsc x [P,6]."""
+        return torch.einsum("pij,pj->pi", self.Hpp_d, x) - self.slot_product(x)
 
     def block_diagonal(self) -> torch.Tensor:
         """Exact 6x6 block diagonal of Hsc."""
-        contrib = torch.einsum("kil,kjl->kij", self.W, self.Hpl)
-        return self.Hpp_d - segment_sum(contrib, self.sc.hpl_row, self.num_p,
-                                        self.sc.csr_row)
+        return self.Hpp_d - self.slot_diagonal()
 
 
 def pcg_solve(op: SchurOperator, b: torch.Tensor, max_iterations: int, tol: float):

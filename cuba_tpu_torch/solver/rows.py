@@ -53,7 +53,7 @@ import torch
 
 from cuba_tpu_torch.ops import segmm
 from cuba_tpu_torch.ops.segmm import AccumWindowPlan, SegmentCSR, TilePlan
-from cuba_tpu_torch.solver import edgerows
+from cuba_tpu_torch.solver import comm, edgerows
 from cuba_tpu_torch.solver.structure import BAStructure
 
 
@@ -566,10 +566,14 @@ def _sym3x3_inv_rows(h: torch.Tensor) -> torch.Tensor:
     return torch.stack([b00, b01, b02, b01, b11, b12, b02, b12, b22])
 
 
-def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowConsts):
+def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowConsts,
+                    group=None):
     """Damped inverse Hll, W = Hpl Hll^-1 and bsc = bp - W bl, transposed.
 
-    Returns (iv9 [9, L], W [18, hpl_pad], bscT [6, P], g12 [12, hpl_pad])."""
+    Returns (iv9 [9, L], W [18, hpl_pad], bscT [6, P], g12 [12, hpl_pad]).
+    ``group``: the landmark shards' process group, over which the W bl pose
+    sum is all-reduced (HppT must already be the global one; HllT and HplT
+    are the shard's)."""
     hll_d = HllT[:9].clone()
     hll_d[0::4] += lam
     # near-singular landmarks make an fp32 determinant cancel: invert in fp64
@@ -580,7 +584,7 @@ def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowC
     W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
     wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
     bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    return iv9, W.reshape(18, H), HppT[36:42] - bsc_sub, g12
+    return iv9, W.reshape(18, H), HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
 
 
 def schur_compact(W, HplT, plan: RowPlan, rc: RowConsts):
@@ -692,10 +696,12 @@ def _hpp_matvec_rows(HppT, lam, xT):
     return torch.einsum("ije,je->ie", HppT[:36].view(6, 6, -1), xT) + lam * xT
 
 
-def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, plan: RowPlan, rc: RowConsts):
+def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, plan: RowPlan, rc: RowConsts,
+                      group=None):
     """Matrix-free Schur matvec Hsc x = (Hpp + lam I) x - W (Hpl^T x): a slot
     gather of x, a per-landmark segment sum, a gather back to the slots and
-    a pose-side accumulate."""
+    a pose-side accumulate, all-reduced over ``group``'s landmark shards (x
+    is the same on every rank)."""
     xg = segmm.tiled_gather(xT.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
     H = xg.shape[1]
     a3 = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xg).contiguous()
@@ -704,16 +710,18 @@ def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, plan: RowPlan, rc: R
     ag = segmm.tiled_gather(aL, rc.hpl_col, plan.ivs, plan.ivs.base_block)
     y6 = torch.einsum("ike,ke->ie", W.view(6, 3, H), ag).contiguous()
     ysub = _pose_accum(y6, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    return _hpp_matvec_rows(HppT, lam, xT) - ysub
+    return _hpp_matvec_rows(HppT, lam, xT) - comm.all_reduce_sum(ysub, group)
 
 
-def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts):
+def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts,
+                         group=None):
     """Inverted exact 6x6 block diagonal of the damped Schur complement,
-    [6, 6, P]: the block-Jacobi preconditioner."""
+    [6, 6, P]: the block-Jacobi preconditioner (its slot sum all-reduced
+    over ``group``'s landmark shards)."""
     H = HplT.shape[1]
     d36 = torch.einsum("ike,jke->ije", W.view(6, 3, H), HplT.view(6, 3, H)).reshape(36, H)
     corr = _pose_accum(d36.contiguous(), rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    M = (HppT[:36] - corr).T.reshape(num_p, 6, 6)
+    M = (HppT[:36] - comm.all_reduce_sum(corr, group)).T.reshape(num_p, 6, 6)
     M = M + lam * torch.eye(6, dtype=M.dtype, device=M.device)
     # inv_ex: a singular block gives non-finite values (and a rejected step)
     # without the host synchronisation of torch.linalg.inv's error check
@@ -722,13 +730,15 @@ def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts
 
 
 def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowConsts,
-                   max_iterations: int, tol: float):
+                   max_iterations: int, tol: float, group=None):
     """Block-Jacobi preconditioned CG on the matrix-free Schur operator.
     Returns (xT [6, P], ok, k): ok is False on non-convergence (and x is
     then 0), k is the number of CG steps.  The recurrence residual is kept
     as written (b - Ax is never recomputed).  The stop test reads the host
-    once per step."""
-    Minv = schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan, rc)
+    once per step.  ``group``: the landmark shards' process group of the
+    matvec's and the preconditioner's pose sums; every other quantity is
+    in pose space, the same on every rank."""
+    Minv = schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan, rc, group)
 
     def apply_M(rT):
         return torch.einsum("ije,je->ie", Minv, rT)
@@ -746,7 +756,7 @@ def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowC
     rr = dot(r, r)
     k = 0
     while k < max_iterations and bool(rr > tol2):
-        Ap = schur_matvec_rows(HppT, HplT, W, lam, p, num_p, num_l, plan, rc)
+        Ap = schur_matvec_rows(HppT, HplT, W, lam, p, num_p, num_l, plan, rc, group)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, one, pAp)
         x = x + alpha * p

@@ -14,6 +14,7 @@ import torch
 
 from cuba_tpu_torch.ops import segmm, smallmat
 from cuba_tpu_torch.ops.segmm import SegmentCSR
+from cuba_tpu_torch.solver import comm
 from cuba_tpu_torch.solver.assembly import segment_sum
 
 
@@ -44,12 +45,15 @@ def schur_consts(s, device) -> SchurConsts:
     )
 
 
-def prepare_factors(bp, Hll_d, bl, Hpl, sc: SchurConsts, num_p: int):
-    """(invHll [L,3,3], W = Hpl invHll [n_hpl,6,3], bsc = bp - W bl [P,6])."""
+def prepare_factors(bp, Hll_d, bl, Hpl, sc: SchurConsts, num_p: int, group=None):
+    """(invHll [L,3,3], W = Hpl invHll [n_hpl,6,3], bsc = bp - W bl [P,6]).
+    ``group``: the landmark shards' process group, over which the W bl pose
+    sum is all-reduced (``bp`` must already be the global one)."""
     invHll = smallmat.sym3x3_inv(Hll_d)
     W = torch.einsum("kij,kjl->kil", Hpl, invHll[sc.hpl_col])
     Wbl = torch.einsum("kij,kj->ki", W, bl[sc.hpl_col])
-    return invHll, W, bp - segment_sum(Wbl, sc.hpl_row, num_p, sc.csr_row)
+    return invHll, W, bp - comm.all_reduce_sum(segment_sum(Wbl, sc.hpl_row, num_p, sc.csr_row),
+                                               group)
 
 
 def triplet_products(W, Hpl, sc: SchurConsts) -> torch.Tensor:
@@ -64,15 +68,25 @@ def triplet_products(W, Hpl, sc: SchurConsts) -> torch.Tensor:
     return prod.view(36, T)
 
 
+def schur_blocks(W, Hpl, sc: SchurConsts) -> torch.Tensor:
+    """The sparse block table [n_hsc, 6, 6]: the sum of W[i] Hpl[j]^T over
+    each Hsc block's triplets (:func:`triplet_products`), by the CSR kernel;
+    triplets with ``mul_k`` out of range drop out."""
+    n_hsc = sc.hsc_row.shape[0]
+    return segmm.accum_segsum(triplet_products(W, Hpl, sc), sc.mul_k, n_hsc,
+                              csr=sc.csr_mul).T.reshape(n_hsc, 6, 6)
+
+
 def assemble_dense(Hpp_d, W, Hpl, sc: SchurConsts, num_p: int, pad_blocks: int):
     """The dense padded Schur matrix [6PB, 6PB], identity on the padding
     diagonal: Hsc = Hpp_d - sum over triplets of W[i] Hpl[j]^T at block (r,
-    c) and its mirror.  The triplet products (:func:`triplet_products`) are
-    summed per Hsc block by the CSR kernel."""
+    c) and its mirror."""
+    return dense_from_blocks(Hpp_d, schur_blocks(W, Hpl, sc), sc, num_p, pad_blocks)
+
+
+def dense_from_blocks(Hpp_d, blocks, sc: SchurConsts, num_p: int, pad_blocks: int):
+    """:func:`assemble_dense` from the block table ``blocks`` [n_hsc, 6, 6]."""
     dt, dev = Hpp_d.dtype, Hpp_d.device
-    n_hsc = sc.hsc_row.shape[0]
-    blocks = segmm.accum_segsum(triplet_products(W, Hpl, sc), sc.mul_k, n_hsc,
-                                csr=sc.csr_mul).T.reshape(n_hsc, 6, 6)
     PB = pad_blocks
     D = torch.zeros((PB, 6, PB, 6), dtype=dt, device=dev)
     diag = torch.arange(num_p, device=dev)

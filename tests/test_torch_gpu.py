@@ -961,3 +961,102 @@ def test_aos_fp64_on_card_matches_plain(cuda, monkeypatch):
         synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
         BAConfig(dtype=torch.float64, device="cuda"), "aos")
     assert launched == {"accum_segsum"}
+
+
+# ---------------------------------------------------------------------------
+# the landmark-sharded LM on the card (parallel/)
+# ---------------------------------------------------------------------------
+
+
+def _route_kernels(out, name):
+    """``chip_smoke.expected_kernels`` of a rank's route facts for a case."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    facts = {k[len(name) + 1:]: v for k, v in out.items() if k.startswith(f"{name}.")}
+    return chip_smoke.expected_kernels(facts)
+
+
+def _mesh_case(name, config, **kw):
+    ba = synthetic.build_graph(synthetic.generate(num_poses=140, num_landmarks=900, seed=13),
+                               BAConfig(dtype=torch.float64, device="cpu"))
+    ba.set_robust_kernels(RobustKernelType.HUBER, float(np.sqrt(5.991)), EdgeType.MONOCULAR)
+    ba.initialize()
+    return dict(name=name, kind="engine", structure=ba._engine.structure,
+                kernels=tuple(ba._kernels), iters=5, config=config, **kw)
+
+
+def test_mesh_one_rank_over_nccl_equals_single_device(cuda):
+    """A world of one over NCCL: the shard is the whole graph and every
+    all-reduce the identity, so the trajectory and the state are the
+    single-device engine's bits (band_cr, fp32, the kernels on the card)."""
+    from cuba_tpu_torch.parallel import drive, launch
+
+    segmm.build_kernels()
+    case = _mesh_case("s1", dict(dtype=torch.float32, solver="band_cr"), single=True)
+    (r,) = launch.spawn(drive.run_cases, 1, backend="nccl", device="cuda", timeout=300,
+                        args=([case],))
+    assert str(r["s1.path"]) == "v2" and str(r["s1.solver"]) == "band_cr"
+    for k in ("chis", "Xws", "qs", "ts", "final_lambda"):
+        assert np.array_equal(r[f"s1.{k}"], r[f"s1.single.{k}"]), k
+    launched = dict(zip(drive.LAUNCH_NAMES, r["s1.launches"]))
+    assert all(launched[n] > 0 for n in _route_kernels(r, "s1"))
+
+
+def test_mesh_four_ranks_over_gloo_on_one_card(cuda):
+    """Four ranks on one card over gloo (CUDA tensors through its host
+    staging): every rank's trajectory and state the same bits, within 5e-3
+    of the single-device run, every kernel of the route launched on every
+    rank."""
+    from cuba_tpu_torch.parallel import drive, launch
+    from cuba_tpu_torch.solver.engine import BlockSolverEngine
+
+    segmm.build_kernels()
+    case = _mesh_case("s4", dict(dtype=torch.float32, solver="band_cr"))
+    res = launch.spawn(drive.run_cases, 4, backend="gloo", device="cuda", timeout=300,
+                       args=([case],))
+    single = BlockSolverEngine(case["structure"], case["kernels"],
+                               BAConfig(dtype=torch.float32, solver="band_cr", device="cuda"))
+    want = single.optimize(None, 5).chis
+    for r in res:
+        assert str(r["s4.path"]) == "v2" and not r["modules"].size
+        for k in ("chis", "Xws", "qs"):
+            assert np.array_equal(r[f"s4.{k}"], res[0][f"s4.{k}"]), k
+        launched = dict(zip(drive.LAUNCH_NAMES, r["s4.launches"]))
+        assert all(launched[n] > 0 for n in _route_kernels(r, "s4"))
+    np.testing.assert_allclose(res[0]["s4.chis"], want, rtol=5e-3)
+
+
+def test_mesh_aos_body_with_an_empty_shard_on_one_card(cuda):
+    """The AoS shard body on the card where the last of four shards owns
+    no active landmark (nine active of 48, landmarks 9.. fixed: the rows
+    cut refuses), fp64: every rank the same bits, within 1e-6 of the
+    single-device run, the CSR segment sum launched on every rank."""
+    from cuba_tpu_torch.parallel import drive, launch
+    from cuba_tpu_torch.solver.engine import BlockSolverEngine
+
+    segmm.build_kernels()
+    ba = synthetic.build_graph(synthetic.generate(num_poses=6, num_landmarks=48, seed=17),
+                               BAConfig(dtype=torch.float64, device="cpu"))
+    for j in range(9, 48):
+        ba.landmark_vertex(j).fixed = True
+    ba.initialize()
+    case = dict(name="e", kind="engine", structure=ba._engine.structure,
+                kernels=tuple(ba._kernels), iters=5, config=dict(dtype=torch.float64))
+    res = launch.spawn(drive.run_cases, 4, backend="gloo", device="cuda", timeout=300,
+                       args=([case],))
+    single = BlockSolverEngine(case["structure"], case["kernels"],
+                               BAConfig(dtype=torch.float64, device="cuda"))
+    want = single.optimize(None, 5).chis
+    for r in res:
+        assert str(r["e.path"]) == "aos"
+        for k in ("chis", "Xws", "qs"):
+            assert np.array_equal(r[f"e.{k}"], res[0][f"e.{k}"]), k
+        launched = dict(zip(drive.LAUNCH_NAMES, r["e.launches_f64"]))
+        assert launched["accum_segsum"] > 0
+    np.testing.assert_allclose(res[0]["e.chis"], want, rtol=1e-6)

@@ -130,6 +130,31 @@ def test_public_api_runs_without_jax():
     assert "isolated" in r.stdout
 
 
+def test_spawned_ranks_import_no_jax():
+    """The ranks of a sharded run (``parallel.launch.spawn``, a fresh
+    interpreter each, started from this process, which holds JAX) import
+    neither JAX nor cuba_tpu: ``drive.run_cases`` asserts it on entry and
+    reports the rank's modules at its end."""
+    import numpy as np
+
+    from cuba_tpu_torch.io import synthetic
+    from cuba_tpu_torch.parallel import drive, launch
+
+    case = dict(name="g", kind="api", iters=2, config=dict(dtype=torch.float64),
+                problem=synthetic.generate(num_poses=6, num_landmarks=50, seed=2))
+    res = launch.spawn(drive.run_cases, 2, args=([case],), timeout=120)
+    for r in res:
+        assert r["modules"].size == 0, r["modules"]
+        assert np.array_equal(r["g.chis"], res[0]["g.chis"]) and r["g.chis"][-1] < r["g.chis"][0]
+
+
+def test_multichip_sample_runs_without_jax():
+    r = _python(["-m", "cuba_tpu_torch.samples.sample_multichip", "--devices", "2", "--device",
+                 "cpu", "--poses", "8", "--landmarks", "80", "--iters", "2"], REPO)
+    assert r.returncode == 0, r.stderr
+    assert "ranks agree bit for bit: True" in r.stdout
+
+
 def test_port_opens_and_builds_nothing_of_cuba_tpu():
     """No module of the port names a path under ``cuba_tpu/``: a quoted
     ``"cuba_tpu"`` path component or a ``"cuba_tpu/..."`` string."""
@@ -165,7 +190,8 @@ def test_sources_import_no_jax():
     assert {"assembly.py", "schur.py", "pcg.py", "projection.py", "jacobians.py",
             "smallmat.py", "rows.py", "band_cr.py", "chip_smoke.py", "json_io.py", "bal.py",
             "solver.py", "sample_ba_from_file.py", "sample_bal.py",
-            "sample_comparison_with_reference.py"} <= seen
+            "sample_comparison_with_reference.py", "sharding.py", "rows_shard.py", "comm.py",
+            "launch.py", "drive.py", "sample_multichip.py"} <= seen
 
 
 def test_kernel_source_and_binding_import_without_nvcc():
