@@ -190,6 +190,22 @@ Phases (any failure exits non-zero, before the result line):
    plan it) in this process: kernels 1-7 against their plain versions at
    its call sites, as in phase 6, and ``compact_to_band`` on the sum of the
    four shards' compact tables (what the all-reduce delivers).
+18. The large-landmark regime at full width: ``tools/stress_large_l.py``'s
+   graph (1778 poses, 1,000,000 landmarks, ~5 observations each, 25%
+   stereo, seed 0: 3,885,457 edges, 12.6M Schur triplets), Huber kernels,
+   ``BAConfig(dtype=float32, device="cuda")`` with ``solver="auto"``, built
+   once through the public API: ``initialize()`` must resolve to
+   ``band_cr`` with 28 CR blocks on v2; a warm-up ``optimize(10)``; the
+   memory plan (``stress_large_l.memory_plan``: the bytes of the engine's
+   dominant tensors); the route's kernels (``engine_kernels``) against
+   their plain versions at its call sites, as in phase 6; the counted
+   ``optimize(10)`` from the engine's initial state (every kernel of the
+   route launched, chi² finite and falling) and its profile; the same
+   graph's first STRESS_PLAIN_ITERS iterations with the plain versions
+   within TRAJ_RTOL of the kernel run's; and the same structure in fp64
+   on the card (the record: ``cuba_tpu`` never recorded this graph), the
+   fp32 trajectory within CHI2_REL_BAND of it at every iteration.  Each
+   run logs the device's peak memory.
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
@@ -199,7 +215,8 @@ the same function where there is one (``index_select`` for the gathers,
 matvec) and computes the kernel's bound on this card: the larger of the
 bytes it must move (each input read once, each output written once, for
 this run's data) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s
-(its fp64 ones over 34 TFLOP/s).
+(its fp64 ones over 34 TFLOP/s): ``cuba_tpu_torch/tools/roofline.py``,
+the yardstick ``tools/mfu.py`` shares.
 
 After each path's counted run one more ``optimize(10)`` of a fresh graph
 runs under ``torch.profiler`` (device activity only) and logs the device
@@ -212,7 +229,8 @@ path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
 kitti00 engine, ``v1``, ``band_lr`` and ``aos`` from phases 11-13, ``bal``
 from phase 15, ``band-fp64``, ``dense-fp64``, ``v1-fp64``, ``aos-fp64`` and
 ``pcg-fp64`` from phase 16, ``mesh`` from phase 17c with the launches of
-rank 0's kitti00 loop run in 17b, each entry with its ``dtype``;
+rank 0's kitti00 loop run in 17b, ``stress`` from phase 18, each entry
+with its ``dtype``;
 ``"site"`` names a second call site of one kernel).  ``launches`` is the
 kernel's count in that path's counted run, over all its call sites, and
 ``attempts`` that run's damped attempts; the other numbers are that
@@ -237,6 +255,7 @@ true, "device": {...}}``.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -248,6 +267,11 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+try:  # the port's graphs and yardstick: peak rates, work counts and timing
+    # (main() fails where the package is missing)
+    from cuba_tpu_torch.tools import graphs, roofline
+except ImportError:
+    graphs = roofline = None
 ITERS = 10
 # bench.py's recorded fp64 final chi² of its default graphs after 10 LM
 # iterations (docs/PARITY_kitti00.md), and the band a run must land in
@@ -282,15 +306,6 @@ CHI2_FP64_RTOL = 1e-6
 # plain versions on the card, per iteration
 FP64_PLAIN_RTOL = 1e-8
 FP64_SHORT_ITERS = 3
-# one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): device
-# memory rate and fp32 and fp64 rates outside the tensor cores, per
-# millisecond
-HBM_BYTES_PER_MS = 3.35e9
-FP32_FLOPS_PER_MS = 67e9
-FP64_FLOPS_PER_MS = 34e9
-REPEATS = 25
-PROFILE_TRIES = 3  # profiler sessions interleaved_times may take to split its rounds
-FLUSH_BYTES = 128 << 20  # read before every cold call: 2.5x the H100's 50 MB L2
 SEGSUM_RTOL = 1e-5
 SEGSUM_RTOL_F64 = 1e-13  # the same bound for the fp64 builds (phase 16)
 # the blocked sweeps against their plain versions: each entry within this
@@ -302,12 +317,10 @@ SEGSUM_RTOL_F64 = 1e-13  # the same bound for the fp64 builds (phase 16)
 SOLVE_RTOL = 1e-4
 TRAJ_RTOL = 5e-3
 
-KITTI = dict(num_poses=1322, num_landmarks=133383, mean_obs_per_landmark=5.5,
-             stereo_fraction=0.25, seed=0, loop_closure=True)  # bench.py:121-137
+if graphs is not None:  # tools/graphs.py's: bench.py:121-137 and :114-119
+    KITTI, KITTI07 = graphs.KITTI00_LOOP, graphs.KITTI07
+    KITTI00 = dict(KITTI, loop_closure=False)  # bench.py:121-137, the odometry graph
 KITTI_BAND_M = 22
-KITTI07 = dict(num_poses=248, num_landmarks=26127, mean_obs_per_landmark=4.65,
-               stereo_fraction=0.25, seed=0, loop_closure=False)  # bench.py:114-119
-KITTI00 = dict(KITTI, loop_closure=False)  # bench.py:121-137, the odometry graph
 # the dense solver against band_lr per iteration: cuba_tpu's on-chip bar
 # for two solvers on one graph (tests/test_tpu_matrix.py)
 SOLVER_RTOL = 2e-2
@@ -357,7 +370,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-_STAMP = [time.perf_counter()]
+_START = time.perf_counter()
+_STAMP = [_START]
 
 
 def stamp(what: str) -> None:
@@ -395,11 +409,11 @@ def set_huber(ba):
 
 
 def cuda_ms(fn, torch) -> float:
-    """Median milliseconds of ``fn()`` over REPEATS CUDA-event-timed runs."""
+    """Median milliseconds of ``fn()`` over ``roofline.REPEATS`` CUDA-event-timed runs."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(roofline.REPEATS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -411,106 +425,14 @@ def cuda_ms(fn, torch) -> float:
 
 
 def interleaved_times(fns, torch, cold=False):
-    """{label: (call_ms, device_ms)} for the callables of ``fns`` ({label:
-    fn}), timed in turns in one loop of REPEATS rounds under
-    ``torch.profiler`` (device activity only): call_ms is the median of the
-    CUDA-event time around each call, host work of the wrapper included;
-    device_ms the median over the same calls of the summed durations of the
-    device kernels, copies and sets the call ran.
-
-    Every call starts from a cache of its own making, so that no call's time
-    depends on which call ran before it: an untimed run of the same call
-    (warm: its inputs in the L2 as far as they fit), or with ``cold`` a
-    read of FLUSH_BYTES (2.5x the L2), which leaves the L2 empty of its
-    inputs and clean.  A ``torch.cuda._sleep`` kernel before that run and
-    another before the call mark where each starts in the trace (the first
-    segment is dropped), and two in a row where a round starts.  The trace
-    can miss events (the first few of a profiler session and its last
-    ones, as seen on an H100), so a round counts only where the marks
-    close it and split it into as many segments as it made.  Where fewer
-    than half the rounds count, the loop runs again in a new profiler
-    session, and the run fails after PROFILE_TRIES sessions: every time it
-    returns was measured."""
-    labels = list(fns)
-    for fn in fns.values():
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        call_ms, whole, marks = _profiled_rounds(fns, labels, torch, cold)
-        if 2 * len(whole) >= REPEATS:
-            log(f"launch floor: median device time of this session's {len(marks)} "
-                f"spin_kernel marks {statistics.median(marks) / 1e3:.4f} ms")
-            return {k: (statistics.median(call_ms[k]),
-                        statistics.median(r[i] for r in whole) / 1e3)
-                    for i, k in enumerate(labels)}
-        log(f"interleaved_times: {len(whole)} of {REPEATS} rounds whole in the trace")
-    fail(f"device time not measured: the trace split too few rounds in {PROFILE_TRIES} "
-         "profiler sessions")
-
-
-def _profiled_rounds(fns, labels, torch, cold):
-    """One profiler session of :func:`interleaved_times`: ({label: call
-    ms per round}, [[device us per label] for each round the trace split
-    whole], [device us of each mark]).  A mark is a ``torch.cuda._sleep(1)``
-    kernel, whose device time is the floor of one launch in this session.
-    A call that raises ends the run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call_ms = {k: [] for k in labels}
-    if cold:
-        flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-        prepare = {k: flush.sum for k in labels}
-    else:
-        prepare = fns
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
-            torch.cuda._sleep(1)
-            for k in labels:
-                torch.cuda._sleep(1)
-                prepare[k]()
-                torch.cuda._sleep(1)
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                fns[k]()
-                b.record()
-                b.synchronize()
-                call_ms[k].append(a.elapsed_time(b))
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    segments, cur = [], None  # [events, device us] between consecutive marks
-    marks = []
-    for start, end, name in spans:
-        if "spin_kernel" in name:
-            marks.append(end - start)
-            if cur is not None:
-                segments.append(cur)
-            cur = [0, 0.0]
-        elif cur is not None:
-            cur[0] += 1
-            cur[1] += end - start
-    # an unclosed last segment may have lost its tail (see device_ops)
-    rounds, rnd = [], None
-    for n, us in segments:
-        if n == 0:  # two marks in a row: a round starts
-            if rnd is not None:
-                rounds.append(rnd)
-            rnd = []
-        elif rnd is not None:
-            rnd.append(us)
-    if rnd is not None:
-        rounds.append(rnd)
-    # each call's segment follows its preparation's
-    return call_ms, [r[1::2] for r in rounds if len(r) == 2 * len(labels)], marks
-
-
-def bound(nbytes: float, flops: float, fp64: bool = False):
-    """(bound_ms, bound_by): the least time this card could take to move
-    ``nbytes`` and do ``flops`` fp32 (or, with ``fp64``, fp64) operations."""
-    t_bytes = nbytes / HBM_BYTES_PER_MS
-    t_ops = flops / (FP64_FLOPS_PER_MS if fp64 else FP32_FLOPS_PER_MS)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """{label: (call_ms, device_ms)} of the callables of ``fns``, timed in
+    turns under ``torch.profiler`` (``roofline.interleaved_times``, the
+    one timing of the smoke and of ``tools/mfu.py``); a trace that splits
+    too few rounds ends the run."""
+    try:
+        return roofline.interleaved_times(fns, cold)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def sum_rtol(t) -> float:
@@ -520,90 +442,61 @@ def sum_rtol(t) -> float:
     return SEGSUM_RTOL_F64 if t.element_size() == 8 else SEGSUM_RTOL
 
 
-def gather_case(call, kern, plain, src, ids, torch):
-    """A gather's case: its ids and output, and the source columns this
-    run's ids need, read once; the yardstick is ``index_select`` on the
-    in-range ids (out-of-range ids read column 0 there)."""
-    valid = (ids >= 0) & (ids < src.shape[1])
-    cols = int(torch.unique(ids[valid]).numel())
-    D, N = src.shape[0], ids.shape[0]
-    safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
-    return ("exact", call, kern, plain, (4 * N + src.element_size() * (D * N + D * cols), 0),
-            lambda: src.index_select(1, safe))
+def site_case(site, segmm, torch):
+    """The case (see :func:`compare_cases`) of a ``roofline.Site``: its
+    wrapper against the plain version on the site's arguments, its work,
+    and per kind the yardstick and notes.  A gather is exact, its library
+    call ``index_select`` on the in-range ids (out-of-range ids read column
+    0 there).  A segment sum is held to :func:`segsum_bound`, its library
+    call ``index_add_`` into zeros; notes: the group width G and rows per
+    chunk the kernel picks, and the CSR's shape.  ``schur_fused`` is held
+    to its sum of |terms|; the placements are exact; no single PyTorch call
+    computes either, and their notes are the launch and the build's
+    attributes."""
+    kern, plain = getattr(segmm, site.kernel), getattr(segmm, site.kernel + "_plain")
+    work = site.work()
+    if site.kind == "gather":
+        src, ids = site.inputs
+        valid = (ids >= 0) & (ids < src.shape[1])
+        safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+        return ("exact", site.call, kern, plain, work, lambda: src.index_select(1, safe))
+    if site.kind == "segsum":
+        vals, ids, num_out, csr = site.inputs
+        valid = (ids >= 0) & (ids < num_out)
+        D, N = vals.shape
+        idx, v = ids[valid].long(), vals[:, valid].contiguous()
 
+        def library():
+            return torch.zeros((D, num_out), dtype=vals.dtype, device=vals.device).index_add_(
+                1, idx, v)
 
-def segsum_case(call, kern, plain, vals, ids, num_out, csr, torch):
-    """A segment sum's case: its ids, the columns with an id in range and
-    its output; one add per summed value; the yardstick is ``index_add_``
-    into zeros.  Notes: the group width G and rows per chunk the kernel
-    picks for the call, and the CSR's shape."""
-    from cuba_tpu_torch.ops import segmm
-
-    valid = (ids >= 0) & (ids < num_out)
-    nv = int(valid.sum())
-    D, N = vals.shape
-    idx, v = ids[valid].long(), vals[:, valid].contiguous()
-
-    def library():
-        return torch.zeros((D, num_out), dtype=vals.dtype, device=vals.device).index_add_(
-            1, idx, v)
-
-    lengths = torch.diff(csr.offs)
-    notes = dict(group=csr.group, rows=segmm.row_chunk(D, N, csr.group), D=D, segments=num_out,
-                 entries=nv, max_len=int(lengths.max()) if num_out else 0,
-                 empty=int((lengths == 0).sum()))
-    return ((vals, ids, num_out), call, kern, plain,
-            (4 * N + vals.element_size() * (D * nv + D * num_out), D * nv), library, notes)
+        lengths = torch.diff(csr.offs)
+        notes = dict(group=csr.group, rows=segmm.row_chunk(D, N, csr.group), D=D,
+                     segments=num_out, entries=int(valid.sum()),
+                     max_len=int(lengths.max()) if num_out else 0,
+                     empty=int((lengths == 0).sum()))
+        return ((vals, ids, num_out), site.call, kern, plain, work, library, notes)
+    dtype = site.args[0].dtype
+    if site.kind == "schur":
+        launch = segmm.schur_fused_launch(site.inputs[2][0], dtype)
+    else:
+        launch = getattr(segmm, site.kernel + "_launch")(site.inputs[0].pad_blocks, dtype)
+    return (("schur",) if site.kind == "schur" else "exact", site.call, kern, plain, work, None,
+            {**launch, **segmm.kernel_attributes(site.kernel, launch, dtype)})
 
 
 def check_kernels(engine, torch, segmm):
     """Phase 2: each wrapper's kernel against its plain version on the
-    slice's tensors.  Returns {name: entry} (see :func:`compare_cases`)."""
-    from cuba_tpu_torch.solver import edgerows, rows
+    slice's tensors (``roofline.row_sites``).  Returns {name: entry} (see
+    :func:`compare_cases`)."""
+    return compare_cases(kernel_cases(engine, torch, segmm), torch,
+                         lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
 
-    plan, rc = engine.plan, engine.rc
-    st = engine.state
-    total_p = st.qs.shape[0]
-    psrc = torch.zeros((12, plan.p_res_pad), dtype=st.qs.dtype, device=st.qs.device)
-    psrc[:, :total_p] = torch.cat([st.qs, st.ts, engine.cams], dim=1).T
-    pack_m, _pack_s, _chi = engine._residuals_and_chi(st)
-    g12, err, Xc, inv_z = pack_m
-    R = edgerows.rotmat_rows(g12[0:4])
-    v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], rc.omegaT_m,
-                                       engine.kernels[0], 2)
-    HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(st)[:2])
-    lam = torch.ones((), dtype=st.qs.dtype, device=st.qs.device)
-    iv9 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, plan, rc)[0]
-    src12 = torch.cat([iv9, HllT[9:12]])
-    if plan.rg_m is not None:
-        wsrc, wids = psrc.index_select(1, rc.res_perm), rc.pose_gidr_m
-    else:
-        wsrc, wids = psrc, rc.pose_gid_m
-    paw = plan.paw_m
-    cases = {
-        "resident_gather": gather_case(
-            lambda f: f(psrc, rc.pose_gid_m),
-            segmm.resident_gather, segmm.resident_gather_plain, psrc, rc.pose_gid_m, torch),
-        "windowed_gather": gather_case(
-            lambda f: f(wsrc, wids, plan.rg_m, None),
-            segmm.windowed_gather, segmm.windowed_gather_plain, wsrc, wids, torch),
-        "tiled_gather": gather_case(
-            lambda f: f(src12, rc.hpl_col, plan.ivs, None),
-            segmm.tiled_gather, segmm.tiled_gather_plain, src12, rc.hpl_col, torch),
-        "accum_segsum_windowed": segsum_case(
-            lambda f: f(v42, rc.pose_acc_m, engine.num_p, paw, None, csr=rc.csr_pose_m),
-            segmm.accum_segsum_windowed, segmm.accum_segsum_windowed_plain,
-            v42, rc.pose_acc_m, engine.num_p, rc.csr_pose_m, torch),
-        "tiled_segsum": segsum_case(
-            lambda f: f(v18, rc.e2h_m, plan.hpl_pad, plan.hpl_m, None, csr=rc.csr_e2h_m),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain, v18, rc.e2h_m, plan.hpl_pad,
-            rc.csr_e2h_m, torch),
-        "accum_segsum": segsum_case(
-            lambda f: f(v42, rc.pose_acc_m, engine.num_p, csr=rc.csr_pose_m),
-            segmm.accum_segsum, segmm.accum_segsum_plain, v42, rc.pose_acc_m, engine.num_p,
-            rc.csr_pose_m, torch),
-    }
-    return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
+
+def kernel_cases(engine, torch, segmm):
+    """The cases of kernels 1-6 at the rows front end's call sites
+    (``roofline.row_sites``)."""
+    return {k: site_case(v, segmm, torch) for k, v in roofline.row_sites(engine).items()}
 
 
 def segsum_bound(segmm, vals, ids, num_out):
@@ -646,7 +539,7 @@ def compare_cases(cases, torch, bound_of, dtype=None):
             fail(f"{name}: two launches on the same input gave different bits")
         err = float(diff.max()) if diff.numel() else 0.0
         del got, ref, diff, again
-        bound_ms, bound_by = bound(*work, fp64=dtype == torch.float64)
+        bound_ms, bound_by = roofline.bound(*work, fp64=dtype == torch.float64)
         out[name] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                          **(notes[0] if notes else {}))
         fns[(name, "kernel")] = lambda call=call, kern=kern: call(kern)
@@ -679,73 +572,10 @@ def compare_cases(cases, torch, bound_of, dtype=None):
     return out
 
 
-def first_attempt(engine):
-    """The first damped attempt's (HppT, HplT, lam, W, bscT) on the
-    engine's initial state."""
-    from cuba_tpu_torch.solver import rows
-
-    plan, rc = engine.plan, engine.rc
-    HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
-    lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
-    _iv9, W, bscT, _g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p,
-                                               engine.num_l, plan, rc)
-    return HppT, HplT, lam, W.contiguous(), bscT
-
-
-def schur_case(W, G, plan, sc, csr, segmm, torch):
-    """schur_fused's case (:func:`schur_work`), with its launch and the
-    build's attributes as notes.  No single PyTorch call computes it."""
-    launch = segmm.schur_fused_launch(plan, W.dtype)
-    return (("schur",), lambda f: f(W, G, *sc, csr=csr), segmm.schur_fused,
-            segmm.schur_fused_plain, schur_work(plan, sc, csr, torch, W.element_size()), None,
-            {**launch, **segmm.kernel_attributes("schur_fused", launch, W.dtype)})
-
-
-def schur_work(plan, sc, csr, torch, size=4):
-    """schur_fused's (bytes, flops) for values of ``size`` bytes: the W and
-    G columns its triplets read; the index tables its kernel reads, one int
-    a CSR entry (``csr.pairs``, the size of ``csr.order``), the lane
-    offsets, one lane order entry an output lane, and sb; and its output; 3
-    multiply-adds for each of the 36 outputs of a triplet."""
-    sb, li, lj, _lk = sc[1:]
-    base = (sb.long() * plan.slot_block).repeat_interleave(plan.chunk)
-    valid = (li >= 0) & (lj >= 0)
-    cols = sum(int(torch.unique((base + x.long())[valid]).numel()) for x in (li, lj))
-    lanes = plan.num_chunks * plan.kwin
-    index = csr.order.numel() + csr.offs.numel() + lanes + sb.numel()
-    return size * (18 * cols + 36 * lanes) + 4 * index, 216 * int(valid.sum())
-
-
-def band_case(gT, dbT, plan, rc, segmm):
-    """compact_to_band's case (:func:`band_work`).  Exact: a placement.  No
-    single PyTorch call computes it."""
-    args = (gT, rc.iru, rc.icu, dbT, rc.band_occ, plan.pad_blocks, plan.wg)
-    launch = segmm.compact_to_band_launch(plan.pad_blocks, gT.dtype)
-    return ("exact", lambda f: f(*args, table=rc.band_table), segmm.compact_to_band,
-            segmm.compact_to_band_plain, band_work(plan, rc, gT.element_size()), None,
-            {**launch, **segmm.kernel_attributes("compact_to_band", launch, gT.dtype)})
-
-
-def band_work(plan, rc, size=4):
-    """compact_to_band's (bytes, flops) for values of ``size`` bytes: the
-    table entries it places (36 values a filled slot), the slot ids, the
-    diagonal, the occupancy and its output; one add per diagonal element."""
-    PB = plan.pad_blocks
-    M = PB // 64
-    n_slots = int((rc.iru >= 0).sum())
-    return (size * (36 * n_slots + 36 * PB + M * 384 * 768) + 4 * (2 * rc.iru.numel() + 2 * M),
-            36 * PB)
-
-
-def dense_work(plan, rc, size=4):
-    """compact_to_dense's (bytes, flops) for values of ``size`` bytes: the
-    table entries it places (36 values a filled slot), the slot ids, the
-    diagonal, the occupancy and its [6PB, 6PB] output; one add per diagonal
-    element."""
-    PB = plan.pad_blocks
-    n_slots = int((rc.iru >= 0).sum())
-    return (size * (36 * n_slots + 36 * PB + 36 * PB * PB)
-            + 4 * (2 * rc.iru.numel() + rc.occ2.numel()), 36 * PB)
+def band_case(gT, dbT, engine, segmm, torch):
+    """compact_to_band's case on the compact table gT and the damped
+    diagonal dbT (``roofline.placement_site``)."""
+    return site_case(roofline.placement_site(engine, gT, dbT), segmm, torch)
 
 
 def check_schur_kernels(engine, torch, segmm, HplT, W):
@@ -753,31 +583,30 @@ def check_schur_kernels(engine, torch, segmm, HplT, W):
     ``tiled_segsum`` at the combine of the engine's formation: v2's one
     (``rows.schur_compact``) or v1's two (``rows.dense_block_table``)."""
     out = check_kernels(engine, torch, segmm)
-    plan, rc = engine.plan, engine.rc
-    sc = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
-    PB = plan.pad_blocks
-    # the combine's input as the formation makes it
-    win = segmm.schur_fused(W, HplT, *sc, csr=rc.csr_sc)
-    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
-    cases = {"schur_fused": schur_case(W, HplT, plan.schur, sc, rc.csr_sc, segmm, torch)}
-    if plan.v2:
-        sites = {"combine": (rc.gkey_up2, PB // 64 * plan.wg, plan.up2, rc.csr_up2)}
-    else:
-        sites = {"combine_up": (rc.gkey_up, PB * PB, plan.up, rc.csr_up),
-                 "combine_lo": (rc.gkey_lo, PB * PB, plan.lo, rc.csr_lo)}
-    for site, (keys, num_out, tplan, csr) in sites.items():
-        cases[f"tiled_segsum:{site}"] = segsum_case(
-            lambda f, keys=keys, num_out=num_out, tplan=tplan, csr=csr: f(
-                win, keys, num_out, tplan, tplan.base_block, csr=csr),
-            segmm.tiled_segsum, segmm.tiled_segsum_plain, win, keys, num_out, csr, torch)
-
-    def bound_of(*kind):
-        if kind == ("schur",):
-            return sum_rtol(W) * segmm.schur_fused_plain(W.abs(), HplT.abs(), *sc)
-        return segsum_bound(segmm, *kind)
-
+    cases, bound_of = schur_cases(engine, torch, segmm, HplT, W)
     out.update(compare_cases(cases, torch, bound_of, engine.dtype))
     return out
+
+
+def schur_cases(engine, torch, segmm, HplT, W):
+    """The cases of ``schur_fused`` and of ``tiled_segsum`` at the combine
+    of the engine's formation, on W and HplT (``roofline.schur_sites``),
+    and their bound: (cases, bound_of)."""
+    sites = roofline.schur_sites(engine, HplT, W)
+    return {k: site_case(v, segmm, torch) for k, v in sites.items()}, sites_bound(sites, segmm)
+
+
+def sites_bound(sites, segmm):
+    """The kernel-against-plain bound of the sums among ``sites``:
+    :func:`sum_rtol` of each output's sum of |terms|, for ``schur_fused``
+    its products' and for a segment sum its values' (:func:`segsum_bound`)."""
+    def bound_of(*kind):
+        if kind == ("schur",):
+            W, G, *sc = sites["schur_fused"].args
+            return sum_rtol(W) * segmm.schur_fused_plain(W.abs(), G.abs(), *sc)
+        return segsum_bound(segmm, *kind)
+
+    return bound_of
 
 
 def check_band_kernels(engine, torch, segmm, cr_timings=True):
@@ -789,12 +618,12 @@ def check_band_kernels(engine, torch, segmm, cr_timings=True):
     from cuba_tpu_torch.solver import band_cr, rows
 
     plan, rc = engine.plan, engine.rc
-    HppT, HplT, lam, W, bscT = first_attempt(engine)
+    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W)
     PB = plan.pad_blocks
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
-    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, plan, rc, segmm)},
+    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, engine, segmm, torch)},
                              torch, None, engine.dtype))
     if not cr_timings:
         return out
@@ -828,21 +657,17 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True, trisolv
     from cuba_tpu_torch.solver import dense_cholesky, rows, trisolve
 
     plan, rc = engine.plan, engine.rc
-    HppT, HplT, lam, W, bscT = first_attempt(engine)
+    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W) if schur_kernels else {}
     PB = plan.pad_blocks
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
-    dense_args = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
-    dense_launch = segmm.compact_to_dense_launch(PB, gT.dtype)
-    dense_case = (
-        "exact", lambda f: f(*dense_args, table=rc.dense_table), segmm.compact_to_dense,
-        segmm.compact_to_dense_plain, dense_work(plan, rc, gT.element_size()), None,
-        {**dense_launch, **segmm.kernel_attributes("compact_to_dense", dense_launch, gT.dtype)})
+    dense_site = roofline.placement_site(engine, gT, dbT, dense=True)
+    dense_case = site_case(dense_site, segmm, torch)
     if not trisolve_kernels:
         out.update(compare_cases({"compact_to_dense": dense_case}, torch, None, engine.dtype))
         return out
-    A = segmm.compact_to_dense(*dense_args, table=rc.dense_table)
+    A = dense_site.call(segmm.compact_to_dense)
     n = A.shape[0]
     rhs = bscT.new_zeros(n)
     rhs[:6 * engine.num_p] = bscT.T.reshape(-1)
@@ -959,8 +784,6 @@ def with_chords(prob, C: int):
     poses (src + 3P/7) % P and (src + 5P/7) % P re-observe the first
     landmark that pose src = (2c+1)P/(2C+1) observes in the mono edge list,
     at a fixed pixel (the Huber kernel caps its residual)."""
-    import dataclasses
-
     P = prob.qs.shape[0]
     mp, ml = [], []
     for c in range(C):
@@ -1112,11 +935,18 @@ def profile_path(prob, config, torch, label, wall_s, fix=None):
     the profiled wall and of ``wall_s`` (the same run's wall unprofiled),
     and the five kernels with the most device time.  Logged, not gated;
     an error of the run (a kernel's included) ends the smoke test."""
+    ba = make_graph(prob, config, fix)
+    ba.initialize()
+    profile_optimize(ba, torch, label, wall_s)
+
+
+def profile_optimize(ba, torch, label, wall_s):
+    """:func:`profile_path`'s profiled ``optimize(ITERS)`` of an
+    initialized graph, from its engine's initial state."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ba = make_graph(prob, config, fix)
-    ba.initialize()
+    ba._state = ba._engine.state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1167,7 +997,7 @@ def check_v1_kernels(engine, torch, segmm):
     from cuba_tpu_torch.solver import rows
 
     plan, rc = engine.plan, engine.rc
-    HppT, HplT, lam, W, _bscT = first_attempt(engine)
+    HppT, HplT, lam, W, _bscT = roofline.first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W)
     PB = plan.pad_blocks
     m4 = rows.dense_block_table(W, HplT, plan, rc)
@@ -1208,7 +1038,7 @@ def time_woodbury(engine, torch):
     from cuba_tpu_torch.solver import band_cr, rows
 
     plan, rc, P = engine.plan, engine.rc, engine.num_p
-    HppT, HplT, lam, W, bscT = first_attempt(engine)
+    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
     D, U, Vob = rows.schur_band(HppT, W, HplT, lam, P, plan, rc, with_ob=True)
     rhs = bscT.new_zeros(6 * plan.pad_blocks)
     rhs[:6 * P] = bscT.T.reshape(-1)
@@ -1241,14 +1071,13 @@ def check_aos_kernels(engine, torch, segmm):
     v42 = torch.cat([Hpp_e.reshape(-1, 36), bp_e], 1).T.contiguous()
     prod = schur.triplet_products(W, Hpl, sc)
     n_hsc = sc.hsc_row.shape[0]
-    cases = {
-        "accum_segsum": segsum_case(
-            lambda f: f(v42, ec.pose_idx, P, csr=ec.csr_pose), segmm.accum_segsum,
-            segmm.accum_segsum_plain, v42, ec.pose_idx, P, ec.csr_pose, torch),
-        "accum_segsum:triplets": segsum_case(
-            lambda f: f(prod, sc.mul_k, n_hsc, csr=sc.csr_mul), segmm.accum_segsum,
-            segmm.accum_segsum_plain, prod, sc.mul_k, n_hsc, sc.csr_mul, torch),
+    sites = {
+        "accum_segsum": (v42, ec.pose_idx, P, ec.csr_pose),
+        "accum_segsum:triplets": (prod, sc.mul_k, n_hsc, sc.csr_mul),
     }
+    cases = {label: site_case(roofline.Site("accum_segsum", (vals, ids, num_out), dict(csr=csr),
+                                            "segsum", (vals, ids, num_out, csr)), segmm, torch)
+             for label, (vals, ids, num_out, csr) in sites.items()}
     return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
 
 
@@ -1279,8 +1108,6 @@ def compare_trajectories(chis, chis_ref, label, what="kernel vs plain", rtol=TRA
 def structure_diffs(a, b):
     """The BAStructure fields in which two structures differ (arrays bit
     for bit)."""
-    import dataclasses
-
     from cuba_tpu_torch.solver import structure
 
     def arrays(s):
@@ -1305,8 +1132,6 @@ def structure_diffs(a, b):
 def check_public_api(prob, config, plain_chis, torch, segmm, tmp, card):
     """Phase 14: the public API at the main path's full width.  Returns the
     path of the JSON graph it wrote."""
-    import dataclasses
-
     from cuba_tpu_torch.io import json_io
     from cuba_tpu_torch.solver import structure
     from cuba_tpu_torch.solver.engine import LOOP_PHASES, PROFILE_ITEMS
@@ -1473,8 +1298,6 @@ def run_sample(name, args, label):
 
 def check_bal(path, config, torch, segmm, card):
     """Phase 15's BAL path.  Returns (kernel entries, launches, attempts)."""
-    import dataclasses
-
     bba, _chis, _ti, bt_opt0 = run_path(path, config, torch, "bal warm-up")
     engine = bba._engine
     log(f"bal: {engine.num_p} free cameras, {engine.num_l} free points, PB "
@@ -1585,7 +1408,6 @@ def mesh_one_rank(kprob, kconfig, kchis, torch, segmm):
     trajectory phase 5's bit for bit; then one single-device run and one
     more mesh run in turns for the walls.  Returns (the global structure,
     its robust kernels, the counted launches)."""
-    import dataclasses
     import datetime
 
     import torch.distributed as dist
@@ -1761,9 +1583,132 @@ def check_mesh_kernels(structure, kernels, config, torch, segmm):
     out = check_schur_kernels(e0, torch, segmm, systems[0][2], Ws[0])
     gT = sum(rows.schur_compact(W, s[2], e.plan, e.rc) for W, s, e in zip(Ws, systems, engines))
     dbT = rows.damped_diagonal_T(HppT, lam, e0.num_p, e0.plan.pad_blocks)
-    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, e0.plan, e0.rc, segmm)},
+    out.update(compare_cases({"compact_to_band": band_case(gT, dbT, e0, segmm, torch)},
                              torch, None, e0.dtype))
     return out
+
+
+# phase 18: the large-landmark regime (tools/stress_large_l.py's graph)
+STRESS_EDGES = 3_885_457
+STRESS_BAND_M = 28
+STRESS_PLAIN_ITERS = 5  # the plain run's depth: its first steps against the kernel run's
+
+
+def stress_cases(engine, torch, segmm):
+    """The kernel checks of the stress route at its call sites
+    (``roofline.engine_sites``: kernels 1-6 on the engine's initial state,
+    ``schur_fused``, the combine and ``compact_to_band`` on its first damped
+    attempt), kept where the route launches the kernel
+    (:func:`engine_kernels`: the windowed or the resident pose fetch by the
+    ``windowed`` fact, the resident pose sums only where a window plan
+    fails).  Returns {label: entry}."""
+    keep = engine_kernels(engine)
+    sites = {k: v for k, v in roofline.engine_sites(engine).items() if v.kernel in keep}
+    return compare_cases({k: site_case(v, segmm, torch) for k, v in sites.items()}, torch,
+                         sites_bound(sites, segmm), engine.dtype)
+
+
+def peak_gib(torch) -> str:
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def check_stress(torch, segmm, card):
+    """Phase 18: the large-landmark graph through the public API at full
+    width.  Returns (kernel entries, launches, attempts)."""
+    from cuba_tpu_torch import BAConfig
+    from cuba_tpu_torch.io import synthetic
+    from cuba_tpu_torch.solver.engine import BlockSolverEngine
+    from cuba_tpu_torch.tools import stress_large_l
+
+    t0 = time.perf_counter()
+    prob = synthetic.generate(**graphs.STRESS)
+    n_edges = prob.mono_p.size + prob.stereo_p.size
+    log(f"stress: P {graphs.STRESS['num_poses']}, L {graphs.STRESS['num_landmarks']}, "
+        f"E {n_edges} "
+        f"({prob.stereo_p.size} stereo), tools/stress_large_l.py parameters, seed 0; generate "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_edges != STRESS_EDGES:
+        fail(f"stress: the generator gave {n_edges} edges, expected {STRESS_EDGES}")
+    config = BAConfig(dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    ba = make_graph(prob, config)
+    log(f"stress: graph built through the public API in {time.perf_counter() - t0:.2f} s")
+    del prob
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ba.initialize()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = ba._engine
+    facts = stress_large_l.plan_facts(engine)
+    log(f"stress: initialize {t_init:.4f} s ({json.dumps(dict(ba.time_profile()))}); "
+        f"{json.dumps(facts)}; triplets {engine.structure.mul_i.shape[0]}; device memory "
+        f"after initialize {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    if (engine.path, engine.solver, engine.band_m) != ("v2", "band_cr", STRESS_BAND_M):
+        fail(f"stress: solver='auto' took {engine.path!r} / {engine.solver!r} / m "
+             f"{engine.band_m}, expected v2 / band_cr / {STRESS_BAND_M}")
+
+    def run(label, iters=ITERS):
+        """optimize(iters) from the engine's initial state, timed; the
+        device's peak memory of the run logged."""
+        torch.cuda.reset_peak_memory_stats()
+        ba._state = engine.state
+        t0 = time.perf_counter()
+        ba.optimize(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chis = np.array([s.chi2 for s in ba.batch_statistics()])
+        r = ba.last_result
+        log(f"stress {label}: optimize({iters}) {wall:.4f} s, attempts {r.nattempts}, host "
+            f"reads {r.host_reads}, peak device memory {peak_gib(torch)}; chi2 {chis.tolist()}")
+        if chis.size == 0 or not np.all(np.isfinite(chis)) or not chis[-1] < chis[0]:
+            fail(f"stress {label}: chi2 not finite and falling: {chis.tolist()}")
+        return chis, wall, r.nattempts
+
+    _chis, t_cold, _a = run("warm-up (cold)")
+    for name, nbytes in stress_large_l.memory_plan(engine):
+        log(f"stress memory plan: {name}: {nbytes} B")
+    kern = stress_cases(engine, torch, segmm)
+
+    segmm.reset_launches()
+    chis, t_opt, attempts = run("path (counted)")
+    launches = dict(segmm.LAUNCHES)
+    log(f"launches (stress path): {json.dumps(launches)}")
+    missing = sorted(n for n in engine_kernels(engine) if launches[n] == 0)
+    if missing:
+        fail(f"kernels of the stress path never launched: {missing}")
+    profile_optimize(ba, torch, "stress path", t_opt)
+
+    with segmm.use_plain():
+        plain, t_plain, _a = run("plain path", STRESS_PLAIN_ITERS)
+    compare_trajectories(plain, chis[:STRESS_PLAIN_ITERS], "stress",
+                         f"plain vs kernel, first {STRESS_PLAIN_ITERS} iterations")
+
+    structure, kernels = engine.structure, ba._kernels
+    del ba, engine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e64 = BlockSolverEngine(structure, kernels, dataclasses.replace(config, dtype=torch.float64))
+    torch.cuda.synchronize()
+    t_ctor64 = time.perf_counter() - t0
+    r64 = e64.optimize(e64.state, ITERS)
+    torch.cuda.synchronize()
+    t_opt64 = time.perf_counter() - t0 - t_ctor64
+    chis64 = np.asarray(r64.chis, np.float64)
+    log(f"stress fp64 (the record): {e64.path} / {e64.solver} / m {e64.band_m}, engine "
+        f"{t_ctor64:.4f} s, optimize({ITERS}) {t_opt64:.4f} s, attempts {r64.nattempts}, peak "
+        f"device memory {peak_gib(torch)}; chi2 {chis64.tolist()}")
+    if len(chis64) != len(chis) or not np.all(np.isfinite(chis64)):
+        fail(f"stress fp64: trajectory {chis64.tolist()} against fp32 {chis.tolist()}")
+    rel = np.abs(chis - chis64) / chis64
+    log(f"stress: fp32 vs the card's fp64 record per iteration: max rel {rel.max():.3e} (band "
+        f"{CHI2_REL_BAND}), final {rel[-1]:.3e}; {[float(f'{x:.3e}') for x in rel]}")
+    if not np.all(rel < CHI2_REL_BAND):
+        fail("stress: the fp32 trajectory left the fp64 record's band")
+    log(f"stress walls ({card}): initialize {t_init} s; optimize({ITERS}) {t_opt} s (cold "
+        f"{t_cold} s), plain optimize({STRESS_PLAIN_ITERS}) {t_plain} s, fp64 {t_opt64} s")
+    return kern, launches, attempts
 
 
 def main() -> None:
@@ -2165,12 +2110,17 @@ def main() -> None:
     kern_mesh = check_mesh_kernels(mstructure, mkernels, kconfig, torch, segmm)
     stamp("phase 17c")
 
+    # phase 18: the large-landmark regime, 1778 P / 1M L / 3.9M E
+    kern_stress, launches_stress, attempts["stress"] = check_stress(torch, segmm, card)
+    stamp("phase 18")
+
     entries = []
     paths = [("pcg", kern_pcg, launches_pcg), ("band", kern_band, launches_band),
              ("dense", kern_dense, launches_dense),
              ("dense-kitti00", kern_dense00, launches_dense00), ("v1", kern_v1, launches_v1),
              ("band_lr", kern_lr, launches_lr), ("aos", kern_aos, launches_aos),
-             ("bal", kern_bal, launches_bal), ("mesh", kern_mesh, launches_mesh)]
+             ("bal", kern_bal, launches_bal), ("mesh", kern_mesh, launches_mesh),
+             ("stress", kern_stress, launches_stress)]
     paths += [(path, r[0], r[1]) for path, r in runs64.items()]
     attempts.update({path: r[4] for path, r in runs64.items()})
     for path, kern, launches in paths:
@@ -2195,6 +2145,7 @@ def main() -> None:
     segmm_names = {n for n in REPLACES if n not in TRISOLVE_KERNELS}
     if names64 != segmm_names:
         fail(f"the kernels line's fp64 entries miss {sorted(segmm_names - names64)}")
+    log(f"chip_smoke: {time.perf_counter() - _START:.2f} s in all")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

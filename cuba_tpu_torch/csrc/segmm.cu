@@ -530,7 +530,8 @@ compact_to_dense_kernel(const T* __restrict__ gT, int MWg, const int32_t* __rest
   __shared__ int32_t ent[kDenseTileQ];
   const int p = blockIdx.x, e = blockIdx.y, t = threadIdx.x;
   const int n = 6 * PB;
-  V* dst = reinterpret_cast<V*>(out + 6 * p * n + e * (6 * kDenseTileQ));
+  // int64: the output passes 2^31 elements from PB = 7724 (n = 46344)
+  V* dst = reinterpret_cast<V*>(out + static_cast<int64_t>(6 * p) * n + e * (6 * kDenseTileQ));
   const int en_t = t < kDenseTileQ ? table[p * PB + e * kDenseTileQ + t] : -1;
   if (occ[(p / kDenseTileP) * static_cast<int>(gridDim.y) + e] <= 0) {  // uniform
     store_strip<kDenseTileQ, T>(dst, n / Vec16<T>::n, nullptr);
@@ -662,7 +663,8 @@ int compact_to_band(const T* gT, int64_t MWg, const int32_t* table, const T* dbT
 template <typename T>
 int compact_to_dense(const T* gT, int64_t MWg, const int32_t* table, const T* dbT, int64_t PB,
                      const int32_t* occ, T* out, void* stream) {
-  if (PB % kDenseTileQ != 0 || 36 * PB * PB > kInt32Max || 36 * MWg > kInt32Max) {
+  // the output's row offsets are int64; the table's (PB^2) and gT's int32
+  if (PB % kDenseTileQ != 0 || PB * PB > kInt32Max || 36 * MWg > kInt32Max) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (PB > 0) {

@@ -160,13 +160,13 @@ constexpr long long kSpinCycles = 1LL << 30;  // ~0.54 s at 1.98 GHz: a wait pas
 
 // out[k] = L[kB:(k+1)B, kB:(k+1)B] for B = 256, in float4 (n4 = n / 4).
 // Block (x, k) copies rows x*kPass*kLoads + t/kQuads + i*kPass, i < kLoads,
-// of block k, thread t the column quad t % kQuads; all indices int32 (n*n <
-// 2^31).
+// of block k, thread t the column quad t % kQuads; a row's offset in L is
+// int64 (n*n may pass 2^31: n = 49152 at P = 8192), the rest int32.
 __global__ void extract_diag_kernel(const float4* __restrict__ L, int n4,
                                     float4* __restrict__ out) {
   const int c = threadIdx.x % kQuads;
   const int r = blockIdx.y * kBlock + blockIdx.x * (kPass * kLoads) + threadIdx.x / kQuads;
-  const float4* src = L + r * n4 + blockIdx.y * kQuads + c;
+  const float4* src = L + static_cast<int64_t>(r) * n4 + blockIdx.y * kQuads + c;
   float4* dst = out + r * kQuads + c;
   float4 v[kLoads];
 #pragma unroll
@@ -206,7 +206,7 @@ __global__ void matvec_kernel(const float* __restrict__ A, const float* __restri
   const int r = blockIdx.x * kRows + warp / S;
   float p = 0.0f;
   if (r < n) {  // r is the same in every lane of a warp
-    const float* row = A + r * n;
+    const float* row = A + static_cast<int64_t>(r) * n;
     const int lo = (warp % S) * w;
     const int hi = min(q, lo + w);
     float acc[kAccs];
@@ -292,11 +292,13 @@ __device__ __forceinline__ void fma4(float4& acc, const float4 v, float s) {
 }
 
 // rows row0 + kGroups*m (m < kRows) of a column quad: float4 number p +
-// row * n4
+// row * n4 (an int64 offset)
 __device__ __forceinline__ void load_rows(float4 (&v)[kRows], const float4* __restrict__ p,
                                           int n4, int row0) {
 #pragma unroll
-  for (int m = 0; m < kRows; ++m) v[m] = __ldg(p + (row0 + kGroups * m) * n4);
+  for (int m = 0; m < kRows; ++m) {
+    v[m] = __ldg(p + static_cast<int64_t>(row0 + kGroups * m) * n4);
+  }
 }
 
 // The sum over the row groups of the tile's partials, in group order, for
@@ -313,7 +315,8 @@ __device__ __forceinline__ float combine(const float* part) {
 // group g = t / kTileQuads: rows g + kGroups*m (m < kRows) of every stripe.
 // work: the ticket at 0, cnt[k] at (1 + k) * kLine, ready[k] at (1 + K + k)
 // * kLine, all zero on entry; rbuf [n] the stripes' r.  L row-major [n, n],
-// 16-byte aligned, as is invd [K, 256, 256]; int32 indices (n*n < 2^31).
+// 16-byte aligned, as is invd [K, 256, 256]; offsets of rows of L int64,
+// the rest int32.
 __global__ void __launch_bounds__(kThreads)
 solve_upper_kernel(const float* __restrict__ L, const float* __restrict__ invd,
                    const float* __restrict__ y, float* x, int* work, float* rbuf, int n,
@@ -398,7 +401,7 @@ solve_upper_kernel(const float* __restrict__ L, const float* __restrict__ invd,
 // of warp 2g are its rows' quads 0-31, of warp 2g+1 quads 32-63.  work: the
 // ticket at 0, done[k] at (1 + k) * kLine, all zero on entry; pbuf [K,
 // kTiles, 256] the tiles' partials.  L row-major [n, n], 16-byte aligned,
-// as is invd [K, 256, 256]; int32 indices (n*n < 2^31).
+// as is invd [K, 256, 256]; offsets of rows of L int64, the rest int32.
 __global__ void __launch_bounds__(kThreads)
 solve_lower_kernel(const float* __restrict__ L, const float* __restrict__ invd,
                    const float* __restrict__ b, float* y, int* work, float* pbuf, int n) {
@@ -416,7 +419,7 @@ solve_lower_kernel(const float* __restrict__ L, const float* __restrict__ invd,
   const int row0 = i * kBlock + tile * kTile;  // its first row in L
   const int n4 = n / 4;
   // rows g + kLowerGroups*m of the tile, column quad q of stripe 0
-  const float4* Lq = reinterpret_cast<const float4*>(L) + (row0 + g) * n4 + q;
+  const float4* Lq = reinterpret_cast<const float4*>(L) + static_cast<int64_t>(row0 + g) * n4 + q;
   float4 cur[kLowerRows], nxt[kLowerRows];
   if (i > 0) {
 #pragma unroll

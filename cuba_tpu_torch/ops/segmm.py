@@ -889,7 +889,8 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
     cudalib.check(table, "table", torch.int32, 2)
     if tuple(table.shape) != (PB, PB) or table.device != gT.device:
         raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
-    cudalib.check_int32("compact_to_dense", 36 * PB * PB, gT.numel())
+    # int64 offsets of the output's rows; the table's and gT's indices int32
+    cudalib.check_int32("compact_to_dense", PB * PB, gT.numel())
     out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=gT.device)
     cudalib.call("compact_to_dense", gT, _entry("cuba_compact_to_dense", dt),
                  gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,

@@ -68,20 +68,37 @@ def segsum_walk(vals: np.ndarray, csr: SegmentCSR, group: Optional[int] = None) 
     return out
 
 
+def fma64_exact_products(a, b, c):
+    """fp64 fused multiply-add, as the card's ``__fma_rn``, where the
+    product a * b is exact in fp64 (each factor an fp32 value: 24-bit
+    significands): the one rounding is then the sum's."""
+    return np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)
+
+
 def schur_fused_walk(W, G, plan: SchurPlan, sb, li, lj, csr: SegmentCSR) -> np.ndarray:
-    """``schur_fused_kernel``'s exact fp32 order, in NumPy (for tests): for
+    """``schur_fused_kernel``'s exact order, in NumPy (for tests): for
     every output (lane, a*6+b), from 0, each triplet t of the lane's CSR
     segment (ascending t; li or lj < 0 dropped) adds its three products by
-    :func:`fma32`, m = 0, 1, 2: s = fma(W[3a+m, i_t], G[3b+m, j_t], s) with
-    i_t = sb[c]*SB + li[t].  Returns [36, C*kwin] fp32."""
-    W, G = np.asarray(W, np.float32), np.asarray(G, np.float32)
+    a fused multiply-add, m = 0, 1, 2: s = fma(W[3a+m, i_t], G[3b+m, j_t],
+    s) with i_t = sb[c]*SB + li[t].  Returns [36, C*kwin] of W's dtype: fp32
+    by :func:`fma32`; fp64 by :func:`fma64_exact_products`, so W and G in
+    fp64 must hold fp32 values (else ValueError)."""
+    if np.asarray(W).dtype == np.float64:
+        W, G = np.asarray(W, np.float64), np.asarray(G, np.float64)
+        for x in (W, G):
+            if not np.array_equal(x.astype(np.float32).astype(np.float64), x):
+                raise ValueError("the fp64 walk needs fp32 values in W and G (exact products)")
+        dt, fma = np.float64, fma64_exact_products
+    else:
+        W, G = np.asarray(W, np.float32), np.asarray(G, np.float32)
+        dt, fma = np.float32, fma32
     sb, li, lj = (np.asarray(a.cpu().numpy() if isinstance(a, torch.Tensor) else a, np.int64)
                   for a in (sb, li, lj))
     order, offs = csr.order.cpu().numpy().astype(np.int64), csr.offs.cpu().numpy()
     lanes = offs.size - 1
     length = np.diff(offs)
     base = sb[np.arange(lanes) // plan.kwin] * plan.slot_block
-    out = np.zeros((6, 6, lanes), np.float32)
+    out = np.zeros((6, 6, lanes), dt)
     for k in range(int(length.max()) if lanes else 0):
         lane = np.flatnonzero(length > k)
         t = order[offs[lane] + k]
@@ -91,7 +108,7 @@ def schur_fused_walk(W, G, plan: SchurPlan, sb, li, lj, csr: SegmentCSR) -> np.n
         g = G[:, base[lane] + lj[t]].reshape(1, 6, 3, -1)
         s = out[:, :, lane]
         for m in range(3):
-            s = fma32(w[:, :, m], g[:, :, m], s)
+            s = fma(w[:, :, m], g[:, :, m], s)
         out[:, :, lane] = s
     return out.reshape(36, lanes)
 

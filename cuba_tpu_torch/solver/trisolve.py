@@ -118,7 +118,8 @@ def extract_diag_blocks(L, block: int = BLOCK):
         raise ValueError(f"extract_diag_blocks: the kernel copies blocks of {BLOCK}, not {block}")
     if L.data_ptr() % 16:
         raise ValueError("extract_diag_blocks: L must be 16-byte aligned (float4 loads)")
-    cudalib.check_int32("extract_diag_blocks", L.numel())
+    # int64 offsets of L's rows; the copy's own indices (n * 64 float4) int32
+    cudalib.check_int32("extract_diag_blocks", K * BLOCK * BLOCK)
     out = torch.empty((K, BLOCK, BLOCK), dtype=torch.float32, device=L.device)
     cudalib.call("extract_diag_blocks", L, _lib().cuba_extract_diag_blocks,
                  L.data_ptr(), L.shape[0], out.data_ptr())
@@ -171,8 +172,9 @@ def _sweep_kernel(name, L, invd, v, block):
         raise ValueError(f"{name}: the kernel walks stripes of {BLOCK}, not {block}")
     if L.data_ptr() % 16 or invd.data_ptr() % 16:
         raise ValueError(f"{name}: L and invd must be 16-byte aligned (float4 loads)")
-    cudalib.check_int32(name, L.numel())
     n = L.shape[0]
+    # int64 offsets of L's rows; the workspace's words (< 16 n) int32
+    cudalib.check_int32(name, 16 * n)
     out = torch.empty_like(v)
     lib = _lib()
     work = torch.zeros(getattr(lib, f"cuba_{name}_work")(n), dtype=torch.int32,
@@ -274,7 +276,7 @@ def matvec(A, x, block: int = BLOCK):
         return matvec_plain(A, x, block)
     cudalib.check(A, "A", torch.float32, 2)
     cudalib.check(x, "x", torch.float32, 1)
-    cudalib.check_int32("matvec", A.numel())
+    cudalib.check_int32("matvec", n)  # int64 offsets of A's rows
     if n == 0:
         return torch.empty_like(x)
     y = _matvec_kernel(A, x, matvec_slices(n))

@@ -7,39 +7,39 @@ warm and cold, on one NVIDIA GPU.
 
 ``cuba_tpu_torch`` is imported from DIR (default: the checkout this script
 lies in), so that two trees can be measured in one call, one process each;
-the timing helpers and the graphs come from this checkout's
-``chip_smoke.py``.  The call sites are the engine's: for the kitti00 loop
-graph (``chip_smoke.KITTI``, ``band_cr``: ``schur_fused``,
-``compact_to_band``), kitti07 (``chip_smoke.KITTI07``, ``dense_cholesky``:
-all three) and the kitti00 loop graph built ``dense_cholesky`` (n = 8448:
-``compact_to_dense``), each built through the public API and initialized,
-the first damped attempt's W, Hpl, compact table and damped diagonal
-(``chip_smoke.first_attempt``) go through ``rows.schur_compact``'s,
-``rows.band_from_compact``'s and ``rows.dense_from_compact``'s calls
-(``--kernels`` keeps only the named kernels, and the graphs they run on).
-It prints one ``probe`` JSON line per kernel, graph and cache regime
-(``chip_smoke.interleaved_times``: ``warm``, each call after an untimed run
-of itself; ``cold``, after a 128 MB read): the device and event-timed call
-time of the wrapper and of the plain version, the bound
-(``chip_smoke.bound``) and the plan's shape.  The ``schur_fused`` line
-also times the wrapper on two changed inputs that split its time:
-``no_sums``, every lane's CSR segment empty (offsets all 0), so that the
-kernel stages its windows and tables and stores its output but sums
-nothing; and ``hot_windows``, every chunk's window at slot 0 (sb all 0),
-so that the staging reads one window the L2 holds and the sums are the
-same.  Where DIR has them (``segmm.schur_fused_launch``,
+the timing helpers, the bound and the graphs come from this checkout's
+``chip_smoke.py``, ``tools/roofline.py`` and ``tools/graphs.py``
+(``tools/smoke_loader.py``: one yardstick for both trees).  The call sites
+are the engine's: for the kitti00 loop graph (``chip_smoke.KITTI``,
+``band_cr``: ``schur_fused``, ``compact_to_band``), kitti07
+(``chip_smoke.KITTI07``, ``dense_cholesky``: all three) and the kitti00
+loop graph built ``dense_cholesky`` (n = 8448: ``compact_to_dense``), each
+built through the public API and initialized, the first damped attempt's
+W, Hpl, compact table and damped diagonal (``roofline.first_attempt``) go
+through ``rows.schur_compact``'s, ``rows.band_from_compact``'s and
+``rows.dense_from_compact``'s calls (``--kernels`` keeps only the named
+kernels, and the graphs they run on).  It prints one ``probe`` JSON line
+per kernel, graph and cache regime (``chip_smoke.interleaved_times``:
+``warm``, each call after an untimed run of itself; ``cold``, after a 128
+MB read): the device and event-timed call time of the wrapper and of the
+plain version, the bound (``roofline.bound``) and the plan's shape.  The
+``schur_fused`` line also times the wrapper on two changed inputs that
+split its time: ``no_sums``, every lane's CSR segment empty (offsets all
+0), so that the kernel stages its windows and tables and stores its output
+but sums nothing; and ``hot_windows``, every chunk's window at slot 0 (sb
+all 0), so that the staging reads one window the L2 holds and the sums are
+the same.  Where DIR has them (``segmm.schur_fused_launch``,
 ``segmm.compact_to_dense_launch``), the lines give the launches and the
 build's registers, spills and blocks an SM.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(os.path.dirname(HERE))
+import smoke_loader  # this checkout's, from the script's directory
+
 KERNELS = ("schur_fused", "compact_to_band", "compact_to_dense")
 
 
@@ -49,13 +49,10 @@ def emit(**kw):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=REPO)
+    ap.add_argument("--root", default=smoke_loader.REPO)
     ap.add_argument("--kernels", nargs="+", default=list(KERNELS), choices=KERNELS)
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = smoke_loader.load_smoke(args.root)
 
     import torch
 
@@ -74,7 +71,7 @@ def main():
         for cold in (False, True):
             times = smoke.interleaved_times(fns, torch, cold=cold)
             emit(tree=tree, kernel=kernel, graph=graph, cache="cold" if cold else "warm",
-                 bound_ms=smoke.bound(*work)[0], **shape,
+                 bound_ms=smoke.roofline.bound(*work)[0], **shape,
                  times={k: {"ms": ms, "device_ms": dms} for k, (ms, dms) in times.items()})
 
     graphs = (("kitti00-loop", smoke.KITTI, "auto", ("schur_fused", "compact_to_band")),
@@ -89,7 +86,7 @@ def main():
         ba.initialize()
         engine = ba._engine
         plan, rc = engine.plan, engine.rc
-        HppT, HplT, lam, W, _bscT = smoke.first_attempt(engine)
+        HppT, HplT, lam, W, _bscT = smoke.roofline.first_attempt(engine)
         sc = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
         p = plan.schur
         if "schur_fused" in kernels:
@@ -107,7 +104,7 @@ def main():
             if design:
                 launch = segmm.schur_fused_launch(p)
                 shape["launch"] = {**launch, **segmm.kernel_attributes("schur_fused", launch)}
-            report("schur_fused", graph, fns, smoke.schur_work(p, sc, rc.csr_sc, torch), shape)
+            report("schur_fused", graph, fns, smoke.roofline.schur_work(p, sc, rc.csr_sc), shape)
 
         PB = plan.pad_blocks
         gT = rows.schur_compact(W, HplT, plan, rc)
@@ -124,7 +121,7 @@ def main():
             report("compact_to_band", graph, {
                 "wrapper": lambda: segmm.compact_to_band(*band, table=rc.band_table),
                 "plain": lambda: segmm.compact_to_band_plain(*band)},
-                smoke.band_work(plan, rc), shape)
+                smoke.roofline.band_work(plan, rc), shape)
         if "compact_to_dense" in kernels:
             dense = (gT, rc.iru, rc.icu, dbT, rc.occ2, PB, plan.wg)
             shape = dict(solver=engine.solver, PB=PB, wg=plan.wg,
@@ -136,7 +133,7 @@ def main():
             report("compact_to_dense", graph, {
                 "wrapper": lambda: segmm.compact_to_dense(*dense, table=rc.dense_table),
                 "plain": lambda: segmm.compact_to_dense_plain(*dense)},
-                smoke.dense_work(plan, rc), shape)
+                smoke.roofline.dense_work(plan, rc), shape)
         del ba, engine, W, HplT, gT, dbT
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ width and row chunk, on one NVIDIA GPU.
 
 ``cuba_tpu_torch`` is imported from DIR (default: the checkout this script
 lies in), so that two trees can be measured in one call, one process each;
-the timing helpers come from this checkout's ``chip_smoke.py``.  It prints
-one ``probe`` JSON line per measurement:
+the timing helpers and the graphs come from this checkout's
+``chip_smoke.py``, ``tools/roofline.py`` and ``tools/graphs.py``
+(``tools/smoke_loader.py``: one yardstick for both trees).  It prints one
+``probe`` JSON line per measurement:
 
 1. ``host_us``: microseconds of host time per call of ``resident_gather``,
    ``tiled_segsum`` and ``trisolve.matvec`` on small inputs (so the card
@@ -32,15 +34,13 @@ one ``probe`` JSON line per measurement:
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import statistics
 import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(os.path.dirname(HERE))
+import smoke_loader  # this checkout's, from the script's directory
 
 
 def emit(**kw):
@@ -62,12 +62,9 @@ def host_us(fn, torch, calls=1000, runs=5):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=REPO)
+    ap.add_argument("--root", default=smoke_loader.REPO)
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = smoke_loader.load_smoke(args.root)
 
     import numpy as np
     import torch

@@ -6,30 +6,31 @@ computing each, warm and cold, on one NVIDIA GPU.
 
 ``cuba_tpu_torch`` is imported from DIR (default: the checkout this script
 lies in), so that two trees can be measured in one call, one process each;
-the timing helpers come from this checkout's ``chip_smoke.py``.  At n =
-1536 (kitti07's dense system), 3072 and 8448 (the kitti00 loop graph built
-``dense_cholesky``), or the ``--sizes`` given, on a seeded SPD matrix A
-and its Cholesky factor L, it prints one ``probe`` JSON line per kernel
-(or the ``--kernels`` given), n and cache regime
-(``chip_smoke.interleaved_times``: ``warm``, each call after an untimed run
-of itself; ``cold``, after a 128 MB read): the device and event-timed call
-time of the wrapper and of its torch call (``torch.mv``, the strided
-diagonal copy, ``solve_triangular``), of the sweeps' plain versions
-(``plain``), and the kernel's bound (``chip_smoke.bound``); where DIR has
-them (``trisolve.solve_lower_launch``), the sweeps' launches.  Where DIR
-holds the sliced matvec (``trisolve.matvec_slices``), the matvec line also
-times the kernel at every S (``S4``: slices a row), with the S the
-wrapper's rule picks (``rule``) and the fastest (``best``).
+the timing helpers and the bound come from this checkout's
+``chip_smoke.py`` and ``tools/roofline.py`` (``tools/smoke_loader.py``:
+one yardstick for both trees).  At n = 1536 (kitti07's dense system), 3072
+and 8448 (the kitti00 loop graph built ``dense_cholesky``), or the
+``--sizes`` given, on a seeded SPD matrix A and its Cholesky factor L, it
+prints one ``probe`` JSON line per kernel (or the ``--kernels`` given), n
+and cache regime (``chip_smoke.interleaved_times``: ``warm``, each call
+after an untimed run of itself; ``cold``, after a 128 MB read): the device
+and event-timed call time of the wrapper and of its torch call
+(``torch.mv``, the strided diagonal copy, ``solve_triangular``), of the
+sweeps' plain versions (``plain``), and the kernel's bound
+(``roofline.bound``); where DIR has them
+(``trisolve.solve_lower_launch``), the sweeps' launches.  Where DIR holds
+the sliced matvec (``trisolve.matvec_slices``), the matvec line also times
+the kernel at every S (``S4``: slices a row), with the S the wrapper's
+rule picks (``rule``) and the fastest (``best``).
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(os.path.dirname(HERE))
+import smoke_loader  # this checkout's, from the script's directory
+
 SIZES = (1536, 3072, 8448)
 KERNELS = ("matvec", "extract_diag_blocks", "solve_lower", "solve_upper")
 
@@ -40,14 +41,11 @@ def emit(**kw):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=REPO)
+    ap.add_argument("--root", default=smoke_loader.REPO)
     ap.add_argument("--sizes", nargs="+", type=int, default=list(SIZES))
     ap.add_argument("--kernels", nargs="+", default=list(KERNELS), choices=KERNELS)
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = smoke_loader.load_smoke(args.root)
 
     import torch
 
@@ -71,7 +69,7 @@ def main():
             points = {k: dms for k, (_ms, dms) in times.items() if k[0] == "S" and k[1:].isdigit()}
             best = min(points, key=points.get) if points else None
             emit(tree=tree, kernel=kernel, n=n, cache="cold" if cold else "warm",
-                 bound_ms=smoke.bound(*work)[0], launch=launch, rule=rule_key,
+                 bound_ms=smoke.roofline.bound(*work)[0], launch=launch, rule=rule_key,
                  rule_device_ms=points.get(rule_key), best=best,
                  best_device_ms=points.get(best),
                  times={k: {"ms": ms, "device_ms": dms} for k, (ms, dms) in times.items()})

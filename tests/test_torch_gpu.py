@@ -1060,3 +1060,187 @@ def test_mesh_aos_body_with_an_empty_shard_on_one_card(cuda):
         launched = dict(zip(drive.LAUNCH_NAMES, r["e.launches_f64"]))
         assert launched["accum_segsum"] > 0
     np.testing.assert_allclose(res[0]["e.chis"], want, rtol=1e-6)
+
+
+# the large-landmark regime (cuba_tpu_torch/tools/stress_large_l.py): its
+# generator's arguments at 48 poses / 8,000 landmarks give a kwin-128 Schur
+# plan, as the full 1778 / 1M graph does
+_STRESS_SMALL = dict(num_poses=48, num_landmarks=8000, mean_obs_per_landmark=5.0,
+                     stereo_fraction=0.25, seed=0)
+_STRESS_EDGES, _STRESS_L, _STRESS_P = 3_885_457, 1_000_000, 1778
+
+
+@pytest.fixture(scope="module")
+def kwin128_plan():
+    """The reduced stress graph's plan on the card (kwin 128), with seeded
+    fp32 W / Hpl windows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cuba_tpu_torch.tools import graphs
+
+    cuda = torch.device("cuda")
+    s = graphs.structure_of(synthetic.generate(**_STRESS_SMALL))
+    plan, rc = rows.plan_rows(s, cuda, torch.float32, pad_blocks=rows.pad_blocks_of(s.num_p))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    return plan, rc, *(torch.randn((18, plan.hpl_pad), generator=gen, device=cuda)
+                       for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_fused_kernel_follows_its_walk_at_kwin_128(kwin128_plan, dtype):
+    """At kwin 128 (the stress plan's, one pass of 128 lanes a chunk) the
+    kernel is ``walks.schur_fused_walk`` bit for bit, fp32 and fp64 (fp64
+    on fp32 values, whose products are exact), launched once and the same
+    bits on a relaunch; the build takes the launch's shared memory."""
+    plan, rc, W, G = kwin128_plan
+    sc = plan.schur
+    assert sc.kwin == 128
+    W, G = W.to(dtype), G.to(dtype)
+    args = (sc, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
+    before = (segmm.LAUNCHES["schur_fused"], segmm.LAUNCHES_F64["schur_fused"])
+    got = segmm.schur_fused(W, G, *args, csr=rc.csr_sc)
+    torch.cuda.synchronize()
+    f64 = int(dtype == torch.float64)
+    assert (segmm.LAUNCHES["schur_fused"], segmm.LAUNCHES_F64["schur_fused"]) == (
+        before[0] + 1, before[1] + f64)
+    want = walks.schur_fused_walk(W.cpu().numpy(), G.cpu().numpy(), *_walk_args(plan, rc))
+    ints = np.int64 if f64 else np.int32
+    assert want.dtype == got.cpu().numpy().dtype
+    assert np.array_equal(got.cpu().numpy().view(ints), want.view(ints))
+    assert torch.equal(got, segmm.schur_fused(W, G, *args, csr=rc.csr_sc))
+    launch = segmm.schur_fused_launch(sc, dtype)
+    attrs = segmm.kernel_attributes("schur_fused", launch, dtype)
+    assert attrs["blocks_per_sm"] >= 1 and attrs["spill_bytes"] == 0, (launch, attrs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stress_shaped_gathers_and_sums_match_plain(cuda, dtype):
+    """The gathers and segment sums at the stress graph's widths (N =
+    3,885,457 edges, 1,000,000 landmarks, 1778 poses): the landmark fetch
+    [3, 1M] -> [3, N] and the pose fetch [12, 2048] -> [12, N] bit for bit;
+    the landmark sums [18, N] -> [18, 1M] (~4 entries a segment) and the
+    pose sums [42, N] -> [42, 1778] (~2,200 a segment) within 1e-5 (fp64:
+    1e-13) of each output's sum of |terms|."""
+    rng = np.random.default_rng(18)
+    N = _STRESS_EDGES
+    lm = np.sort(rng.integers(0, _STRESS_L, N)).astype(np.int32)
+    pose = rng.integers(0, _STRESS_P, N).astype(np.int32)
+    lm[rng.random(N) < 0.01] = -1
+    lm_ids, pose_ids = torch.from_numpy(lm).to(cuda), torch.from_numpy(pose).to(cuda)
+    xw = torch.randn((3, _STRESS_L), dtype=dtype, device=cuda)
+    psrc = torch.randn((12, 2048), dtype=dtype, device=cuda)
+    for got, want in ((segmm.tiled_gather(xw, lm_ids, None, None),
+                       segmm.tiled_gather_plain(xw, lm_ids, None, None)),
+                      (segmm.resident_gather(psrc, pose_ids),
+                       segmm.resident_gather_plain(psrc, pose_ids))):
+        assert torch.equal(got, want)
+    rtol = 1e-13 if dtype == torch.float64 else 1e-5
+    for D, ids, num_out, name in ((18, lm_ids, _STRESS_L, "tiled_segsum"),
+                                  (42, pose_ids, _STRESS_P, "accum_segsum")):
+        vals = torch.randn((D, N), dtype=dtype, device=cuda)
+        csr = segmm.segment_csr(ids, num_out, cuda)
+        extra = (None, None) if name == "tiled_segsum" else ()
+        before = segmm.LAUNCHES[name]
+        got = getattr(segmm, name)(vals, ids, num_out, *extra, csr=csr)
+        torch.cuda.synchronize()
+        assert segmm.LAUNCHES[name] == before + 1
+        want = segmm.accum_segsum_plain(vals, ids, num_out)
+        bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+        assert bool(((got - want).abs() <= rtol * bound).all()), name
+        del vals, got, want, bound
+
+
+def test_crossover_out_of_memory_row(cuda):
+    """The crossover's out-of-memory row on the card: with the allocator
+    held to 64 MB above what the process holds, the dense solve at P = 1024
+    (a 6144^2 fp32 matrix, 151 MB) runs out of memory: the row carries the
+    error and no wall; with the limit lifted the same row runs."""
+    import argparse
+
+    from cuba_tpu_torch.tools import bench_pcg_crossover as bx
+
+    args = argparse.Namespace(iters=2, trials=1, device="cuda", dtype="float32")
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved() + (64 << 20)) / total)
+    try:
+        r = bx.row(1024, 1024 * 15, "dense_cholesky", args)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert r["error"].startswith("OutOfMemoryError") and "wall_s" not in r, r
+    r = bx.row(1024, 1024 * 15, "dense_cholesky", args)
+    assert "error" not in r and r["wall_s"] > 0 and r["descended"], r
+
+
+# the crossover's dense solve at P = 8192: n = 49152, n^2 = 2.4G elements,
+# past int32; the kernels offset rows in int64
+_BIG_N = 6 * 8192
+
+
+@pytest.fixture(scope="module")
+def big_lower():
+    """A seeded lower-triangular L at n = 49152 (unit diagonal, strictly
+    lower entries in [0, 0.5/n): well conditioned), its inverted diagonal
+    blocks and a right-hand side, made on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
+    n = _BIG_N
+    gen = torch.Generator(device=cuda).manual_seed(49)
+    L = torch.rand((n, n), generator=gen, device=cuda).mul_(0.5 / n).tril_(-1)
+    L.diagonal().fill_(1.0)
+    with segmm.use_plain():
+        invd = trisolve.prepare(L)
+    yield L, invd, torch.randn(n, generator=gen, device=cuda)
+    del L, invd
+    torch.cuda.empty_cache()
+
+
+def test_trisolve_kernels_past_int32_elements(big_lower):
+    """At n = 49152 (2.4G elements of L): the diagonal copy bit for bit, the
+    two sweeps within 1e-5 of max |result| of their plain versions, the
+    matvec within 1e-5 of each row's sum of |terms|, one launch each."""
+    L, invd, v = big_lower
+    assert L.numel() > 2 ** 31
+    before = dict(segmm.LAUNCHES)
+    assert torch.equal(trisolve.extract_diag_blocks(L), trisolve.extract_diag_blocks_plain(L))
+    for name in ("solve_lower", "solve_upper"):
+        got = getattr(trisolve, name)(L, invd, v)
+        want = getattr(trisolve, name + "_plain")(L, invd, v)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()), name
+    got = trisolve.matvec(L, v)
+    bound = 1e-5 * (L.abs() @ v.abs())
+    assert bool(((got - trisolve.matvec_plain(L, v)).abs() <= bound).all())
+    torch.cuda.synchronize()
+    for name in ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec"):
+        assert segmm.LAUNCHES[name] == before[name] + 1, name
+
+
+def test_compact_to_dense_past_int32_elements(cuda):
+    """PB = 8192 (a [49152, 49152] output, 2.4G elements): the diagonal
+    blocks, the first upper diagonal and a long-range block of every row
+    below PB/2 placed, bit for bit the plain version, the last rows
+    included."""
+    PB = 8192
+    M = PB // 64
+    p = np.arange(PB)
+    r = np.concatenate([p, p[:-1], p[: PB // 2 - 1]])
+    c = np.concatenate([p, p[1:], PB - 1 - p[: PB // 2 - 1]])
+    Wg = -(-r.size // (M * 128)) * 128
+    iru = np.full(M * Wg, -1, np.int32)
+    icu = np.full(M * Wg, -1, np.int32)
+    iru[: r.size], icu[: r.size] = r, c
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    gT = torch.randn((36, M * Wg), generator=gen, device=cuda)
+    dbT = torch.randn((36, PB), generator=gen, device=cuda)
+    occ2 = torch.ones(PB // 64 * (PB // 128), dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(segmm.dense_table(iru, icu, PB)).to(cuda)
+    args = (gT, torch.from_numpy(iru).to(cuda), torch.from_numpy(icu).to(cuda), dbT, occ2, PB,
+            Wg)
+    before = segmm.LAUNCHES["compact_to_dense"]
+    got = segmm.compact_to_dense(*args, table=table)
+    torch.cuda.synchronize()
+    assert got.numel() > 2 ** 31 and segmm.LAUNCHES["compact_to_dense"] == before + 1
+    assert torch.equal(got, segmm.compact_to_dense_plain(*args))
+    assert torch.equal(got[-6:, -6:], -gT[:, PB - 1].reshape(6, 6) + dbT[:, PB - 1].reshape(6, 6))
