@@ -44,9 +44,7 @@ Phases (any failure exits non-zero, before the result line):
    ``tiled_segsum`` also at the combine of ``rows.schur_compact``, and
    kernels 7-8 (``schur_fused``, ``compact_to_band``).  Gathers and
    ``compact_to_band`` equal bit for bit, sums within 1e-5 of each
-   output's sum of |terms|; median CUDA-event times of 25 launches; and
-   the cyclic-reduction factor + solve of that band with each
-   diagonal-block inverse (``_inv_spd_rs``, ``_inv_spd_chol``).
+   output's sum of |terms|; median CUDA-event times of 25 launches.
 7. Phase 5's run with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
 8. The dense path through the public API: ``bench.py --quick``'s kitti07
@@ -206,6 +204,20 @@ Phases (any failure exits non-zero, before the result line):
    on the card (the record: ``cuba_tpu`` never recorded this graph), the
    fp32 trajectory within CHI2_REL_BAND of it at every iteration.  Each
    run logs the device's peak memory.
+19. The port's tools (``cuba_tpu_torch/tools/``) at full width
+   (:func:`check_tools`): ``profile_formation``'s formation and CR stages
+   and ``profile_crsolve``'s on the kitti00 loop's band_cr engine (m =
+   22), each stage's call and device ms with its top three device kernels
+   (the two CR inverses' solutions within 1e-4 of each other, refine 1's
+   residual no worse than refine 0's); ``bench_pcg_band_mc``'s t_form,
+   t_band, t_pcg, CG steps and measured t_lat on the same engine (finite);
+   ``bench_multichip_mxu`` on kitti07 through a one-rank NCCL group (the
+   rows route bit for bit against the single device); ``mc_parity``'s 8
+   spawned gloo ranks on the card, kitti07 fp64 (within 1e-6 of the single
+   device); ``parity_kitti00``'s table of phases 5, 11 (gate open) and 8
+   against phase 16's fp64 runs and CHI2_FP64_TRAJECTORY (within 5e-3 at
+   every iteration; a temporary file); ``perf_probe_solve`` at n = 8448
+   (refine 1 and 2 no less accurate than refine 0, or below 1e-5).
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
@@ -218,10 +230,11 @@ this run's data) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s
 (its fp64 ones over 34 TFLOP/s): ``cuba_tpu_torch/tools/roofline.py``,
 the yardstick ``tools/mfu.py`` shares.
 
-After each path's counted run one more ``optimize(10)`` of a fresh graph
-runs under ``torch.profiler`` (device activity only) and logs the device
-kernels per attempt, the device-busy share of the wall and the kernels
-with the most device time (not gated).
+After each path's counted run one more ``optimize(10)`` of the same graph
+from its engine's initial state (of a fresh graph for the one-rank mesh,
+whose adapter keeps its state) runs under ``torch.profiler`` (device
+activity only) and logs the device kernels per attempt, the device-busy
+share of the wall and the kernels with the most device time (not gated).
 
 The line before the last is a JSON object with one entry per kernel and
 path (``"path"``: ``pcg`` from phases 2-3, ``band`` from phases 5-6,
@@ -317,9 +330,9 @@ SEGSUM_RTOL_F64 = 1e-13  # the same bound for the fp64 builds (phase 16)
 SOLVE_RTOL = 1e-4
 TRAJ_RTOL = 5e-3
 
-if graphs is not None:  # tools/graphs.py's: bench.py:121-137 and :114-119
-    KITTI, KITTI07 = graphs.KITTI00_LOOP, graphs.KITTI07
-    KITTI00 = dict(KITTI, loop_closure=False)  # bench.py:121-137, the odometry graph
+if graphs is not None:  # tools/graphs.py's: bench.py:121-137 (with and without the
+    # loop closure) and :114-119
+    KITTI, KITTI00, KITTI07 = graphs.KITTI00_LOOP, graphs.KITTI00, graphs.KITTI07
 KITTI_BAND_M = 22
 # the dense solver against band_lr per iteration: cuba_tpu's on-chip bar
 # for two solvers on one graph (tests/test_tpu_matrix.py)
@@ -609,41 +622,21 @@ def sites_bound(sites, segmm):
     return bound_of
 
 
-def check_band_kernels(engine, torch, segmm, cr_timings=True):
+def check_band_kernels(engine, torch, segmm):
     """Phase 6: every kernel of the band path against its plain version on
     the band run's plan and first-attempt tensors: kernels 1-7 (as
-    :func:`check_schur_kernels`) and ``compact_to_band``; then (with
-    ``cr_timings``) the CR factor + solve timed with each diagonal-block
-    inverse.  Returns the kernel entries."""
-    from cuba_tpu_torch.solver import band_cr, rows
+    :func:`check_schur_kernels`) and ``compact_to_band``.  Returns the
+    kernel entries.  (The CR factor and solve with each diagonal-block
+    inverse are timed in phase 19, stage by stage.)"""
+    from cuba_tpu_torch.solver import rows
 
     plan, rc = engine.plan, engine.rc
-    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
+    HppT, HplT, lam, W, _bscT = roofline.first_attempt(engine)
     out = check_schur_kernels(engine, torch, segmm, HplT, W)
-    PB = plan.pad_blocks
     gT = rows.schur_compact(W, HplT, plan, rc)
-    dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
+    dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, plan.pad_blocks)
     out.update(compare_cases({"compact_to_band": band_case(gT, dbT, engine, segmm, torch)},
                              torch, None, engine.dtype))
-    if not cr_timings:
-        return out
-
-    D, U = rows.band_from_compact(gT, HppT, lam, engine.num_p, plan, rc)
-    rhs = bscT.new_zeros(6 * PB)
-    rhs[:6 * engine.num_p] = bscT.T.reshape(-1)
-    xs = {}
-    for name, inv in (("_inv_spd_rs", band_cr._inv_spd_rs),
-                      ("_inv_spd_chol", band_cr._inv_spd_chol)):
-        x, ok, _reads = band_cr.cr_solve(D, U, rhs, engine.config.refinement_steps, inv=inv)
-        if not bool(ok):
-            fail(f"cr_solve with {name} rejected the first attempt's band")
-        xs[name] = x
-        ms = cuda_ms(lambda: band_cr.cr_solve(D, U, rhs, engine.config.refinement_steps,
-                                              inv=inv), torch)
-        log(f"CR factor+solve (m {D.shape[0]}, 1 refinement sweep) with {name}: {ms:.4f} ms")
-    rel = float((xs["_inv_spd_rs"] - xs["_inv_spd_chol"]).abs().max()
-                / xs["_inv_spd_chol"].abs().max())
-    log(f"CR solutions, _inv_spd_rs vs _inv_spd_chol: max rel diff {rel:.3e}")
     return out
 
 
@@ -1309,6 +1302,7 @@ def check_bal(path, config, torch, segmm, card):
     del bba, engine
     bba, bchis, bt_opt, launches = counted_run(path, config, torch, segmm, "bal path", "v2")
     attempts = bba.last_result.nattempts
+    profile_optimize(bba, torch, "bal path", bt_opt)
     del bba
     if not (np.all(np.diff(bchis) <= 0) and bchis[-1] < 0.6 * bchis[0]):
         fail(f"bal: no real descent: {bchis.tolist()}")
@@ -1320,7 +1314,6 @@ def check_bal(path, config, torch, segmm, card):
         f"{rel:.3e} (band {CHI2_REL_BAND}); fp64 CPU optimize({ITERS}) {t64:.4f} s")
     if not rel < CHI2_REL_BAND:
         fail("bal final chi2 is outside the band of the fp64 CPU run")
-    profile_path(path, config, torch, "bal path", bt_opt)
     log(f"bal walls ({card}): optimize({ITERS}) {bt_opt} s (cold {bt_opt0} s)")
     return kern, launches, attempts
 
@@ -1362,8 +1355,8 @@ def fp64_run(prob, config, torch, segmm, label, expect, check, graph=None,
     at the path's call sites; then the counted run (:func:`counted_run`):
     the engine's attributes as ``expect`` says ({name: value}), every launch
     an fp64 one, and with ``graph`` every iteration within CHI2_FP64_RTOL
-    of its record.  Returns (kernel entries, launches, chis, warm wall,
-    attempts)."""
+    of its record and the run's profile (:func:`profile_optimize`).
+    Returns (kernel entries, launches, chis, warm wall, attempts)."""
     wba, _chis, _ti, t_cold = run_path(prob, config, torch, f"{label} warm-up", fix, iters)
     got = {k: getattr(wba._engine, k) for k in expect}
     if got != expect:
@@ -1373,13 +1366,14 @@ def fp64_run(prob, config, torch, segmm, label, expect, check, graph=None,
     ba, chis, t_opt, launches = counted_run(prob, config, torch, segmm, f"{label} path",
                                             expect["path"], fix, iters)
     attempts = ba.last_result.nattempts
-    del ba
     f64 = dict(segmm.LAUNCHES_F64)
     log(f"fp64 launches ({label}): {json.dumps(f64)}")
     if f64 != launches:
         fail(f"{label}: launches other than the fp64 builds: {launches} against {f64}")
     if graph is not None:
         fp64_records(chis, graph, label)
+        profile_optimize(ba, torch, label, t_opt)
+    del ba
     log(f"{label}: optimize({iters}) {t_opt} s (cold {t_cold} s)")
     return kern, launches, chis, t_opt, attempts
 
@@ -1408,35 +1402,25 @@ def mesh_one_rank(kprob, kconfig, kchis, torch, segmm):
     trajectory phase 5's bit for bit; then one single-device run and one
     more mesh run in turns for the walls.  Returns (the global structure,
     its robust kernels, the counted launches)."""
-    import datetime
-
-    import torch.distributed as dist
-
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
-                                world_size=1, rank=0,
-                                timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
-        try:
-            mconfig = dataclasses.replace(kconfig, mesh=dist.group.WORLD)
-            ba, chis, t_opt, launches = counted_run(kprob, mconfig, torch, segmm,
-                                                    "mesh S=1 (nccl) path", "v2")
-            eng = ba._engine
-            if (eng.solver, eng.band_m) != ("band_cr", KITTI_BAND_M):
-                fail(f"mesh S=1: {eng.solver!r} with band_m {eng.band_m}, expected band_cr / "
-                     f"{KITTI_BAND_M}")
-            if not np.array_equal(chis, kchis):
-                fail(f"mesh S=1: the trajectory is not phase 5's bit for bit: {chis.tolist()} "
-                     f"against {kchis.tolist()}")
-            structure, kernels = eng.structure, ba._kernels
-            del ba, eng
-            _b, _c, _ti, t_single = run_path(kprob, kconfig, torch, "single-device, in turns")
-            _m, mchis, _ti, t_mesh = run_path(kprob, mconfig, torch, "mesh S=1, in turns")
-            del _b, _m
-            if not np.array_equal(mchis, kchis):
-                fail("mesh S=1: the second run left phase 5's trajectory")
-            profile_path(kprob, mconfig, torch, "mesh S=1 (nccl) path", t_opt)
-        finally:
-            dist.destroy_process_group()
+    with graphs.one_rank_group("cuda") as group:
+        mconfig = dataclasses.replace(kconfig, mesh=group)
+        ba, chis, t_opt, launches = counted_run(kprob, mconfig, torch, segmm,
+                                                "mesh S=1 (nccl) path", "v2")
+        eng = ba._engine
+        if (eng.solver, eng.band_m) != ("band_cr", KITTI_BAND_M):
+            fail(f"mesh S=1: {eng.solver!r} with band_m {eng.band_m}, expected band_cr / "
+                 f"{KITTI_BAND_M}")
+        if not np.array_equal(chis, kchis):
+            fail(f"mesh S=1: the trajectory is not phase 5's bit for bit: {chis.tolist()} "
+                 f"against {kchis.tolist()}")
+        structure, kernels = eng.structure, ba._kernels
+        del ba, eng
+        _b, _c, _ti, t_single = run_path(kprob, kconfig, torch, "single-device, in turns")
+        _m, mchis, _ti, t_mesh = run_path(kprob, mconfig, torch, "mesh S=1, in turns")
+        del _b, _m
+        if not np.array_equal(mchis, kchis):
+            fail("mesh S=1: the second run left phase 5's trajectory")
+        profile_path(kprob, mconfig, torch, "mesh S=1 (nccl) path", t_opt)
     log(f"mesh S=1 (nccl) walls: optimize({ITERS}) {t_opt} s and {t_mesh} s against the "
         f"single-device {t_single} s between them; trajectory equal to phase 5's bit for bit")
     return structure, kernels, launches
@@ -1711,6 +1695,126 @@ def check_stress(torch, segmm, card):
     return kern, launches, attempts
 
 
+# phase 19: the port's tools on the card (cuba_tpu_torch/tools/)
+TOOL_REPS = 3  # rounds of each stage's timing loop
+INV_RTOL = 1e-4  # the two CR inverses' solutions, over max |x|
+MC_RTOL = 1e-6  # mc_parity's gate
+# perf_probe_solve's system is well conditioned (~20 after equilibration):
+# refine 0 is at fp32's floor (~5e-7), where a sweep's fp32 residual over n
+# terms decides whether refinement lowers the error or raises it (twice
+# refine 0's at n = 4096 on the host).  Below this floor a refinement
+# sweep may lose to refine 0; above it, it may not.
+DENSE_ERR_FLOOR = 1e-5
+
+
+def check_tools(torch, card, kstructure, kkernels, kconfig, dprob, trajectories):
+    """Phase 19: the tools' measurements at full width.  a.
+    ``profile_formation``'s formation and CR stages and
+    ``profile_crsolve``'s on the kitti00 loop's band_cr engine (m = 22):
+    the two CR inverses' refine-1 solutions within INV_RTOL of each other,
+    and refine 1's residual no worse than refine 0's.  b.
+    ``bench_pcg_band_mc``'s measurement on the same engine: every time
+    finite.  c. ``bench_multichip_mxu`` on kitti07 through a one-rank NCCL
+    group: the rows route's trajectory the single-device one's bit for
+    bit.  d. ``mc_parity``'s 8 spawned gloo ranks on the card, kitti07 in
+    fp64: within MC_RTOL of the single-device engine.  e.
+    ``parity_kitti00``'s table over ``trajectories`` ({shape: (edges, fp32
+    chis, the card's fp64 chis)}, against those and CHI2_FP64_TRAJECTORY):
+    within its gate at every iteration, written to a temporary file.  f.
+    ``perf_probe_solve`` at n = 8448: refine 1 and 2 no less accurate
+    than refine 0, or below DENSE_ERR_FLOOR."""
+    from cuba_tpu_torch.solver.engine import BlockSolverEngine
+    from cuba_tpu_torch.tools import (bench_multichip_mxu, bench_pcg_band_mc, mc_parity,
+                                      parity_kitti00, perf_probe_solve, profile_crsolve,
+                                      profile_formation)
+
+    t0 = time.perf_counter()
+    eng = BlockSolverEngine(kstructure, kkernels, kconfig)
+    if (eng.solver, eng.band_m) != ("band_cr", KITTI_BAND_M):
+        fail(f"tools: the kitti00 loop engine took {eng.solver!r} / m {eng.band_m}")
+    HppT, HplT, lam, W, D, U, rhs = profile_formation.attempt_inputs(eng)
+    fns = dict(profile_formation.formation_stages(eng, HppT, HplT, lam, W),
+               **profile_formation.cr_stages(D, U, rhs))
+    fns.update({f"crsolve: {k}": fn for k, fn in profile_crsolve.stages(D, U, rhs).items()
+                if k not in ("factor only", "cr_solve refine=0")})
+    times = roofline.stage_times(fns, eng.device, TOOL_REPS)
+    roofline.print_stages(times, f"tools a: formation and CR stages (kitti00 loop, m = "
+                                 f"{D.shape[0]}, fp32, {card})")
+    profile_formation.print_marginals(times)
+    chk = profile_formation.cr_check(D, U, rhs)
+    res = chk["residual"]
+    log(f"tools a: ||Ax - b|| / ||b|| " + ", ".join(f"refine {r} {v:.3e}" for r, v in res.items())
+        + f"; _inv_spd_rs vs _inv_spd_chol max rel diff {chk['inverses']:.3e} (rtol "
+        f"{INV_RTOL}); {time.perf_counter() - t0:.2f} s")
+    if not (chk["ok"] and chk["inverses"] < INV_RTOL and res[1] <= res[0]):
+        fail(f"tools a: the CR solutions fail their gates: {chk}")
+    del D, U, rhs, HppT, HplT, W
+
+    t0 = time.perf_counter()
+    m = bench_pcg_band_mc.measure(eng, TOOL_REPS, eng.config.pcg_tol, card)
+    timed = 2 if eng.device.type == "cuda" else 1  # the host gives no device ms
+    bad = [k for k, v in m["times"].items()
+           if not all(x is not None and np.isfinite(x) for x in v[:timed])]
+    log(f"tools b: n_cg {m['n_cg']}, converged {m['converged']}, t_lat {m['t_lat']:.4f} ms, "
+        f"crossover S = {m['crossover']}; {time.perf_counter() - t0:.2f} s")
+    if bad or not np.isfinite(m["t_lat"]):
+        fail(f"tools b: times not finite: {bad}, t_lat {m['t_lat']}")
+    del eng
+
+    t0 = time.perf_counter()
+    dstructure = graphs.structure_of(dprob)
+    with graphs.one_rank_group("cuda") as group:
+        runs = bench_multichip_mxu.run(dstructure, graphs.KERNELS, kconfig, group, ITERS, 2)
+    if not bench_multichip_mxu.report(runs, ITERS, card):
+        fail("tools c: the one-rank mesh's rows trajectory is not the single-device one")
+    log(f"tools c: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    chis1, wall1 = mc_parity.single(dstructure, torch.float64, "cuda")
+    ranks = mc_parity.mesh(dstructure, torch.float64, "cuda")
+    rel = mc_parity.max_rel(ranks[0]["mc.chis"], chis1)
+    same = all(np.array_equal(r["mc.chis"], ranks[0]["mc.chis"]) for r in ranks)
+    walls = [float(r["mc.wall"]) for r in ranks]
+    log(f"tools d: {mc_parity.RANKS} gloo ranks on the card, kitti07 fp64, route "
+        f"{ranks[0]['mc.path']}: max rel chi2 against the single device {rel:.3e} (rtol "
+        f"{MC_RTOL}), ranks equal {same}; single-device {wall1:.2f} s with construction, "
+        f"rank optimize({mc_parity.ITERS}) {min(walls):.2f}-{max(walls):.2f} s; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not (same and rel < MC_RTOL):
+        fail("tools d: the 8-rank fp64 mesh left the single-device trajectory")
+
+    t0 = time.perf_counter()
+    sections, ok = [], True
+    for shape, (nedges, chis32, chis64) in trajectories.items():
+        refs = {"port fp64 (card, phase 16)": chis64,
+                "cuba_tpu fp64": CHI2_FP64_TRAJECTORY[shape]}
+        rels, shape_ok = parity_kitti00.compare(chis32, refs)
+        ok = ok and shape_ok
+        sections.append(parity_kitti00.section(shape, nedges, f"fp32 on {card}", chis32, refs,
+                                               rels, shape_ok))
+        log(f"tools e: {shape}: max rel " + ", ".join(f"{n} {v.max():.3e}"
+                                                      for n, v in rels.items()))
+    with tempfile.NamedTemporaryFile("w", suffix=".md", delete=False) as f:
+        f.write(parity_kitti00.document(sections, ok, "chip_smoke.py phase 19"))
+    log(f"tools e: parity table written to {f.name}: {'PASS' if ok else 'FAIL'}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    os.unlink(f.name)
+    if not ok:
+        fail("tools e: an fp32 trajectory left its fp64 records' band")
+
+    t0 = time.perf_counter()
+    A, b = perf_probe_solve.system(8448, "cuda", torch.float32)
+    times = roofline.stage_times(perf_probe_solve.stages(A, b), "cuda", TOOL_REPS)
+    roofline.print_stages(times, f"tools f: dense solve stages (n = 8448, fp32, {card})")
+    err = perf_probe_solve.accuracy(A, b)
+    log(f"tools f: solve rel err " + ", ".join(f"refine {r} {e:.3e}" for r, e in err.items())
+        + f"; {time.perf_counter() - t0:.2f} s")
+    if not all(e <= max(err[0], DENSE_ERR_FLOOR) for e in err.values()):
+        fail("tools f: a refinement sweep made the dense solve less accurate")
+    del A, b
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--num-poses", type=int, default=4096)
@@ -1781,8 +1885,8 @@ def main() -> None:
     missing = sorted(n for n in engine_kernels(ba._engine) if launches_pcg[n] == 0)
     if missing:
         fail(f"kernels of the pcg path never launched: {missing}")
+    profile_optimize(ba, torch, "pcg path", t_opt)
     del ba
-    profile_path(prob, config, torch, "pcg path", t_opt)
 
     # phase 4: the same run with the plain versions on the card
     with segmm.use_plain():
@@ -1805,7 +1909,7 @@ def main() -> None:
         fail(f"solver='auto' resolved to {kengine.solver!r} with band_m {kengine.band_m}, "
              f"expected 'band_cr' with {KITTI_BAND_M}")
 
-    # phase 6: the band path's kernels against their plain versions, CR timings
+    # phase 6: the band path's kernels against their plain versions
     kern_band = check_band_kernels(kengine, torch, segmm)
     del kba, kengine
 
@@ -1825,8 +1929,8 @@ def main() -> None:
     missing = sorted(n for n in engine_kernels(kba._engine) if launches_band[n] == 0)
     if missing:
         fail(f"kernels of the band path never launched: {missing}")
+    profile_optimize(kba, torch, "band path", kt_opt)
     del kba
-    profile_path(kprob, kconfig, torch, "band path", kt_opt)
 
     # phase 7: the band run with the plain versions on the card
     with segmm.use_plain():
@@ -1871,8 +1975,8 @@ def main() -> None:
     missing = sorted(n for n in engine_kernels(dba._engine) if launches_dense[n] == 0)
     if missing:
         fail(f"kernels of the dense path never launched: {missing}")
+    profile_optimize(dba, torch, "dense path", dt_opt)
     del dba
-    profile_path(dprob, kconfig, torch, "dense path", dt_opt)
 
     # phase 9, kitti00: the dense solver on the loop graph (n = 8448)
     xconfig = BAConfig(dtype=torch.float32, device="cuda", solver="dense_cholesky")
@@ -1895,8 +1999,8 @@ def main() -> None:
     log(f"kitti00 dense final chi2 {xchis[-1]:.2f} (band path {kchis[-1]:.2f}, fp64 record "
         f"{ref00:.2f}: rel {abs(xchis[-1] - ref00) / ref00:.3e}; not gated), "
         f"optimize({ITERS}) {xt_opt:.4f} s")
+    profile_optimize(_xba, torch, "kitti00 dense path", xt_opt)
     del _xba
-    profile_path(kprob, xconfig, torch, "kitti00 dense path", xt_opt)
 
     # phase 10: the dense run with the plain versions on the card
     with segmm.use_plain():
@@ -1930,6 +2034,7 @@ def main() -> None:
         vba, vchis, vt_opt, launches_v1 = counted_run(oprob, kconfig, torch, segmm, "v1 path",
                                                       "v1")
         attempts["v1"] = vba.last_result.nattempts
+        profile_optimize(vba, torch, "v1 path", vt_opt)
         del vba
         ref = CHI2_FP64_FINAL[("kitti00_scale", ITERS)]
         rel = abs(vchis[-1] - ref) / ref
@@ -1941,7 +2046,6 @@ def main() -> None:
             _p, vchis_plain, _ti, vt_opt_plain = run_path(oprob, kconfig, torch, "v1 plain path")
         del _p
         compare_trajectories(vchis, vchis_plain, "v1")
-        profile_path(oprob, kconfig, torch, "v1 path", vt_opt)
         # the dense solver behind the v1 formation: kitti07 plans v1 too
         # with the gate closed (dense_cholesky, kernels 10-14)
         wba, wchis, wt_opt, _launches = counted_run(dprob, kconfig, torch, segmm,
@@ -1982,14 +2086,14 @@ def main() -> None:
         f"blocks {facts[3]}, |J| {facts[4]}")
     if facts != ("band_lr", "v2", KITTI_BAND_M, 26, 16):
         fail(f"the two-chord graph planned {facts}, expected band_lr / v2 / 22 / 26 / 16")
-    kern_lr = check_band_kernels(cengine, torch, segmm, cr_timings=False)
+    kern_lr = check_band_kernels(cengine, torch, segmm)
     time_woodbury(cengine, torch)
     del cba, cengine
     cba, cchis, ct_opt, launches_lr = counted_run(cprob, kconfig, torch, segmm,
                                                   "band_lr path", "v2")
     attempts["band_lr"] = cba.last_result.nattempts
+    profile_optimize(cba, torch, "band_lr path", ct_opt)
     del cba
-    profile_path(cprob, kconfig, torch, "band_lr path", ct_opt)
     with segmm.use_plain():
         _p, cchis_plain, _ti, ct_opt_plain = run_path(cprob, kconfig, torch,
                                                       "band_lr plain path")
@@ -2016,8 +2120,8 @@ def main() -> None:
                                                    "aos path", "aos")
     attempts["aos"] = aba.last_result.nattempts
     astructure, akernels = aba._engine.structure, aba._kernels
+    profile_optimize(aba, torch, "aos path", at_opt)
     del aba
-    profile_path(aprob, kconfig, torch, "aos path", at_opt)
     with segmm.use_plain():
         _p, achis_plain, _ti, at_opt_plain = run_path(aprob, kconfig, torch, "aos plain path")
     del _p
@@ -2060,13 +2164,11 @@ def main() -> None:
     runs64["band-fp64"] = fp64_run(
         kprob, f64, torch, segmm, "band-fp64",
         dict(path="v2", solver="band_cr", band_m=KITTI_BAND_M),
-        lambda e: check_band_kernels(e, torch, segmm, cr_timings=False), "kitti00_scale_loop")
-    profile_path(kprob, f64, torch, "band-fp64", runs64["band-fp64"][3])
+        lambda e: check_band_kernels(e, torch, segmm), "kitti00_scale_loop")
     runs64["dense-fp64"] = fp64_run(
         dprob, f64, torch, segmm, "dense-fp64", dict(path="v2", solver="dense_cholesky"),
         lambda e: check_dense_kernels(e, torch, segmm, "kitti07 fp64", trisolve_kernels=False),
         "kitti07_scale")
-    profile_path(dprob, f64, torch, "dense-fp64", runs64["dense-fp64"][3])
     rows._WG_MAX = 0
     log(f"v2 gate closed: rows._WG_MAX = {rows._WG_MAX}")
     try:
@@ -2074,7 +2176,6 @@ def main() -> None:
             oprob, f64, torch, segmm, "v1-fp64",
             dict(path="v1", solver="band_cr", band_m=KITTI_BAND_M),
             lambda e: check_v1_kernels(e, torch, segmm)[0], "kitti00_scale")
-        profile_path(oprob, f64, torch, "v1-fp64", runs64["v1-fp64"][3])
     finally:
         rows._WG_MAX = wg_max
     log(f"v2 gate restored: rows._WG_MAX = {rows._WG_MAX}")
@@ -2113,6 +2214,14 @@ def main() -> None:
     # phase 18: the large-landmark regime, 1778 P / 1M L / 3.9M E
     kern_stress, launches_stress, attempts["stress"] = check_stress(torch, segmm, card)
     stamp("phase 18")
+
+    # phase 19: the port's tools at full width
+    check_tools(torch, card, mstructure, mkernels, kconfig, dprob, {
+        shape: (p.mono_p.size + p.stereo_p.size, chis32, runs64[path][2])
+        for shape, p, chis32, path in (("kitti00_scale_loop", kprob, kchis, "band-fp64"),
+                                       ("kitti00_scale", oprob, gchis, "v1-fp64"),
+                                       ("kitti07_scale", dprob, dchis, "dense-fp64"))})
+    stamp("phase 19")
 
     entries = []
     paths = [("pcg", kern_pcg, launches_pcg), ("band", kern_band, launches_band),

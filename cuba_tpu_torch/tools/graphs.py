@@ -5,6 +5,7 @@ Huber kernels of ``bench.py`` (delta sqrt(5.991) mono, sqrt(7.815)
 stereo)."""
 
 import argparse
+import contextlib
 
 import numpy as np
 import torch
@@ -16,13 +17,16 @@ from cuba_tpu_torch.solver.structure import build_structure_from_arrays
 # bench.py's kitti00-scale loop graph (bench.py:121-137)
 KITTI00_LOOP = dict(num_poses=1322, num_landmarks=133383, mean_obs_per_landmark=5.5,
                     stereo_fraction=0.25, seed=0, loop_closure=True)
+# the same graph without the loop closure: bench.py's odometry graph
+KITTI00 = dict(KITTI00_LOOP, loop_closure=False)
 # bench.py --quick's kitti07-scale graph (reference ba_kitti_07: 248 / 26,127 / 95,037)
 KITTI07 = dict(num_poses=248, num_landmarks=26127, mean_obs_per_landmark=4.65,
                stereo_fraction=0.25, seed=0, loop_closure=False)
 # the large-landmark regime (1778 P / 1M L / 3,885,457 E)
 STRESS = dict(num_poses=1778, num_landmarks=1_000_000, mean_obs_per_landmark=5.0,
               stereo_fraction=0.25, seed=0)
-GRAPHS = {"kitti00-loop": KITTI00_LOOP, "kitti07": KITTI07, "stress": STRESS}
+GRAPHS = {"kitti00": KITTI00, "kitti00-loop": KITTI00_LOOP, "kitti07": KITTI07,
+          "stress": STRESS}
 # the solver crossover's gentler initial noise: at P >= 4096 the default
 # drift starts LM so far from the basin that fp32 rejects the first steps
 GENTLE_NOISE = dict(init_rot_noise=0.002, init_trans_noise=0.02, init_point_noise=0.04)
@@ -55,10 +59,12 @@ def graph_params(name: str, args) -> dict:
     return params
 
 
-def add_device_args(ap: argparse.ArgumentParser, dtype: str = "float32") -> None:
-    """``--device`` (the card unless asked) and ``--dtype``."""
+def add_device_args(ap: argparse.ArgumentParser, dtype="float32") -> None:
+    """``--device`` (the card unless asked) and, unless ``dtype`` is None
+    (a tool whose mode fixes it), ``--dtype``."""
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--dtype", default=dtype, choices=("float32", "float64"))
+    if dtype is not None:
+        ap.add_argument("--dtype", default=dtype, choices=("float32", "float64"))
 
 
 def structure_of(prob):
@@ -110,3 +116,25 @@ def card(device) -> str:
     except OSError:
         pass
     return f"{torch.cuda.get_device_name(0)} (power limit not read)"
+
+
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A ``torch.distributed`` group of this process alone (NCCL on the
+    card, gloo on the host), joined through a file in a temporary
+    directory and destroyed on exit, so that no group outlives the tool
+    that made it."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'store')}",
+                                world_size=1, rank=0, timeout=datetime.timedelta(seconds=600))
+        try:
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()

@@ -25,9 +25,7 @@ device metric).
 
 import argparse
 import json
-import statistics
 import sys
-import time
 
 import torch
 
@@ -37,21 +35,6 @@ from cuba_tpu_torch.ops import cudalib, segmm
 from cuba_tpu_torch.tools import graphs, roofline
 
 ITERS = 10
-
-
-def host_times(fns):
-    """{label: median host ms} over roofline.REPEATS calls (the CPU's plain
-    versions)."""
-    out = {}
-    for k, fn in fns.items():
-        fn()
-        ts = []
-        for _ in range(roofline.REPEATS):
-            t0 = time.perf_counter()
-            fn()
-            ts.append(1e3 * (time.perf_counter() - t0))
-        out[k] = statistics.median(ts)
-    return out
 
 
 def table(engine, launches, attempts):
@@ -66,7 +49,7 @@ def table(engine, launches, attempts):
         cold = roofline.interleaved_times(fns, cold=True)
         times = {k: (warm[k][1], cold[k][1]) for k in fns}
     else:
-        times = {k: (v, None) for k, v in host_times(fns).items()}
+        times = {k: (v, None) for k, v in roofline.host_times(fns).items()}
     out = []
     for label, site in s.items():
         kernel, (nbytes, flops) = site.kernel, site.work()

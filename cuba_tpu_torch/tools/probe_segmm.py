@@ -17,9 +17,10 @@ the timing helpers and the graphs come from this checkout's
    same inputs: 1,000 calls timed with ``time.perf_counter``, then one
    synchronise; the median of 5 such runs.
 2. ``site``: each segment-sum call site of the kitti00 loop graph
-   (``chip_smoke.KITTI``, v2 band plan), the two v1 combines of the
-   odometry graph with the v2 gate closed, and the AoS pose and triplet
-   sites of that graph with three loop chords: its CSR's shape, and the
+   (``chip_smoke.KITTI``, v2 band plan) and the two v1 combines of the
+   odometry graph with the v2 gate closed, as ``roofline.engine_sites``
+   lists them (the smoke's kernel checks' sites), and the AoS pose and
+   triplet sites of that graph with three loop chords: its CSR's shape, and the
    device and event-timed call time (``chip_smoke.interleaved_times``) of
    the wrapper on seeded values of the site's width, beside ``index_add_``.
    Where DIR holds this design (``segmm.row_chunk``), also of the kernel at
@@ -109,30 +110,24 @@ def main():
         ba.initialize()
         return ba._engine
 
-    eng = engine(synthetic.generate(**smoke.KITTI))
-    plan, rc = eng.plan, eng.rc
-    sites = {
-        "pose_m": (rc.pose_acc_m, eng.num_p, 42, rc.csr_pose_m),
-        "pose_s": (rc.pose_acc_s, eng.num_p, 42, rc.csr_pose_s),
-        "lm_m": (rc.lm_acc_m, eng.num_l, 12, rc.csr_lm_m),
-        "lm_s": (rc.lm_acc_s, eng.num_l, 12, rc.csr_lm_s),
-        "e2h_m": (rc.e2h_m, plan.hpl_pad, 18, rc.csr_e2h_m),
-        "e2h_s": (rc.e2h_s, plan.hpl_pad, 18, rc.csr_e2h_s),
-        "hpl_row": (rc.hpl_row, eng.num_p, 6, rc.csr_hpl_row),
-        "hpl_row36": (rc.hpl_row, eng.num_p, 36, rc.csr_hpl_row),
-        "hpl_col": (rc.hpl_col, eng.num_l, 3, rc.csr_hpl_col),
-        "up2": (rc.gkey_up2, plan.pad_blocks // 64 * plan.wg, 36, rc.csr_up2),
-    }
-    del eng, plan, rc
+    def segsum_sites(eng, prefix=""):
+        """{label: (ids, num_out, D, csr)} of the engine's segment-sum
+        sites (``roofline.engine_sites``, the smoke's and ``mfu``'s)."""
+        out = {}
+        for label, site in smoke.roofline.engine_sites(eng).items():
+            if site.kind == "segsum":
+                vals, ids, num_out, csr = site.inputs
+                out[prefix + label] = (ids, num_out, vals.shape[0], csr)
+        return out
+
+    sites = segsum_sites(engine(synthetic.generate(**smoke.KITTI)))
     oprob = synthetic.generate(**smoke.KITTI00)
     wg_max, rows._WG_MAX = rows._WG_MAX, 0
     try:
         eng = engine(oprob)
     finally:
         rows._WG_MAX = wg_max
-    PB = eng.plan.pad_blocks
-    sites["v1_up"] = (eng.rc.gkey_up, PB * PB, 36, eng.rc.csr_up)
-    sites["v1_lo"] = (eng.rc.gkey_lo, PB * PB, 36, eng.rc.csr_lo)
+    sites.update({k: v for k, v in segsum_sites(eng, "v1 ").items() if "combine" in k})
     eng = engine(smoke.with_chords(oprob, 3))
     sites["aos_pose"] = (eng.edges[0].pose_idx, eng.num_p, 42, eng.edges[0].csr_pose)
     sites["aos_triplets"] = (eng.sc.mul_k, eng.sc.hsc_row.shape[0], 36, eng.sc.csr_mul)

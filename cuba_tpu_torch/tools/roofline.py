@@ -13,6 +13,7 @@ adds the values whose id is in range).
 """
 
 import statistics
+import time
 from typing import NamedTuple
 
 import torch
@@ -252,37 +253,68 @@ def interleaved_times(fns, cold: bool = False):
     read of FLUSH_BYTES (2.5x the L2), which leaves the L2 empty of its
     inputs and clean.  A ``torch.cuda._sleep`` kernel before that run and
     another before the call mark where each starts in the trace (the first
-    segment is dropped), and two in a row where a round starts.  The trace
-    can miss events (the first few of a profiler session and its last
-    ones, as seen on an H100), so a round counts only where the marks
-    close it and split it into as many segments as it made.  Where fewer
-    than half the rounds count, the loop runs again in a new profiler
-    session, and it raises after PROFILE_TRIES sessions: every time it
-    returns was measured."""
+    segment is dropped), two in a row where a round starts, and one after
+    the last round.  The trace can miss events (the first few of a
+    profiler session and its last ones, as seen on an H100: an untimed
+    call before the first mark and after the last one takes that loss),
+    so a round counts only where the marks close it and split it into as
+    many segments as it made.  Where fewer than half the rounds count, the
+    loop runs again in a new profiler session, and it raises after
+    PROFILE_TRIES sessions: every time it returns was measured."""
+    return {k: v[:2] for k, v in interleaved_kernels(fns, cold).items()}
+
+
+def interleaved_kernels(fns, cold: bool = False, repeats: int = REPEATS):
+    """:func:`interleaved_times` over ``repeats`` rounds, with each label's
+    three device kernels of most device time in the same session: {label:
+    (call_ms, device_ms, [(kernel name, mean device ms a call), ...])}."""
     labels = list(fns)
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        call_ms, whole, marks = _profiled_rounds(fns, labels, cold)
-        if 2 * len(whole) >= REPEATS:
+        call_ms, whole, marks = _profiled_rounds(fns, labels, cold, repeats)
+        if 2 * len(whole) >= repeats:
             print(f"launch floor: median device time of this session's {len(marks)} "
                   f"spin_kernel marks {statistics.median(marks) / 1e3:.4f} ms", flush=True)
-            return {k: (statistics.median(call_ms[k]),
-                        statistics.median(r[i] for r in whole) / 1e3)
-                    for i, k in enumerate(labels)}
-        print(f"interleaved_times: {len(whole)} of {REPEATS} rounds whole in the trace",
+            out = {}
+            for i, k in enumerate(labels):
+                by_name = {}
+                for r in whole:
+                    for name, us in r[i][1].items():
+                        by_name[name] = by_name.get(name, 0.0) + us
+                ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+                out[k] = (statistics.median(call_ms[k]),
+                          statistics.median(r[i][0] for r in whole) / 1e3,
+                          [(name, us / len(whole) / 1e3) for name, us in ranked])
+            return out
+        print(f"interleaved_times: {len(whole)} of {repeats} rounds whole in the trace",
               flush=True)
     raise RuntimeError(f"device time not measured: the trace split too few rounds in "
                        f"{PROFILE_TRIES} profiler sessions")
 
 
-def _profiled_rounds(fns, labels, cold):
-    """One profiler session of :func:`interleaved_times`: ({label: call
-    ms per round}, [[device us per label] for each round the trace split
-    whole], [device us of each mark]).  A mark is a ``torch.cuda._sleep(1)``
-    kernel, whose device time is the floor of one launch in this session.
-    A call that raises ends the run."""
+def host_times(fns, repeats: int = REPEATS):
+    """{label: median host ms} over ``repeats`` calls after one untimed
+    call (the CPU's plain versions: no device metric)."""
+    out = {}
+    for k, fn in fns.items():
+        fn()
+        ts = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        out[k] = statistics.median(ts)
+    return out
+
+
+def _profiled_rounds(fns, labels, cold, repeats):
+    """One profiler session of :func:`interleaved_kernels`: ({label: call
+    ms per round}, [[(device us, {kernel name: device us}) per label] for
+    each round the trace split whole], [device us of each mark]).  A mark
+    is a ``torch.cuda._sleep(1)`` kernel, whose device time is the floor of
+    one launch in this session.  A call that raises ends the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -293,7 +325,11 @@ def _profiled_rounds(fns, labels, cold):
     else:
         prepare = fns
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPEATS):
+        # the trace can lose a session's first and last events: an untimed
+        # call before the first mark and one after a mark that closes the
+        # last round take the loss
+        fns[labels[0]]()
+        for _ in range(repeats):
             torch.cuda._sleep(1)
             for k in labels:
                 torch.cuda._sleep(1)
@@ -306,29 +342,73 @@ def _profiled_rounds(fns, labels, cold):
                 b.record()
                 b.synchronize()
                 call_ms[k].append(a.elapsed_time(b))
+        torch.cuda._sleep(1)
+        fns[labels[-1]]()
+        torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
-    segments, cur = [], None  # [events, device us] between consecutive marks
+    segments, cur = [], None  # [events, device us, {name: us}] between consecutive marks
     marks = []
     for start, end, name in spans:
         if "spin_kernel" in name:
             marks.append(end - start)
             if cur is not None:
                 segments.append(cur)
-            cur = [0, 0.0]
+            cur = [0, 0.0, {}]
         elif cur is not None:
             cur[0] += 1
             cur[1] += end - start
-    # an unclosed last segment may have lost its tail
+            cur[2][name] = cur[2].get(name, 0.0) + (end - start)
+    # the segment after the closing mark is the untimed tail call
     rounds, rnd = [], None
-    for n, us in segments:
+    for n, us, names in segments:
         if n == 0:  # two marks in a row: a round starts
             if rnd is not None:
                 rounds.append(rnd)
             rnd = []
         elif rnd is not None:
-            rnd.append(us)
+            rnd.append((us, names))
     if rnd is not None:
         rounds.append(rnd)
     # each call's segment follows its preparation's
     return call_ms, [r[1::2] for r in rounds if len(r) == 2 * len(labels)], marks
+
+
+def stage_times(fns, device, repeats: int = REPEATS):
+    """{label: (call_ms, device_ms, top kernels)} of the stages of ``fns``:
+    on the card :func:`interleaved_kernels` (warm); on the host one call's
+    host ms each after an untimed one (the plain versions: a check that
+    the stages run, no device metric), device_ms and top None."""
+    if torch.device(device).type == "cuda":
+        return interleaved_kernels(fns, repeats=repeats)
+    return {k: (ms, None, None) for k, ms in host_times(fns, 1).items()}
+
+
+def print_stages(times, title: str) -> None:
+    """A markdown table of :func:`stage_times`' result under ``title``."""
+    cuda = any(v[1] is not None for v in times.values())
+    call = "call ms (CUDA events, host work included)" if cuda else \
+        "host ms (CPU, plain versions; not a device time)"
+    print(f"\n{title}\n\n| stage | {call} | device ms | top device kernels (ms a call) |\n"
+          "|---|---|---|---|", flush=True)
+    for label, (ms, dms, top) in times.items():
+        kernels = "; ".join(f"{name[:70]} {t:.4f}" for name, t in top) if top else "–"
+        dev = "–" if dms is None else f"{dms:.4f}"
+        print(f"| {label} | {ms:.4f} | {dev} | {kernels} |", flush=True)
+
+
+READ_REPEATS = 200  # calls of host_read_ms
+
+
+def host_read_ms(fn, device, repeats: int = READ_REPEATS) -> float:
+    """Median host-clock ms of ``fn()``, a call that ends in a read to the
+    host, each call on an idle device (a synchronize before it)."""
+    cuda = torch.device(device).type == "cuda"
+    ts = []
+    for _ in range(repeats + 1):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts[1:])

@@ -1244,3 +1244,51 @@ def test_compact_to_dense_past_int32_elements(cuda):
     assert got.numel() > 2 ** 31 and segmm.LAUNCHES["compact_to_dense"] == before + 1
     assert torch.equal(got, segmm.compact_to_dense_plain(*args))
     assert torch.equal(got[-6:, -6:], -gT[:, PB - 1].reshape(6, 6) + dbT[:, PB - 1].reshape(6, 6))
+
+
+# the port's tools (cuba_tpu_torch/tools/), each main on the card at a
+# small size: the argv and a line its output must hold
+_TOOLS_SMALL = {
+    "profile_formation": (["--poses", "130", "--landmarks", "3000", "--reps", "2"],
+                          "marginals (device ms)"),
+    "profile_crsolve": ([], "host reads of one cr_solve: 1"),
+    "perf_probe_solve": (["--n", "1536", "--reps", "2"], "solve rel err refine=2"),
+    "bench_pcg_band_mc": (["--poses", "130", "--landmarks", "3000", "--reps", "2"],
+                          "crossover: sharded PCG"),
+    "bench_multichip_mxu": (["--poses", "40", "--landmarks", "800", "--trials", "1", "--iters",
+                             "3"], "equals the single-device one bit for bit"),
+    "mc_parity": (["--poses", "40", "--landmarks", "800"], "-> OK"),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_TOOLS_SMALL))
+def test_tool_runs_on_the_card(cuda, tool, capsys):
+    """Each tool's ``main`` on the card (its default device) at a small
+    size: exit 0, device times in its tables, the card named."""
+    import importlib
+
+    module = importlib.import_module(f"cuba_tpu_torch.tools.{tool}")
+    argv, line = _TOOLS_SMALL[tool]
+    assert module.main(argv) == 0
+    out = capsys.readouterr().out
+    assert line in out and torch.cuda.get_device_name(0).split()[0] in out
+
+
+def test_parity_kitti00_fp64_record_on_the_card(cuda, tmp_path, monkeypatch):
+    """``parity_kitti00 --phase fp64`` on the card and on the host at 24 P
+    / 600 L: one record keyed by device, the card's fp64 trajectories
+    within 1e-6 of the host's a step."""
+    import json
+
+    from cuba_tpu_torch.tools import parity_kitti00
+
+    monkeypatch.setattr(parity_kitti00, "RECORD", str(tmp_path / "record.json"))
+    size = ["--poses", "24", "--landmarks", "600"]
+    assert parity_kitti00.main(["--phase", "fp64"] + size) == 0
+    assert parity_kitti00.main(["--phase", "fp64", "--device", "cpu"] + size) == 0
+    rec = json.loads((tmp_path / "record.json").read_text())
+    assert len(rec) == 3
+    for by_device in rec.values():
+        card, host = by_device["cuda"]["chis"], by_device["cpu"]["chis"]
+        assert len(card) == len(host) == 10
+        np.testing.assert_allclose(card, host, rtol=1e-6)

@@ -8,7 +8,9 @@ error rule; the split of ``initialize()`` summing to its wall; the
 kitti07 parity against the oracle copy at 12 poses / 300 landmarks; the
 roofline work counts against hand counts; the roofline table's call sites
 equal to ``chip_smoke.py``'s kernel checks; and the probes' yardstick,
-this checkout's, over a tree without one.
+this checkout's, over a tree without one.  The later tools' computations
+against ``cuba_tpu`` are ``test_torch_tools_solve.py``'s and
+``test_torch_tools_mc.py``'s; their ``main`` runs here.
 """
 
 import json
@@ -32,8 +34,10 @@ from cuba_tpu_torch import BAConfig
 from cuba_tpu_torch.io import synthetic
 from cuba_tpu_torch.ops import segmm
 from cuba_tpu_torch.solver import rows
-from cuba_tpu_torch.tools import (bench_pcg_crossover, graphs, mfu, parity_kitti07,
-                                  profile_ctor, roofline, stress_large_l)
+from cuba_tpu_torch.tools import (bench_multichip_mxu, bench_pcg_band_mc, bench_pcg_crossover,
+                                  graphs, make_bal_fixture, mc_parity, mfu, parity_kitti00,
+                                  parity_kitti07, perf_probe_solve, profile_crsolve, profile_ctor,
+                                  profile_formation, roofline, stress_large_l)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--poses", "48", "--landmarks", "8000"]  # the stress generator, reduced
@@ -111,29 +115,56 @@ TOOL_RUNS = {
     "profile_ctor": (profile_ctor, ["--poses", "60", "--landmarks", "1500", "--trials", "1"],
                      "symbolic pass"),
     "parity_kitti07": (parity_kitti07, ["--poses", "12", "--landmarks", "300"], "PASS"),
+    "profile_formation": (profile_formation, ["--poses", "130", "--landmarks", "3000", "--reps",
+                                              "1"], "marginals (call ms)"),
+    "profile_crsolve": (profile_crsolve, [], "host reads of one cr_solve: 1"),
+    "perf_probe_solve": (perf_probe_solve, ["--n", "512", "--reps", "1"],
+                         "solve rel err refine=2"),
+    "bench_pcg_band_mc": (bench_pcg_band_mc, ["--poses", "130", "--landmarks", "3000", "--reps",
+                                              "1"], "crossover: sharded PCG"),
+    "bench_multichip_mxu": (bench_multichip_mxu, ["--poses", "12", "--landmarks", "300",
+                                                  "--trials", "1", "--iters", "3"],
+                            "equals the single-device one bit for bit"),
+    "mc_parity": (mc_parity, ["--poses", "12", "--landmarks", "300"], "-> OK"),
+    "parity_kitti00": (parity_kitti00, ["--phase", "fp64", "--poses", "12", "--landmarks", "300",
+                                        "--shapes", "kitti07_scale"], "CHI2_FP64_FINAL"),
+    "make_bal_fixture": (make_bal_fixture, ["{tmp}/toy.txt.gz"], "20 cams / 500 pts / 4989 obs"),
 }
+NO_DEVICE = ("make_bal_fixture",)  # NumPy and SciPy only
+
+
+def _tool_argv(tool, tmp_path, monkeypatch):
+    """(module, argv, expected line) of a TOOL_RUNS case, every file it
+    writes under ``tmp_path``."""
+    module, argv, line = TOOL_RUNS[tool]
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    if tool == "parity_kitti07":
+        argv += ["--out", str(tmp_path / "p.md")]
+    if tool == "parity_kitti00":
+        monkeypatch.setattr(parity_kitti00, "RECORD", str(tmp_path / "record.json"))
+        monkeypatch.setattr(parity_kitti00, "OUT", str(tmp_path / "p.md"))
+    return module, argv, line
 
 
 @pytest.mark.parametrize("tool", sorted(TOOL_RUNS))
-def test_tool_main_runs_on_cpu(tool, tmp_path, capsys):
-    module, argv, line = TOOL_RUNS[tool]
-    extra = ["--out", str(tmp_path / "p.md")] if tool == "parity_kitti07" else []
-    assert module.main(argv + extra + ["--device", "cpu"]) == 0
+def test_tool_main_runs_on_cpu(tool, tmp_path, capsys, monkeypatch):
+    module, argv, line = _tool_argv(tool, tmp_path, monkeypatch)
+    device = [] if tool in NO_DEVICE else ["--device", "cpu"]
+    assert module.main(argv + device) == 0
     out = capsys.readouterr().out
     assert line in out
 
 
-@pytest.mark.parametrize("tool", sorted(TOOL_RUNS))
-def test_tool_runs_on_the_card_by_default(tool, tmp_path):
+@pytest.mark.parametrize("tool", sorted(set(TOOL_RUNS) - set(NO_DEVICE)))
+def test_tool_runs_on_the_card_by_default(tool, tmp_path, monkeypatch):
     """Without ``--device`` each tool asks for the card, and without one it
     fails before any work: none carries on on the host."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    module, argv, _line = TOOL_RUNS[tool]
-    extra = ["--out", str(tmp_path / "p.md")] if tool == "parity_kitti07" else []
+    module, argv, _line = _tool_argv(tool, tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        module.main(argv + extra)
-    assert not (tmp_path / "p.md").exists()
+        module.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_crossover_reraises_errors_other_than_out_of_memory(monkeypatch, capsys):
@@ -294,8 +325,10 @@ def test_probe_loader_keeps_this_checkouts_yardstick(tmp_path):
 def test_tools_import_no_jax():
     """The tools in a fresh interpreter: no JAX, nothing of cuba_tpu."""
     code = ("import sys\n"
-            "from cuba_tpu_torch.tools import (bench_pcg_crossover, graphs, mfu, parity_kitti07,"
-            " profile_ctor, roofline, stress_large_l)\n"
+            "from cuba_tpu_torch.tools import (bench_multichip_mxu, bench_pcg_band_mc,"
+            " bench_pcg_crossover, graphs, make_bal_fixture, mc_parity, mfu, parity_kitti00,"
+            " parity_kitti07, perf_probe_solve, profile_crsolve, profile_ctor, profile_formation,"
+            " roofline, stress_large_l)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cuba_tpu.'))"
             " or m == 'cuba_tpu']\n"
             "assert not bad, bad\n")
