@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive cuba_tpu_torch's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--num-poses 4096]
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result line):
 
@@ -26,8 +26,12 @@ Phases (any failure exits non-zero, before the result line):
    (~5 observations each, 25% stereo, seed 0, gentle initial noise), Huber
    kernels, ``BAConfig(dtype=float32, solver="pcg", device="cuda")``:
    ``initialize()`` and ``optimize(10)`` once to warm up and once timed from
-   a fresh graph.  chi² must be finite and fall; every kernel wrapper the
-   plan routes through must have launched.
+   a fresh graph.  chi² must be finite and fall and lie within
+   CHI2_REL_BAND of ``cuba_tpu``'s fp64 record ``pcg4096`` at every
+   iteration (``docs/_parity_torch_cuba_fp64.json``, read through
+   ``parity_records.reference``: a missing record, or one made from other
+   parameters or edges, ends the run); every kernel wrapper the plan
+   routes through must have launched.
 4. The same ``optimize(10)`` with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
 5. The band path through the public API: ``bench.py``'s kitti00-scale loop
@@ -123,12 +127,13 @@ Phases (any failure exits non-zero, before the result line):
    ``dense_cholesky`` on the v2 route (PB 128, n = 768): kernels 1-7, 9
    and 11-14 against their plain versions at its shapes as in phase 9; the
    counted ``optimize(10)``: chi² falling, the final below 0.6x the first
-   (tests/test_bal.py's bar) and within CHI2_REL_BAND of the port's fp64
-   CPU run of the same file; its profile.  Then
+   (tests/test_bal.py's bar) and within CHI2_REL_BAND of ``cuba_tpu``'s
+   fp64 record ``ladybug49_bal`` (its edges and the file's sha256 the
+   record's); its profile.  Then
    ``sample_comparison_with_reference``'s graph (20 poses, 300 landmarks)
    in process: the card's fp32 trajectory within TRAJ_RTOL of the port's
    fp64 oracle copy per iteration; and the three samples as subprocesses
-   on the card (``sample_ba_from_file`` on phase 14's JSON with
+   on the card, started together (``sample_ba_from_file`` on phase 14's JSON with
    ``--profiled``, ``sample_bal`` on the Ladybug file,
    ``sample_comparison_with_reference`` at its defaults): each must exit 0
    with finite, falling chi² lines.
@@ -151,7 +156,8 @@ Phases (any failure exits non-zero, before the result line):
    within 1e-6 of its recorded fp64 trajectory at every iteration, each
    profiled; the three-chord graph (AoS, kernel 6) and pcg4096 (rows +
    PCG) at ``optimize(3)``, each within 1e-8 per iteration of the same run
-   with the plain versions on the card; and ``sample_ba_from_file
+   with the plain versions on the card, pcg4096 also within 1e-6 of the
+   first three iterations of ``cuba_tpu``'s record; and ``sample_ba_from_file
    --synthetic --fp64`` as a subprocess on the card.
 17. The landmark-sharded LM (``cuba_tpu_torch/parallel/``) on the card.
    a. The kitti00 loop through ``BAConfig(mesh=<a one-rank NCCL group>)``
@@ -201,16 +207,19 @@ Phases (any failure exits non-zero, before the result line):
    route launched, chi² finite and falling) and its profile; the same
    graph's first STRESS_PLAIN_ITERS iterations with the plain versions
    within TRAJ_RTOL of the kernel run's; and the same structure in fp64
-   on the card (the record: ``cuba_tpu`` never recorded this graph), the
-   fp32 trajectory within CHI2_REL_BAND of it at every iteration.  Each
-   run logs the device's peak memory.
+   on the card.  The fp32 trajectory must lie within CHI2_REL_BAND of
+   the card's fp64 run and of ``cuba_tpu``'s fp64 record ``stress_1m`` at
+   every iteration, the fp64 run within CHI2_FP64_RTOL of that record.
+   Each run logs the device's peak memory.
 19. The port's tools (``cuba_tpu_torch/tools/``) at full width
    (:func:`check_tools`): ``profile_formation``'s formation and CR stages
    and ``profile_crsolve``'s on the kitti00 loop's band_cr engine (m =
    22), each stage's call and device ms with its top three device kernels
    (the two CR inverses' solutions within 1e-4 of each other, refine 1's
    residual no worse than refine 0's); ``bench_pcg_band_mc``'s t_form,
-   t_band, t_pcg, CG steps and measured t_lat on the same engine (finite);
+   t_band, t_pcg, CG steps and measured t_lat on the same engine (finite),
+   the attempt damped at the JAX tool's λ = 1e-3 (``roofline.LAM0``, as
+   ``profile_formation``'s);
    ``bench_multichip_mxu`` on kitti07 through a one-rank NCCL group (the
    rows route bit for bit against the single device); ``mc_parity``'s 8
    spawned gloo ranks on the card, kitti07 fp64 (within 1e-6 of the single
@@ -221,7 +230,9 @@ Phases (any failure exits non-zero, before the result line):
 
 Every phase's kernel check also times the one PyTorch call that computes
 the same function where there is one (``index_select`` for the gathers,
-``index_add_`` for the segment sums, the permuted copy for
+``index_add_`` for the segment sums, one accumulating ``index_put_`` over
+a flat index built once per structure for the placements
+(``roofline.placement_library``), the permuted copy for
 ``band_transpose``, the strided diagonal copy for
 ``extract_diag_blocks``, ``solve_triangular`` for the sweeps, ``mv`` for the
 matvec) and computes the kernel's bound on this card: the larger of the
@@ -280,11 +291,11 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-try:  # the port's graphs and yardstick: peak rates, work counts and timing
-    # (main() fails where the package is missing)
-    from cuba_tpu_torch.tools import graphs, roofline
+try:  # the port's graphs, yardstick (peak rates, work counts and timing) and
+    # cuba_tpu's fp64 records (main() fails where the package is missing)
+    from cuba_tpu_torch.tools import graphs, parity_records, roofline
 except ImportError:
-    graphs = roofline = None
+    graphs = parity_records = roofline = None
 ITERS = 10
 # bench.py's recorded fp64 final chi² of its default graphs after 10 LM
 # iterations (docs/PARITY_kitti00.md), and the band a run must land in
@@ -463,9 +474,12 @@ def site_case(site, segmm, torch):
     0 there).  A segment sum is held to :func:`segsum_bound`, its library
     call ``index_add_`` into zeros; notes: the group width G and rows per
     chunk the kernel picks, and the CSR's shape.  ``schur_fused`` is held
-    to its sum of |terms|; the placements are exact; no single PyTorch call
-    computes either, and their notes are the launch and the build's
-    attributes."""
+    to its sum of |terms|, and no single PyTorch call computes it (a
+    segmented sum of products: an einsum over the triplets and then an
+    ``index_add_``, with a [36, triplets] intermediate); the placements are
+    exact, their library call ``roofline.placement_library`` (one
+    accumulating ``index_put_`` over a flat index built once per
+    structure).  Notes of both: the launch and the build's attributes."""
     kern, plain = getattr(segmm, site.kernel), getattr(segmm, site.kernel + "_plain")
     work = site.work()
     if site.kind == "gather":
@@ -494,8 +508,9 @@ def site_case(site, segmm, torch):
         launch = segmm.schur_fused_launch(site.inputs[2][0], dtype)
     else:
         launch = getattr(segmm, site.kernel + "_launch")(site.inputs[0].pad_blocks, dtype)
-    return (("schur",) if site.kind == "schur" else "exact", site.call, kern, plain, work, None,
-            {**launch, **segmm.kernel_attributes(site.kernel, launch, dtype)})
+    library = None if site.kind == "schur" else roofline.placement_library(site)
+    return (("schur",) if site.kind == "schur" else "exact", site.call, kern, plain, work,
+            library, {**launch, **segmm.kernel_attributes(site.kernel, launch, dtype)})
 
 
 def check_kernels(engine, torch, segmm):
@@ -1268,25 +1283,47 @@ def check_public_api(prob, config, plain_chis, torch, segmm, tmp, card):
     return path
 
 
-def run_sample(name, args, label):
-    """A sample as a subprocess on the card; its printed chi2 lines must be
-    finite and fall.  Returns them."""
+def run_samples(samples):
+    """Samples as subprocesses on the card, all started together
+    (``samples``: [(module name, args, label)]); each one's printed chi2
+    lines must be finite and fall.  None is left running."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", f"cuba_tpu_torch.samples.{name}", *args],
-                       cwd=HERE, capture_output=True, text=True, timeout=600)
-    log(f"sample {label}: exit {r.returncode} in {time.perf_counter() - t0:.2f} s")
-    for line in r.stdout.splitlines():
-        log(f"  | {line}")
-    if r.returncode != 0:
-        fail(f"sample {label} failed:\n{r.stderr[-4000:]}")
-    lines = r.stdout.splitlines()
-    chis = [float(x.split("=")[1]) for x in lines if x.startswith("iter ") and "chi2 =" in x]
-    if not chis:  # the comparison's table: "i | port | oracle | rel"
-        chis = [float(x.split("|")[1]) for x in lines if x.strip()[:1].isdigit() and "|" in x]
-    chis = np.array(chis)
-    if chis.size < 2 or not np.all(np.isfinite(chis)) or not np.all(np.diff(chis) <= 0):
-        fail(f"sample {label}: chi2 lines not finite and falling: {chis.tolist()}")
-    return chis
+    procs = []
+    try:
+        for name, args, label in samples:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            procs.append((label, out, err, subprocess.Popen(
+                [sys.executable, "-m", f"cuba_tpu_torch.samples.{name}", *args], cwd=HERE,
+                stdout=out, stderr=err, text=True)))
+        for label, out, err, proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"sample {label}: still running after 600 s")
+            log(f"sample {label}: exit {proc.returncode} in {time.perf_counter() - t0:.2f} s "
+                f"(the {len(procs)} started together)")
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().splitlines()
+            for line in lines:
+                log(f"  | {line}")
+            if proc.returncode != 0:
+                fail(f"sample {label} failed:\n{err.read()[-4000:]}")
+            chis = [float(x.split("=")[1]) for x in lines
+                    if x.startswith("iter ") and "chi2 =" in x]
+            if not chis:  # the comparison's table: "i | port | oracle | rel"
+                chis = [float(x.split("|")[1]) for x in lines
+                        if x.strip()[:1].isdigit() and "|" in x]
+            chis = np.array(chis)
+            if chis.size < 2 or not np.all(np.isfinite(chis)) or not np.all(np.diff(chis) <= 0):
+                fail(f"sample {label}: chi2 lines not finite and falling: {chis.tolist()}")
+    finally:
+        for _label, out, err, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
 
 
 def check_bal(path, config, torch, segmm, card):
@@ -1301,19 +1338,12 @@ def check_bal(path, config, torch, segmm, card):
     kern = check_dense_kernels(engine, torch, segmm, "bal")
     del bba, engine
     bba, bchis, bt_opt, launches = counted_run(path, config, torch, segmm, "bal path", "v2")
-    attempts = bba.last_result.nattempts
+    attempts, nedges = bba.last_result.nattempts, bba.nedges()
     profile_optimize(bba, torch, "bal path", bt_opt)
     del bba
     if not (np.all(np.diff(bchis) <= 0) and bchis[-1] < 0.6 * bchis[0]):
         fail(f"bal: no real descent: {bchis.tolist()}")
-    cpu = dataclasses.replace(config, dtype=torch.float64, device="cpu")
-    _b, chis64, _ti, t64 = run_path(path, cpu, torch, "bal fp64 cpu")
-    del _b
-    rel = abs(bchis[-1] - chis64[-1]) / chis64[-1]
-    log(f"bal final chi2 {bchis[-1]:.4f} vs the port's fp64 CPU run {chis64[-1]:.4f}: rel "
-        f"{rel:.3e} (band {CHI2_REL_BAND}); fp64 CPU optimize({ITERS}) {t64:.4f} s")
-    if not rel < CHI2_REL_BAND:
-        fail("bal final chi2 is outside the band of the fp64 CPU run")
+    cuba_record(bchis, "ladybug49_bal", nedges, "bal", CHI2_REL_BAND, final_only=True)
     log(f"bal walls ({card}): optimize({ITERS}) {bt_opt} s (cold {bt_opt0} s)")
     return kern, launches, attempts
 
@@ -1335,17 +1365,38 @@ def check_oracle(torch):
                          "card fp32 vs fp64 oracle")
 
 
+def record_gate(chis, ref, label, rtol, final_only=False):
+    """A run's chi² per iteration against a recorded fp64 trajectory
+    ``ref``, the per-iteration relative differences logged: the run must be
+    as long as ``ref`` and lie within ``rtol`` of it at every iteration, or
+    with ``final_only`` at the last one (``rtol`` None: logged only)."""
+    rel = parity_records.rel_diff(chis, ref)
+    log(f"{label}: chi2 per iteration: max rel diff {rel.max():.3e}, final {rel[-1]:.3e} "
+        f"(rtol {rtol}{', final' if final_only else ''}); {[float(f'{x:.3e}') for x in rel]}")
+    held = rel[-1:] if final_only else rel
+    if rtol is not None and not (len(chis) == len(ref) and np.all(held < rtol)):
+        fail(f"{label}: the trajectory left the record")
+
+
 def fp64_records(chis, graph, label, gate=True):
-    """A run's chi² per iteration against the recorded fp64 trajectory of
-    ``graph``; with ``gate``, every iteration within CHI2_FP64_RTOL."""
-    rec = np.array(CHI2_FP64_TRAJECTORY[graph])
-    n = min(len(chis), len(rec))
-    rel = np.abs(np.asarray(chis[:n]) - rec[:n]) / rec[:n]
-    log(f"{label}: chi2 vs the fp64 record of {graph} per iteration: max rel diff "
-        f"{rel.max():.3e} (rtol {CHI2_FP64_RTOL}{'' if gate else ', not gated'}); "
-        f"{[float(f'{x:.3e}') for x in rel]}")
-    if gate and not (len(chis) == len(rec) and np.all(rel <= CHI2_FP64_RTOL)):
-        fail(f"{label}: the fp64 run left the recorded fp64 trajectory of {graph}")
+    """``record_gate`` against the recorded fp64 trajectory of ``graph``
+    (CHI2_FP64_TRAJECTORY) at CHI2_FP64_RTOL; without ``gate`` logged only."""
+    record_gate(chis, np.array(CHI2_FP64_TRAJECTORY[graph]),
+                f"{label} vs the fp64 record of {graph}", CHI2_FP64_RTOL if gate else None)
+
+
+def cuba_record(chis, name, nedges, label, rtol, final_only=False, iters=ITERS):
+    """``record_gate`` against the first ``iters`` iterations of
+    ``cuba_tpu``'s fp64 record of entry ``name`` of
+    ``docs/_parity_torch_cuba_fp64.json`` (``parity_records.reference``: a
+    missing record, or one made from other parameters, edges or file
+    bytes, ends the run)."""
+    try:
+        ref = parity_records.reference(name, nedges)
+    except ValueError as e:
+        fail(f"{label}: {e}")
+    record_gate(chis, ref[:iters], f"{label} vs cuba_tpu's fp64 record {name!r}", rtol,
+                final_only)
 
 
 def fp64_run(prob, config, torch, segmm, label, expect, check, graph=None,
@@ -1680,16 +1731,18 @@ def check_stress(torch, segmm, card):
     torch.cuda.synchronize()
     t_opt64 = time.perf_counter() - t0 - t_ctor64
     chis64 = np.asarray(r64.chis, np.float64)
-    log(f"stress fp64 (the record): {e64.path} / {e64.solver} / m {e64.band_m}, engine "
+    log(f"stress fp64: {e64.path} / {e64.solver} / m {e64.band_m}, engine "
         f"{t_ctor64:.4f} s, optimize({ITERS}) {t_opt64:.4f} s, attempts {r64.nattempts}, peak "
         f"device memory {peak_gib(torch)}; chi2 {chis64.tolist()}")
     if len(chis64) != len(chis) or not np.all(np.isfinite(chis64)):
         fail(f"stress fp64: trajectory {chis64.tolist()} against fp32 {chis.tolist()}")
     rel = np.abs(chis - chis64) / chis64
-    log(f"stress: fp32 vs the card's fp64 record per iteration: max rel {rel.max():.3e} (band "
+    log(f"stress: fp32 vs the card's fp64 run per iteration: max rel {rel.max():.3e} (band "
         f"{CHI2_REL_BAND}), final {rel[-1]:.3e}; {[float(f'{x:.3e}') for x in rel]}")
     if not np.all(rel < CHI2_REL_BAND):
-        fail("stress: the fp32 trajectory left the fp64 record's band")
+        fail("stress: the fp32 trajectory left the band of the card's fp64 run")
+    cuba_record(chis, "stress_1m", n_edges, "stress fp32", CHI2_REL_BAND)
+    cuba_record(chis64, "stress_1m", n_edges, "stress fp64", CHI2_FP64_RTOL)
     log(f"stress walls ({card}): initialize {t_init} s; optimize({ITERS}) {t_opt} s (cold "
         f"{t_cold} s), plain optimize({STRESS_PLAIN_ITERS}) {t_plain} s, fp64 {t_opt64} s")
     return kern, launches, attempts
@@ -1710,8 +1763,10 @@ DENSE_ERR_FLOOR = 1e-5
 def check_tools(torch, card, kstructure, kkernels, kconfig, dprob, trajectories):
     """Phase 19: the tools' measurements at full width.  a.
     ``profile_formation``'s formation and CR stages and
-    ``profile_crsolve``'s on the kitti00 loop's band_cr engine (m = 22):
-    the two CR inverses' refine-1 solutions within INV_RTOL of each other,
+    ``profile_crsolve``'s on the kitti00 loop's band_cr engine (m = 22),
+    at the JAX tool's λ = 1e-3 (the heading says whether CR accepts the
+    band there: where it rejects it, the stages time the rejected solve);
+    on the band of the LM's own first attempt the two CR inverses' refine-1 solutions within INV_RTOL of each other,
     and refine 1's residual no worse than refine 0's.  b.
     ``bench_pcg_band_mc``'s measurement on the same engine: every time
     finite.  c. ``bench_multichip_mxu`` on kitti07 through a one-rank NCCL
@@ -1739,23 +1794,29 @@ def check_tools(torch, card, kstructure, kkernels, kconfig, dprob, trajectories)
                 if k not in ("factor only", "cr_solve refine=0")})
     times = roofline.stage_times(fns, eng.device, TOOL_REPS)
     roofline.print_stages(times, f"tools a: formation and CR stages (kitti00 loop, m = "
-                                 f"{D.shape[0]}, fp32, {card})")
+                                 f"{D.shape[0]}, fp32, {card}, "
+                                 f"{profile_formation.lam_note(lam, D, U, rhs)})")
     profile_formation.print_marginals(times)
-    chk = profile_formation.cr_check(D, U, rhs)
+    del D, U, rhs, HppT, HplT, W
+    lm = profile_formation.attempt_inputs(eng, None)
+    chk = profile_formation.cr_check(*lm[4:])
     res = chk["residual"]
-    log(f"tools a: ||Ax - b|| / ||b|| " + ", ".join(f"refine {r} {v:.3e}" for r, v in res.items())
+    log(f"tools a: on the LM's first attempt (lambda {float(lm[2]):g}): "
+        f"||Ax - b|| / ||b|| " + ", ".join(f"refine {r} {v:.3e}" for r, v in res.items())
         + f"; _inv_spd_rs vs _inv_spd_chol max rel diff {chk['inverses']:.3e} (rtol "
         f"{INV_RTOL}); {time.perf_counter() - t0:.2f} s")
     if not (chk["ok"] and chk["inverses"] < INV_RTOL and res[1] <= res[0]):
         fail(f"tools a: the CR solutions fail their gates: {chk}")
-    del D, U, rhs, HppT, HplT, W
+    del lm
 
     t0 = time.perf_counter()
     m = bench_pcg_band_mc.measure(eng, TOOL_REPS, eng.config.pcg_tol, card)
     timed = 2 if eng.device.type == "cuda" else 1  # the host gives no device ms
     bad = [k for k, v in m["times"].items()
            if not all(x is not None and np.isfinite(x) for x in v[:timed])]
-    log(f"tools b: n_cg {m['n_cg']}, converged {m['converged']}, t_lat {m['t_lat']:.4f} ms, "
+    log(f"tools b: lambda {m['lam']:g}, band solve accepted {m['band_ok']}, n_cg {m['n_cg']}, "
+        f"converged {m['converged']}, t_lat "
+        f"{m['t_lat']:.4f} ms, "
         f"crossover S = {m['crossover']}; {time.perf_counter() - t0:.2f} s")
     if bad or not np.isfinite(m["t_lat"]):
         fail(f"tools b: times not finite: {bad}, t_lat {m['t_lat']}")
@@ -1791,7 +1852,7 @@ def check_tools(torch, card, kstructure, kkernels, kconfig, dprob, trajectories)
         rels, shape_ok = parity_kitti00.compare(chis32, refs)
         ok = ok and shape_ok
         sections.append(parity_kitti00.section(shape, nedges, f"fp32 on {card}", chis32, refs,
-                                               rels, shape_ok))
+                                               rels, shape_ok, parity_kitti00.GATE))
         log(f"tools e: {shape}: max rel " + ", ".join(f"{n} {v.max():.3e}"
                                                       for n, v in rels.items()))
     with tempfile.NamedTemporaryFile("w", suffix=".md", delete=False) as f:
@@ -1816,9 +1877,7 @@ def check_tools(torch, card, kstructure, kkernels, kconfig, dprob, trajectories)
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--num-poses", type=int, default=4096)
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
     sys.path.insert(0, HERE)
     try:
@@ -1854,16 +1913,10 @@ def main() -> None:
         f"{build_s:.2f} s")
     log(f"symbolic pass: {native.backend()}")
 
-    num_p = args.num_poses
-    num_l = 15 * num_p
-    prob = synthetic.generate(
-        num_poses=num_p, num_landmarks=num_l, mean_obs_per_landmark=5.0,
-        stereo_fraction=0.25, seed=0,
-        init_rot_noise=0.002, init_trans_noise=0.02, init_point_noise=0.04,
-    )
+    prob = synthetic.generate(**graphs.PCG4096)
     n_edges = prob.mono_p.size + prob.stereo_p.size
-    log(f"problem: P {num_p}, L {num_l}, E {n_edges} "
-        f"({prob.stereo_p.size} stereo), bench_pcg_crossover parameters, seed 0")
+    log(f"problem: P {graphs.PCG4096['num_poses']}, L {graphs.PCG4096['num_landmarks']}, E "
+        f"{n_edges} ({prob.stereo_p.size} stereo), bench_pcg_crossover parameters, seed 0")
     config = BAConfig(dtype=torch.float32, solver="pcg", device="cuda")
 
     # warm-up run (also the engine whose tables phase 2 uses)
@@ -1882,6 +1935,7 @@ def main() -> None:
     log(f"launches (pcg path): {json.dumps(launches_pcg)}")
     if not chis[-1] < chis[0]:
         fail(f"chi2 did not fall: {chis[0]} -> {chis[-1]}")
+    cuba_record(chis, "pcg4096", n_edges, "pcg", CHI2_REL_BAND)
     missing = sorted(n for n in engine_kernels(ba._engine) if launches_pcg[n] == 0)
     if missing:
         fail(f"kernels of the pcg path never launched: {missing}")
@@ -2151,9 +2205,10 @@ def main() -> None:
         kern_bal, launches_bal, attempts["bal"] = check_bal(bal_path, kconfig, torch, segmm,
                                                             card)
         check_oracle(torch)
-        run_sample("sample_ba_from_file", [json_path, "--profiled"], "ba_from_file (kitti00)")
-        run_sample("sample_bal", [bal_path], "bal (ladybug)")
-        run_sample("sample_comparison_with_reference", [], "comparison_with_reference")
+        run_samples([
+            ("sample_ba_from_file", [json_path, "--profiled"], "ba_from_file (kitti00)"),
+            ("sample_bal", [bal_path], "bal (ladybug)"),
+            ("sample_comparison_with_reference", [], "comparison_with_reference")])
         log(f"phase 15: {time.perf_counter() - t0:.2f} s")
     stamp("phases 14-15")
 
@@ -2188,9 +2243,12 @@ def main() -> None:
     runs64["pcg-fp64"] = fp64_run(
         prob, p64, torch, segmm, "pcg-fp64", dict(path="rows", solver="pcg"),
         lambda e: check_kernels(e, torch, segmm), iters=FP64_SHORT_ITERS)
+    cuba_record(runs64["pcg-fp64"][2], "pcg4096", n_edges, "pcg-fp64", CHI2_FP64_RTOL,
+                iters=FP64_SHORT_ITERS)
     pt_plain64 = fp64_against_plain(prob, p64, torch, "pcg-fp64", runs64["pcg-fp64"][2],
                                     FP64_SHORT_ITERS)
-    run_sample("sample_ba_from_file", ["--synthetic", "--fp64"], "ba_from_file fp64 (synthetic)")
+    run_samples([("sample_ba_from_file", ["--synthetic", "--fp64"],
+                  "ba_from_file fp64 (synthetic)")])
     walls64 = {k: v[3] for k, v in runs64.items()}
     log(f"fp64 walls ({card}): {json.dumps(walls64)}; fp32 in this run: band {kt_opt} s, "
         f"dense {dt_opt} s, v1 {vt_opt} s; band fp64 / fp32 "

@@ -56,15 +56,22 @@ def _rank_main(fn, rank, world_size, backend, device, timeout, tmp, args):
         raise
 
 
-def spawn(fn: Callable, world_size: int, backend: str = "gloo", device: str = "cpu",
+def spawn(fn: Callable, world_size: int, backend: str = "gloo", device: str = "cuda",
           timeout: float = 300.0, args: Sequence = ()) -> List[Dict[str, np.ndarray]]:
     """Run ``fn`` on ``world_size`` ranks and return each rank's arrays.
 
-    ``backend``: "gloo" (the host, or several ranks on one card) or
-    "nccl" (one card a rank).  Raises RuntimeError, with the failing
-    ranks' tracebacks, when a rank exits non-zero, and TimeoutError when
-    the ranks outlive ``timeout`` seconds; either way no rank is left
-    running."""
+    ``device``: "cuda" (the default: the card, see :func:`rank_device`)
+    or "cpu"; without a card the default raises RuntimeError before any
+    rank starts.  ``backend``: "gloo" (the host, or several ranks on one
+    card) or "nccl" (one card a rank).  Raises RuntimeError, with the
+    failing ranks' tracebacks, when a rank exits non-zero, and
+    TimeoutError when the ranks outlive ``timeout`` seconds; either way no
+    rank is left running."""
+    if device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"spawn(device={device!r}) (the default is the card) but "
+            'torch.cuda.is_available() is False: pass device="cpu" to run the ranks on '
+            "the host")
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="cuba_spawn_") as tmp:
         procs = [ctx.Process(target=_rank_main, name=f"rank{r}",

@@ -7,8 +7,9 @@ solve over S devices, from what one device measures.
         [--device cuda|cpu]
 
 On bench.py's kitti00 graph (with its loop closure by default), solver
-``band_cr``, on the first damped attempt's inputs
-(``roofline.first_attempt``), it times:
+``band_cr``, on the first attempt's inputs damped at the JAX tool's fixed
+λ = ``roofline.LAM0`` = 1e-3 (``roofline.first_attempt``; W, the band, the
+right-hand side and PCG alike), it times:
 
   t_form  ``rows.schur_compact``: the compact Schur table, which a mesh
           sums over its shards (shardable)
@@ -27,7 +28,9 @@ lower bound.  The model, per damped attempt:
   band(S) = t_form / S + t_band
   pcg(S)  = (t_pcg - n_cg t_lat) / S + n_cg t_lat
 
-printed for S = 1 ... 128 with the smallest S where PCG wins.  The times
+printed for S = 1 ... 128 with the smallest S where PCG wins, where
+``cr_solve`` accepts the band (where it rejects it, t_band times a
+rejected solve, and no crossover is reported).  The times
 are call ms (CUDA events, host work included: PCG reads the host once a
 step), as t_lat is; the device ms are printed beside them.  A model, not a
 measurement of a mesh.  On the card by default; without one it fails (pass
@@ -54,6 +57,11 @@ def pcg(engine, HppT, HplT, W, lam, tol):
     cfg = engine.config
     return rows.pcg_solve_rows(HppT, HplT, W, lam, HppT[36:42], engine.num_p, engine.num_l,
                                engine.plan, engine.rc, cfg.pcg_max_iterations, tol)
+
+
+def attempt_of(engine):
+    """The first attempt's (HppT, HplT, lam, W, bscT) at λ = LAM0."""
+    return roofline.first_attempt(engine, roofline.LAM0)
 
 
 def stages(engine, attempt, tol):
@@ -98,16 +106,20 @@ def model(t_form, t_band, t_pcg, n_cg, t_lat):
 
 
 def measure(engine, reps: int, tol: float, card: str) -> dict:
-    """Time the three solves on the engine's first damped attempt, count
+    """Time the three solves on the engine's first attempt at λ = LAM0, count
     PCG's steps, measure t_lat over a one-rank group and print the model
-    (call ms).  Returns the numbers: ``times`` ({label: (call ms, device
-    ms, top kernels)}), ``n_cg``, ``converged``, ``t_lat``, ``crossover``."""
-    attempt = roofline.first_attempt(engine)
-    times = roofline.stage_times(stages(engine, attempt, tol), engine.device, reps)
+    (call ms); no crossover where CR rejects the band it times.  Returns
+    the numbers: ``times`` ({label: (call ms, device ms, top kernels)}),
+    ``lam``, ``band_ok``, ``n_cg``, ``converged``, ``t_lat``, ``crossover``."""
+    attempt = attempt_of(engine)
+    fns = stages(engine, attempt, tol)
+    times = roofline.stage_times(fns, engine.device, reps)
     roofline.print_stages(times, f"solve stages (P {engine.num_p}, {engine.dtype}, {card})")
+    band_ok = bool(fns["band + CR (form incl.)"]()[1])
+    print(f"band solve accepted={band_ok} (lambda {float(attempt[2]):g})", flush=True)
     _x, ok, n_cg = pcg(engine, attempt[0], attempt[1], attempt[3], attempt[2], tol)
     print(f"pcg converged={bool(ok)} n_cg={n_cg} (cap {engine.config.pcg_max_iterations}, tol "
-          f"{tol:g})", flush=True)
+          f"{tol:g}, lambda {float(attempt[2]):g})", flush=True)
     with graphs.one_rank_group(engine.device) as group:
         t_lat = t_lat_ms(engine, group)
     print(f"t_lat {t_lat:.4f} ms: the stop test's host read + a one-rank all_reduce of [6, "
@@ -123,9 +135,15 @@ def measure(engine, reps: int, tol: float, card: str) -> dict:
           "| S | band ms | pcg ms | winner |\n|---|---|---|---|", flush=True)
     for S, b, p in table:
         print(f"| {S} | {b:.4f} | {p:.4f} | {'band' if b <= p else 'pcg'} |", flush=True)
-    print(f"crossover: sharded PCG beats the replicated band solve from S = "
-          f"{cross if cross else '>128'}", flush=True)
-    return dict(times=times, n_cg=n_cg, converged=bool(ok), t_lat=t_lat, crossover=cross)
+    if band_ok:
+        print(f"crossover: sharded PCG beats the replicated band solve from S = "
+              f"{cross if cross else '>128'}", flush=True)
+    else:
+        cross = None
+        print("crossover: none reported: CR rejects the band at this lambda, so t_band times "
+              "a rejected solve", flush=True)
+    return dict(times=times, lam=float(attempt[2]), band_ok=band_ok, n_cg=n_cg,
+                converged=bool(ok), t_lat=t_lat, crossover=cross)
 
 
 def main(argv=None) -> int:

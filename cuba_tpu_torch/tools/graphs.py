@@ -30,6 +30,10 @@ GRAPHS = {"kitti00": KITTI00, "kitti00-loop": KITTI00_LOOP, "kitti07": KITTI07,
 # the solver crossover's gentler initial noise: at P >= 4096 the default
 # drift starts LM so far from the basin that fp32 rejects the first steps
 GENTLE_NOISE = dict(init_rot_noise=0.002, init_trans_noise=0.02, init_point_noise=0.04)
+# chip_smoke.py's PCG graph: the solver crossover's generator at P = 4096,
+# L = 15 P (4096 P / 61,440 L / 238,292 E)
+PCG4096 = dict(num_poses=4096, num_landmarks=61_440, mean_obs_per_landmark=5.0,
+               stereo_fraction=0.25, seed=0, **GENTLE_NOISE)
 
 MONO_DELTA = float(np.sqrt(5.991))
 STEREO_DELTA = float(np.sqrt(7.815))

@@ -7,8 +7,9 @@ stage by stage, on one graph.
 
 The graph (``--graph``: ``kitti00``, bench.py's odometry graph, by
 default; ``kitti00-loop`` with its loop closure; ``stress``, 1778 P / 1M
-L) runs ``solver="band_cr"``.  The first damped attempt's inputs are built
-once (``roofline.first_attempt``), and then each stage is timed alone:
+L) runs ``solver="band_cr"``.  The first attempt's inputs are built once,
+damped at the JAX tool's fixed λ = ``roofline.LAM0`` = 1e-3
+(``roofline.first_attempt``), and then each stage is timed alone:
 
 - formation: ``segmm.schur_fused``; ``rows.schur_compact`` (fused plus the
   combine); the whole ``rows.schur_band`` (plus ``compact_to_band`` and
@@ -22,10 +23,15 @@ On the card each stage's call ms (CUDA events, host work included: the
 fp32 boost decision is one host read a factorisation) and device ms come
 from ``roofline.interleaved_kernels`` over ``--reps`` rounds, with the
 stage's three kernels of most device time in the same profiler session.
-Then, for the solutions: the relative residual ||A x - b|| / ||b|| (in
-fp64) at each refine count and the two inverses' solutions against each
-other.  On the card by default; without one it fails (pass ``--device
-cpu`` for the host, where the times are host times of the plain versions).
+Then, for the solutions, on the band of the LM's own first attempt (λ =
+τ·max diag; at λ = 1e-3 the fp32 factor may reject the band, as at the
+kitti00 graphs on the card: the stages' heading says whether it does,
+and where it does they time the rejected solve, its retry included): the
+relative residual ||A x - b|| / ||b|| (in fp64) at each
+refine count and the two inverses' solutions against each other; it
+exits 1 if a solve there is rejected.  On the card by default; without
+one it fails (pass ``--device cpu`` for the host, where the times are
+host times of the plain versions).
 """
 
 import argparse
@@ -50,10 +56,11 @@ def engine_of(params, device, dtype) -> BlockSolverEngine:
                              BAConfig(dtype=dtype, device=device, solver="band_cr"))
 
 
-def attempt_inputs(engine):
-    """The first damped attempt's (HppT, HplT, lam, W, D, U, rhs): its
-    band (D, U) and the reduced right-hand side over the padded poses."""
-    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
+def attempt_inputs(engine, lam=roofline.LAM0):
+    """The first attempt's (HppT, HplT, lam, W, D, U, rhs) at λ = ``lam``
+    (LAM0 by default; None: the engine's own τ·max diag): its band (D, U)
+    and the reduced right-hand side over the padded poses."""
+    HppT, HplT, lam, W, bscT = roofline.first_attempt(engine, lam)
     D, U = rows.schur_band(HppT, W, HplT, lam, engine.num_p, engine.plan, engine.rc)
     rhs = bscT.new_zeros(D.shape[0] * band_cr.B)
     rhs[:6 * engine.num_p] = bscT.T.reshape(-1)
@@ -107,6 +114,15 @@ def cr_check(D, U, rhs) -> dict:
     return dict(residual=res, inverses=diff, ok=all(oks), reads=reads)
 
 
+def lam_note(lam, D, U, rhs) -> str:
+    """The stages' λ and whether ``cr_solve`` (refine 1) accepts the band
+    there: where it rejects it, the CR stages time a rejected solve (its
+    retry included), not a split of a solve that CR completes."""
+    ok = bool(band_cr.cr_solve(D, U, rhs, 1)[1])
+    return f"lambda {float(lam):g}: " + (
+        "CR accepts the band" if ok else "CR rejects the band, the CR stages time a rejected solve")
+
+
 def print_marginals(times) -> None:
     """The formation's marginals, in call ms and (on the card) device ms."""
     labels = list(times)[:3]
@@ -135,10 +151,13 @@ def main(argv=None) -> int:
     fns = dict(formation_stages(eng, HppT, HplT, lam, W), **cr_stages(D, U, rhs))
     times = roofline.stage_times(fns, eng.device, args.reps)
     roofline.print_stages(times, f"formation and CR stages ({args.graph}, m = {D.shape[0]}, "
-                                 f"{args.dtype}, {card})")
+                                 f"{args.dtype}, {card}, {lam_note(lam, D, U, rhs)})")
     print_marginals(times)
-    chk = cr_check(D, U, rhs)
-    print("CR solutions: ||Ax - b|| / ||b|| " + ", ".join(
+    del HppT, HplT, W, D, U, rhs
+    lm = attempt_inputs(eng, None)
+    chk = cr_check(*lm[4:])
+    print(f"CR solutions on the LM's first attempt (lambda {float(lm[2]):g}): "
+          "||Ax - b|| / ||b|| " + ", ".join(
         f"refine {r} {v:.3e}" for r, v in chk["residual"].items())
         + f"; _inv_spd_rs vs _inv_spd_chol (refine 1) max rel diff {chk['inverses']:.3e}; "
         f"host reads a solve {chk['reads']}", flush=True)

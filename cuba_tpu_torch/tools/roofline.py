@@ -29,6 +29,10 @@ FP32_FLOPS_PER_MS = 67e9
 FP64_FLOPS_PER_MS = 34e9
 
 REPEATS = 25  # rounds of interleaved_times
+# the damping at which the solve tools build their attempt (bench_pcg_band_mc,
+# profile_formation), as the JAX tools fix it (tools/bench_pcg_band_mc.py:76,
+# tools/profile_formation.py:52); the kernel sites keep the engine's own λ
+LAM0 = 1e-3
 PROFILE_TRIES = 3  # profiler sessions interleaved_times may take to split its rounds
 FLUSH_BYTES = 128 << 20  # read before every cold call: 2.5x the H100's 50 MB L2
 
@@ -126,12 +130,16 @@ class Site(NamedTuple):
         return (band_work if self.kind == "band" else dense_work)(*self.inputs)
 
 
-def first_attempt(engine):
+def first_attempt(engine, lam=None):
     """The first damped attempt's (HppT, HplT, lam, W, bscT) on the
-    engine's initial state."""
+    engine's initial state: at the engine's own λ = τ·max diag, or at the
+    fixed ``lam`` where one is given (the solve tools' LAM0)."""
     plan, rc = engine.plan, engine.rc
     HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
-    lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
+    if lam is None:
+        lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
+    else:
+        lam = torch.tensor(lam, dtype=HppT.dtype, device=HppT.device)
     _iv9, W, bscT, _g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p,
                                                engine.num_l, plan, rc)
     return HppT, HplT, lam, W.contiguous(), bscT
@@ -215,6 +223,42 @@ def placement_site(engine, gT, dbT, dense: bool = False) -> Site:
     return Site("compact_to_band", (gT, rc.iru, rc.icu, dbT, rc.band_occ, plan.pad_blocks,
                                     plan.wg), dict(table=rc.band_table), "band",
                 (plan, rc, gT.element_size()))
+
+
+def placement_library(site):
+    """The one PyTorch call that computes a placement site's function
+    (``compact_to_band`` or ``compact_to_dense``: -gT's blocks and their
+    mirrors, plus dbT on the diagonal, in the output's occupied tiles): an
+    accumulating ``Tensor.index_put_`` into a zeroed flat output of the
+    values of gT (negated) and dbT that land there, over two flat indices
+    built here once per structure, as the placement table is: each
+    destination and the value it takes, read off the plain version run on
+    the values' own positions.  Returns the call (the negation, the
+    concatenation and the values' gather included); it is timed beside
+    the kernel and used nowhere in the port."""
+    plain = getattr(segmm, site.kernel + "_plain")
+    gT, dbT = site.args[0], site.args[3]
+    f64 = dict(dtype=torch.float64, device=gT.device)
+    dsts, srcs, base = [], [], 0
+    for which in (0, 3):  # gT's values, then dbT's, each at its 1-based position
+        args = list(site.args)
+        args[0], args[3] = torch.zeros(gT.shape, **f64), torch.zeros(dbT.shape, **f64)
+        src = args[which]
+        src.copy_(torch.arange(1, src.numel() + 1, **f64).reshape(src.shape))
+        out = plain(*args, **site.kwargs)
+        shape, flat = out.shape, out.reshape(-1)
+        hit = torch.nonzero(flat).flatten()
+        dsts.append(hit)
+        srcs.append(base + flat[hit].abs().long() - 1)
+        base += src.numel()
+        del out, flat
+    dst, src, n = torch.cat(dsts), torch.cat(srcs), shape.numel()
+
+    def call():
+        vals = torch.cat((gT.reshape(-1).neg(), dbT.reshape(-1)))
+        return gT.new_zeros(n).index_put_((dst,), vals[src], accumulate=True).view(shape)
+
+    return call
 
 
 def engine_sites(engine):

@@ -3,10 +3,11 @@ of another tree, for the ``probe_*`` scripts' ``--root DIR``.
 
 The probes time and bound DIR's kernels with one yardstick, this
 checkout's ``tools/roofline.py`` (peak rates, work counts, bound,
-``interleaved_times``) and ``tools/graphs.py`` (the graphs), whatever DIR
+``interleaved_times``), ``tools/graphs.py`` (the graphs) and
+``tools/parity_records.py`` (``cuba_tpu``'s fp64 records), whatever DIR
 holds: two trees measured in one call get the same bound and the same
-timing, and a tree that has no ``roofline.py`` or ``graphs.py`` can be
-measured too.  Import this module before DIR goes on ``sys.path``.
+timing, and a tree that has none of them can be measured too.  Import
+this module before DIR goes on ``sys.path``.
 """
 
 import importlib.util
@@ -15,7 +16,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
-SHARED = ("roofline", "graphs")  # this checkout's, under their package names
+SHARED = ("roofline", "graphs", "parity_records")  # this checkout's, under their package names
 
 
 def _load(name: str, path: str):

@@ -1008,6 +1008,18 @@ def test_mesh_one_rank_over_nccl_equals_single_device(cuda):
     assert all(launched[n] > 0 for n in _route_kernels(r, "s1"))
 
 
+def test_spawn_defaults_to_the_card(cuda):
+    """spawn with no ``device`` puts its rank on the card: the route's
+    kernels launch there."""
+    from cuba_tpu_torch.parallel import drive, launch
+
+    segmm.build_kernels()
+    case = _mesh_case("d1", dict(dtype=torch.float32, solver="band_cr"))
+    (r,) = launch.spawn(drive.run_cases, 1, backend="nccl", timeout=300, args=([case],))
+    launched = dict(zip(drive.LAUNCH_NAMES, r["d1.launches"]))
+    assert all(launched[n] > 0 for n in _route_kernels(r, "d1"))
+
+
 def test_mesh_four_ranks_over_gloo_on_one_card(cuda):
     """Four ranks on one card over gloo (CUDA tensors through its host
     staging): every rank's trajectory and state the same bits, within 5e-3

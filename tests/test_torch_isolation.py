@@ -142,7 +142,7 @@ def test_spawned_ranks_import_no_jax():
 
     case = dict(name="g", kind="api", iters=2, config=dict(dtype=torch.float64),
                 problem=synthetic.generate(num_poses=6, num_landmarks=50, seed=2))
-    res = launch.spawn(drive.run_cases, 2, args=([case],), timeout=120)
+    res = launch.spawn(drive.run_cases, 2, device="cpu", args=([case],), timeout=120)
     for r in res:
         assert r["modules"].size == 0, r["modules"]
         assert np.array_equal(r["g.chis"], res[0]["g.chis"]) and r["g.chis"][-1] < r["g.chis"][0]

@@ -145,7 +145,8 @@ class _Ranks:
 
     def _run(self, n, cases, timeout):
         try:
-            self._out = launch.spawn(drive.run_cases, n, args=(cases,), timeout=timeout)
+            self._out = launch.spawn(drive.run_cases, n, device="cpu", args=(cases,),
+                                     timeout=timeout)
         except BaseException as e:  # re-raised by result()
             self._err = e
 
@@ -538,10 +539,25 @@ def test_sharded_state_transfer(ranks4):
 
 def test_spawn_reports_a_failing_rank():
     with pytest.raises(RuntimeError, match="KeyError"):
-        launch.spawn(drive.run_cases, 2, args=([dict(name="x", kind="no such kind")],),
-                     timeout=120)
+        launch.spawn(drive.run_cases, 2, device="cpu",
+                     args=([dict(name="x", kind="no such kind")],), timeout=120)
 
 
 def test_spawn_kills_ranks_past_their_time_limit():
     with pytest.raises(TimeoutError):
-        launch.spawn(drive.run_cases, 2, args=([],), timeout=0.2)
+        launch.spawn(drive.run_cases, 2, device="cpu", args=([],), timeout=0.2)
+
+
+def test_spawn_runs_on_the_card_by_default(monkeypatch):
+    """spawn's device is the card unless the caller asks for the host;
+    without a card the default raises before any rank starts, naming
+    ``device="cpu"``."""
+    import inspect
+
+    assert inspect.signature(launch.spawn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(torch.multiprocessing, "get_context", lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        launch.spawn(drive.run_cases, 2, args=([],), timeout=5)
+    assert not started

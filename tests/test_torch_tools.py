@@ -36,8 +36,9 @@ from cuba_tpu_torch.ops import segmm
 from cuba_tpu_torch.solver import rows
 from cuba_tpu_torch.tools import (bench_multichip_mxu, bench_pcg_band_mc, bench_pcg_crossover,
                                   graphs, make_bal_fixture, mc_parity, mfu, parity_kitti00,
-                                  parity_kitti07, perf_probe_solve, profile_crsolve, profile_ctor,
-                                  profile_formation, roofline, stress_large_l)
+                                  parity_kitti07, parity_records, perf_probe_solve,
+                                  profile_crsolve, profile_ctor, profile_formation, roofline,
+                                  stress_large_l)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--poses", "48", "--landmarks", "8000"]  # the stress generator, reduced
@@ -128,6 +129,8 @@ TOOL_RUNS = {
     "mc_parity": (mc_parity, ["--poses", "12", "--landmarks", "300"], "-> OK"),
     "parity_kitti00": (parity_kitti00, ["--phase", "fp64", "--poses", "12", "--landmarks", "300",
                                         "--shapes", "kitti07_scale"], "CHI2_FP64_FINAL"),
+    "parity_records": (parity_records, ["--phase", "fp64", "--entries", "ladybug49_bal"],
+                       "# ladybug49_bal: fp64 10 iters on cpu"),
     "make_bal_fixture": (make_bal_fixture, ["{tmp}/toy.txt.gz"], "20 cams / 500 pts / 4989 obs"),
 }
 NO_DEVICE = ("make_bal_fixture",)  # NumPy and SciPy only
@@ -143,6 +146,8 @@ def _tool_argv(tool, tmp_path, monkeypatch):
     if tool == "parity_kitti00":
         monkeypatch.setattr(parity_kitti00, "RECORD", str(tmp_path / "record.json"))
         monkeypatch.setattr(parity_kitti00, "OUT", str(tmp_path / "p.md"))
+    if tool == "parity_records":
+        monkeypatch.setattr(parity_records, "RECORD", str(tmp_path / "record.json"))
     return module, argv, line
 
 
@@ -289,6 +294,39 @@ def test_mfu_sites_are_the_smokes(monkeypatch):
             getattr(segmm, site.kernel))), label
 
 
+@pytest.mark.parametrize("solver, params", [
+    ("band_cr", BAND), ("dense_cholesky", dict(num_poses=40, num_landmarks=600, seed=0))])
+def test_placement_library_call_is_the_plain_placement(solver, params):
+    """``roofline.placement_library``, the placements' library call the
+    smoke times (one accumulating ``index_put_`` over a flat index built
+    once per structure), gives the plain placement's bits on the first
+    attempt's compact table and damped diagonal; the smoke's placement
+    case carries it."""
+    ba = graphs.make_graph(synthetic.generate(**params), BAConfig(device="cpu", solver=solver))
+    ba.initialize()
+    eng = ba._engine
+    HppT, HplT, lam, W, _bsc = roofline.first_attempt(eng)
+    gT = rows.schur_compact(W, HplT, eng.plan, eng.rc)
+    dbT = rows.damped_diagonal_T(HppT, lam, eng.num_p, eng.plan.pad_blocks)
+    site = roofline.placement_site(eng, gT, dbT, dense=solver == "dense_cholesky")
+    want = site.call(getattr(segmm, site.kernel + "_plain"))
+    assert torch.equal(roofline.placement_library(site)(), want)
+    assert int((want != 0).sum()) > 0
+
+
+def test_first_attempt_at_a_fixed_lambda():
+    """``roofline.first_attempt(engine, lam)`` damps the attempt at ``lam``
+    (the solve tools' LAM0 = 1e-3), without it at the engine's τ·max diag."""
+    ba = graphs.make_graph(synthetic.generate(**BAND), BAConfig(device="cpu"))
+    ba.initialize()
+    own = roofline.first_attempt(ba._engine)
+    fixed = roofline.first_attempt(ba._engine, roofline.LAM0)
+    assert roofline.LAM0 == 1e-3 and float(fixed[2]) == float(np.float32(1e-3))
+    assert float(own[2]) > 1.0
+    assert torch.equal(own[0], fixed[0]) and torch.equal(own[1], fixed[1])
+    assert not torch.equal(own[3], fixed[3])
+
+
 def test_probe_loader_keeps_this_checkouts_yardstick(tmp_path):
     """The probes' ``--root DIR`` over a tree from before ``roofline.py``
     and ``graphs.py`` existed: the package comes from DIR, the yardstick
@@ -314,6 +352,7 @@ def test_probe_loader_keeps_this_checkouts_yardstick(tmp_path):
             f"assert smoke.roofline.__file__ == {os.path.join(here, 'roofline.py')!r}\n"
             f"assert smoke.graphs.__file__ == {os.path.join(here, 'graphs.py')!r}\n"
             "assert smoke.KITTI == smoke.graphs.KITTI00_LOOP\n"
+            f"assert smoke.parity_records.__file__ == {os.path.join(here, 'parity_records.py')!r}\n"
             "assert smoke.roofline.bound(3.35e9, 0) == (1.0, 'bytes')\n"
             "assert callable(smoke.interleaved_times)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -327,7 +366,8 @@ def test_tools_import_no_jax():
     code = ("import sys\n"
             "from cuba_tpu_torch.tools import (bench_multichip_mxu, bench_pcg_band_mc,"
             " bench_pcg_crossover, graphs, make_bal_fixture, mc_parity, mfu, parity_kitti00,"
-            " parity_kitti07, perf_probe_solve, profile_crsolve, profile_ctor, profile_formation,"
+            " parity_kitti07, parity_records, perf_probe_solve, profile_crsolve, profile_ctor,"
+            " profile_formation,"
             " roofline, stress_large_l)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cuba_tpu.'))"
             " or m == 'cuba_tpu']\n"

@@ -35,8 +35,8 @@ from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.interop import structure_from_numpy
 from cuba_tpu_torch.solver import band_cr
 from cuba_tpu_torch.solver.engine import BlockSolverEngine
-from cuba_tpu_torch.tools import (bench_pcg_band_mc, make_bal_fixture, perf_probe_solve,
-                                  profile_crsolve, profile_formation, roofline)
+from cuba_tpu_torch.tools import (bench_pcg_band_mc, graphs, make_bal_fixture,
+                                  perf_probe_solve, profile_crsolve, profile_formation, roofline)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
@@ -44,7 +44,10 @@ F64 = torch.float64
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _np(t):
@@ -159,7 +162,7 @@ def test_pcg_matches_cuba_tpu_steps():
     assert tpu.use_rows
     port = BlockSolverEngine(structure_from_numpy(s), KERNELS,
                              BAConfig(dtype=torch.float32, solver="pcg", device="cpu"))
-    HppT, HplT, lam, W, _bsc = roofline.first_attempt(port)
+    HppT, HplT, lam, W, _bsc = bench_pcg_band_mc.attempt_of(port)
     cap = port.config.pcg_max_iterations
     x, ok, k = bench_pcg_band_mc.pcg(port, HppT, HplT, W, lam, PCG_TOL)
     want_x, want_ok, want_k = mxu.pcg_solve_rows(
@@ -171,6 +174,37 @@ def test_pcg_matches_cuba_tpu_steps():
     np.testing.assert_allclose(_np(x), want_x, rtol=0, atol=PCG_XTOL * np.abs(want_x).max())
 
 
+def test_pcg_band_mc_measures_at_the_jax_tools_lambda(monkeypatch):
+    """bench_pcg_band_mc's measurement on its own small kitti00 loop graph
+    (130 P / 3,000 L, band_cr): the attempt is damped at λ = 1e-3, the JAX
+    tool's ``lam0`` (not the engine's τ·max diag), and its PCG step count
+    and convergence are ``cuba_tpu``'s ``mxu.pcg_solve_rows`` at that λ on
+    the same arrays (the Pallas kernels in interpret mode)."""
+    monkeypatch.setattr(roofline, "stage_times",
+                        lambda fns, device, reps: {k: (1.0, None, []) for k in fns})
+    monkeypatch.setattr(bench_pcg_band_mc, "t_lat_ms", lambda engine, group: 0.01)
+    params = dict(graphs.KITTI00_LOOP, num_poses=130, num_landmarks=3000)
+    port = bench_pcg_band_mc.engine_of(params, "cpu", torch.float32)
+    m = bench_pcg_band_mc.measure(port, 1, PCG_TOL, "cpu")
+    assert m["lam"] == float(np.float32(1e-3))
+    prob = tpu_synthetic.generate(**params)
+    fp = np.zeros(130, bool)
+    fp[prob.fixed_poses] = True
+    s = build_structure_from_arrays(
+        prob.qs, prob.ts, np.tile(prob.cam, (130, 1)), prob.Xws, fp, np.zeros(3000, bool),
+        prob.mono_p, prob.mono_l, prob.mono_z, prob.mono_w,
+        prob.stereo_p, prob.stereo_l, prob.stereo_z, prob.stereo_w)
+    tpu = TpuEngine(s, KERNELS, TpuConfig(dtype=jnp.float32, mxu="interpret", solver="band_cr"))
+    assert tpu.use_rows and (port.solver, tpu.solver) == ("band_cr", "band_cr")
+    HppT, HplT, lam, W, _bsc = bench_pcg_band_mc.attempt_of(port)
+    _x, want_ok, want_k = mxu.pcg_solve_rows(
+        *(jnp.asarray(t.numpy()) for t in (HppT, HplT, W, lam, HppT[36:42])), tpu.num_p,
+        tpu.num_l, tpu.mxu_plans, tpu.consts.mxu, port.config.pcg_max_iterations, PCG_TOL,
+        interpret=True, with_iters=True)
+    assert np.float32(lam) == np.float32(1e-3)
+    assert (m["n_cg"], m["converged"]) == (int(want_k), bool(want_ok))
+
+
 def test_pcg_band_model():
     """band(S) = t_form / S + t_band, pcg(S) = (t_pcg - n t_lat) / S + n
     t_lat, and the first S where PCG is below the band."""
@@ -180,6 +214,27 @@ def test_pcg_band_model():
     assert cross is None
     table, cross = bench_pcg_band_mc.model(8.0, 2.0, 40.0, 10, 0.05)
     assert cross == 32 and all(p >= b for S, b, p in table if S < 32)
+
+
+@pytest.mark.parametrize("accepted", [True, False])
+def test_pcg_band_mc_reports_no_crossover_on_a_rejected_band(monkeypatch, capsys, accepted):
+    """Where ``cr_solve`` rejects the band bench_pcg_band_mc times, t_band
+    is the time of a rejected solve: the measurement says so and reports
+    no crossover, whatever the model gives; where it accepts it, the
+    model's crossover stands."""
+    monkeypatch.setattr(roofline, "stage_times",
+                        lambda fns, device, reps: {k: (1.0, None, []) for k in fns})
+    monkeypatch.setattr(bench_pcg_band_mc, "t_lat_ms", lambda engine, group: 0.01)
+    monkeypatch.setattr(bench_pcg_band_mc, "model", lambda *a: ([(1, 2.0, 1.0)], 1))
+    monkeypatch.setattr(band_cr, "cr_solve",
+                        lambda D, U, rhs, refine: (rhs, torch.tensor(accepted), 0))
+    params = dict(graphs.KITTI00_LOOP, num_poses=60, num_landmarks=1200)
+    port = bench_pcg_band_mc.engine_of(params, "cpu", torch.float32)
+    m = bench_pcg_band_mc.measure(port, 1, PCG_TOL, "cpu")
+    out = capsys.readouterr().out
+    assert m["band_ok"] is accepted and f"band solve accepted={accepted}" in out
+    assert m["crossover"] == (1 if accepted else None)
+    assert ("crossover: none reported" in out) is not accepted
 
 
 @pytest.mark.parametrize("n", [512, 768])
