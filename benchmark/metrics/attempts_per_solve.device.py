@@ -1,0 +1,10 @@
+"""attempts_per_solve.device: ``attempts_per_solve``
+(``attempts_per_solve.py``) in the cells that report ``solve_device_s``, the
+warm solve whose wall the host holds back."""
+
+import os
+
+from benchmark.run import load_reader
+
+BENCHMARK_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+read = load_reader("attempts_per_solve", BENCHMARK_DIR)

@@ -1,0 +1,10 @@
+"""attempts_per_solve.large: ``attempts_per_solve`` (``attempts_per_solve.py``) in the cells that
+report ``solve_s.large``, the warm solve of a BAL-scale problem, where the
+device holds the wall and the runs spread far less than at kitti00 scale."""
+
+import os
+
+from benchmark.run import load_reader
+
+BENCHMARK_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+read = load_reader("attempts_per_solve", BENCHMARK_DIR)
