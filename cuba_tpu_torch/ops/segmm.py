@@ -52,7 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from cuba_tpu_torch import native
+from cuba_tpu_torch import native, trace
 from cuba_tpu_torch.ops import cudalib
 # re-exported: the launch counts, the plain-version switch and the build
 from cuba_tpu_torch.ops.cudalib import (  # noqa: F401
@@ -370,12 +370,9 @@ def row_chunk(D: int, N: int, group: int) -> int:
     return -(-D // chunks)
 
 
-def segment_csr(ids, num_out: int, device) -> SegmentCSR:
-    """CSR of ``ids`` over ``num_out`` segments; ids outside [0, num_out)
-    are left out.  It lists its non-empty segments where more than
-    SPARSE_EMPTY of them are empty and the listed ones take a wider group
-    than all of them would; its group width is :func:`group_width` of the
-    mean length of the segments the kernel walks."""
+def _csr_host(ids, num_out: int):
+    """:func:`segment_csr`'s tables on the host: (order, offs, group, live
+    or None), the index arrays int32."""
     if isinstance(ids, torch.Tensor):
         ids = ids.cpu().numpy()
     ids = np.asarray(ids, np.int64)
@@ -388,12 +385,25 @@ def segment_csr(ids, num_out: int, device) -> SegmentCSR:
     group = group_width(pos.size / num_out) if num_out else 1
     listed = group_width(pos.size / live.size) if live.size else 1
     sparse = live.size < (1 - SPARSE_EMPTY) * num_out and listed > group
-    return SegmentCSR(
-        torch.from_numpy(order.astype(np.int32)).to(device),
-        torch.from_numpy(offs.astype(np.int32)).to(device),
-        listed if sparse else group,
-        torch.from_numpy(live.astype(np.int32)).to(device) if sparse else None,
-    )
+    return (order.astype(np.int32), offs.astype(np.int32), listed if sparse else group,
+            live.astype(np.int32) if sparse else None)
+
+
+def _upload(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
+    return None if a is None else torch.from_numpy(a).to(device)
+
+
+def segment_csr(ids, num_out: int, device) -> SegmentCSR:
+    """CSR of ``ids`` over ``num_out`` segments; ids outside [0, num_out)
+    are left out.  It lists its non-empty segments where more than
+    SPARSE_EMPTY of them are empty and the listed ones take a wider group
+    than all of them would; its group width is :func:`group_width` of the
+    mean length of the segments the kernel walks.  Built on the host, then
+    uploaded (the span ``engine.upload``)."""
+    order, offs, group, live = _csr_host(ids, num_out)
+    with trace.span("engine.upload"):
+        return SegmentCSR(_upload(order, device), _upload(offs, device), group,
+                          _upload(live, device))
 
 
 def schur_lane_csr(plan: SchurPlan, device) -> SegmentCSR:
@@ -406,17 +416,16 @@ def schur_lane_csr(plan: SchurPlan, device) -> SegmentCSR:
     lk = np.asarray(plan.lk, np.int64)
     chunk_of = np.arange(lk.size, dtype=np.int64) // plan.chunk
     lanes = np.where(lk >= 0, chunk_of * plan.kwin + lk, -1)
-    csr = segment_csr(lanes, plan.num_chunks * plan.kwin, "cpu")
-    t = csr.order.numpy()
+    t, offs, group, live = _csr_host(lanes, plan.num_chunks * plan.kwin)
     li, lj = np.asarray(plan.li, np.int64)[t], np.asarray(plan.lj, np.int64)[t]
     win = 2 * plan.slot_block
     keep = (li >= 0) & (lj >= 0) & (li < win) & (lj < win)
     pairs = np.where(keep, li | (lj << 16), -1).astype(np.int32)
-    order = schur_lane_order(np.diff(csr.offs.numpy()), plan.kwin)
-    return csr._replace(order=csr.order.to(device), offs=csr.offs.to(device),
-                        live=None if csr.live is None else csr.live.to(device),
-                        pairs=torch.from_numpy(pairs).to(device),
-                        lane_order=torch.from_numpy(order).to(device))
+    order = schur_lane_order(np.diff(offs), plan.kwin)
+    with trace.span("engine.upload"):
+        return SegmentCSR(_upload(t, device), _upload(offs, device), group,
+                          _upload(live, device), pairs=_upload(pairs, device),
+                          lane_order=_upload(order, device))
 
 
 SCHUR_PASS = 128  # lanes of one group of the lane order and of one pass of the kernel
@@ -567,17 +576,19 @@ def _segsum_plain(vals: torch.Tensor, ids: torch.Tensor, num_out: int) -> torch.
 
 
 def _gather(name, src, ids):
-    if cudalib.use_kernel(src, ids):
-        return _launch_gather(name, src, ids)
-    return _gather_plain(src, ids)
+    with trace.span("k.gather_cols"):
+        if cudalib.use_kernel(src, ids):
+            return _launch_gather(name, src, ids)
+        return _gather_plain(src, ids)
 
 
 def _segsum(name, vals, ids, num_out, csr):
-    if cudalib.use_kernel(vals, ids):
-        if csr is None:
-            csr = segment_csr(ids, num_out, vals.device)
-        return _launch_segsum(name, vals, num_out, csr)
-    return _segsum_plain(vals, ids, num_out)
+    with trace.span("k.segsum_csr"):
+        if cudalib.use_kernel(vals, ids):
+            if csr is None:
+                csr = segment_csr(ids, num_out, vals.device)
+            return _launch_segsum(name, vals, num_out, csr)
+        return _segsum_plain(vals, ids, num_out)
 
 
 # ---------------------------------------------------------------------------
@@ -713,46 +724,47 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
     kernel needs it, and W and G 16-byte aligned with a row length that is
     a multiple of 4 (its 16-byte window copies), else it raises.  On the
     card each output is summed in the order of ``walks.schur_fused_walk``."""
-    C, KW = plan.num_chunks, plan.kwin
-    for t, name in ((W, "W"), (G, "G")):
-        if t.dim() != 2 or t.shape[0] != 18 or t.shape[1] < plan.n_slot_pad:
-            raise ValueError(f"{name}: expected [18, >= {plan.n_slot_pad}], "
-                             f"got {tuple(t.shape)}")
-    if G.shape != W.shape:
-        raise ValueError(f"W {tuple(W.shape)} and G {tuple(G.shape)} differ")
-    if (sb.shape[0] != C or li.shape[0] != C * plan.chunk or lj.shape[0] != li.shape[0]
-            or lk.shape[0] != li.shape[0]):
-        raise ValueError("sb/li/lj/lk do not match the plan")
-    if not cudalib.use_kernel(W, G, sb, li, lj, lk):
-        return schur_fused_plain(W, G, plan, sb, li, lj, lk)
-    dt = cudalib.float_dtype(W, G)
-    for t, name in ((W, "W"), (G, "G")):
-        cudalib.check(t, name, dt, 2)
-        if t.data_ptr() % 16 or t.shape[1] * t.element_size() % 16:
-            raise ValueError(f"schur_fused: {name} must be 16-byte aligned with rows of a "
-                             f"multiple of 16 bytes (16-byte window copies)")
-    cudalib.check(sb, "sb", torch.int32, 1)
-    if csr is None or csr.pairs is None or csr.lane_order is None:
-        raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
-    for t, name in ((csr.pairs, "csr.pairs"), (csr.offs, "csr.offs"),
-                    (csr.lane_order, "csr.lane_order")):
-        cudalib.check(t, name, torch.int32, 1)
-        if t.device != W.device:
-            raise ValueError("csr does not match the device")
-    if (csr.offs.shape[0] != C * KW + 1 or csr.pairs.shape != csr.order.shape
-            or csr.lane_order.shape[0] != C * KW):
-        raise ValueError("csr does not match the plan")
-    if 2 * plan.slot_block != SCHUR_WINDOW or KW % SCHUR_PASS:
-        raise ValueError(f"schur_fused: the kernel takes a {SCHUR_WINDOW}-slot window and "
-                         f"kwin a multiple of {SCHUR_PASS}, not slot_block {plan.slot_block}, "
-                         f"kwin {KW}")
-    out = torch.empty((36, C * KW), dtype=dt, device=W.device)
-    cudalib.call("schur_fused", W, _entry("cuba_schur_fused", dt),
-                 W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), csr.pairs.data_ptr(),
-                 csr.offs.data_ptr(), csr.lane_order.data_ptr(), plan.slot_block, plan.chunk,
-                 KW, C, out.data_ptr())
-    cudalib.count("schur_fused", dt)
-    return out
+    with trace.span("k.schur_fused"):
+        C, KW = plan.num_chunks, plan.kwin
+        for t, name in ((W, "W"), (G, "G")):
+            if t.dim() != 2 or t.shape[0] != 18 or t.shape[1] < plan.n_slot_pad:
+                raise ValueError(f"{name}: expected [18, >= {plan.n_slot_pad}], "
+                                 f"got {tuple(t.shape)}")
+        if G.shape != W.shape:
+            raise ValueError(f"W {tuple(W.shape)} and G {tuple(G.shape)} differ")
+        if (sb.shape[0] != C or li.shape[0] != C * plan.chunk or lj.shape[0] != li.shape[0]
+                or lk.shape[0] != li.shape[0]):
+            raise ValueError("sb/li/lj/lk do not match the plan")
+        if not cudalib.use_kernel(W, G, sb, li, lj, lk):
+            return schur_fused_plain(W, G, plan, sb, li, lj, lk)
+        dt = cudalib.float_dtype(W, G)
+        for t, name in ((W, "W"), (G, "G")):
+            cudalib.check(t, name, dt, 2)
+            if t.data_ptr() % 16 or t.shape[1] * t.element_size() % 16:
+                raise ValueError(f"schur_fused: {name} must be 16-byte aligned with rows of a "
+                                 f"multiple of 16 bytes (16-byte window copies)")
+        cudalib.check(sb, "sb", torch.int32, 1)
+        if csr is None or csr.pairs is None or csr.lane_order is None:
+            raise ValueError("schur_fused: the kernel needs csr=schur_lane_csr(plan, device)")
+        for t, name in ((csr.pairs, "csr.pairs"), (csr.offs, "csr.offs"),
+                        (csr.lane_order, "csr.lane_order")):
+            cudalib.check(t, name, torch.int32, 1)
+            if t.device != W.device:
+                raise ValueError("csr does not match the device")
+        if (csr.offs.shape[0] != C * KW + 1 or csr.pairs.shape != csr.order.shape
+                or csr.lane_order.shape[0] != C * KW):
+            raise ValueError("csr does not match the plan")
+        if 2 * plan.slot_block != SCHUR_WINDOW or KW % SCHUR_PASS:
+            raise ValueError(f"schur_fused: the kernel takes a {SCHUR_WINDOW}-slot window and "
+                             f"kwin a multiple of {SCHUR_PASS}, not slot_block {plan.slot_block}, "
+                             f"kwin {KW}")
+        out = torch.empty((36, C * KW), dtype=dt, device=W.device)
+        cudalib.call("schur_fused", W, _entry("cuba_schur_fused", dt),
+                     W.data_ptr(), G.data_ptr(), W.shape[1], sb.data_ptr(), csr.pairs.data_ptr(),
+                     csr.offs.data_ptr(), csr.lane_order.data_ptr(), plan.slot_block, plan.chunk,
+                     KW, C, out.data_ptr())
+        cudalib.count("schur_fused", dt)
+        return out
 
 
 def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, table=None):
@@ -798,33 +810,34 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
     [36, PB] is indexed by the global pose block.  ``table`` is
     :func:`band_table` of (iru, icu), built once per structure; the kernel
     needs it."""
-    if PB % BAND_TILE != 0:
-        raise ValueError(f"PB={PB} is not a multiple of {BAND_TILE}")
-    M = PB // BAND_TILE
-    if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
-            or tuple(occ_band.shape) != (2 * M,) or tuple(iru.shape) != (M * Wg,)
-            or tuple(icu.shape) != (M * Wg,)):
-        raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
-                         f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ_band "
-                         f"{tuple(occ_band.shape)} do not fit PB={PB}, Wg={Wg}")
-    if not cudalib.use_kernel(gT, iru, icu, dbT, occ_band):
-        return compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB, Wg)
-    dt = cudalib.float_dtype(gT, dbT)
-    cudalib.check(gT, "gT", dt, 2)
-    cudalib.check(dbT, "dbT", dt, 2)
-    cudalib.check(occ_band, "occ_band", torch.int32, 1)
-    if table is None:
-        raise ValueError("compact_to_band: the kernel needs table=band_table(iru, icu, PB)")
-    cudalib.check(table, "table", torch.int32, 2)
-    if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
-        raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
-    cudalib.check_int32("compact_to_band", M * 6 * BAND_TILE * 12 * BAND_TILE, gT.numel())
-    out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=dt, device=gT.device)
-    cudalib.call("compact_to_band", gT, _entry("cuba_compact_to_band", dt),
-                 gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
-                 occ_band.data_ptr(), M, out.data_ptr())
-    cudalib.count("compact_to_band", dt)
-    return out
+    with trace.span("k.compact_to_band"):
+        if PB % BAND_TILE != 0:
+            raise ValueError(f"PB={PB} is not a multiple of {BAND_TILE}")
+        M = PB // BAND_TILE
+        if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
+                or tuple(occ_band.shape) != (2 * M,) or tuple(iru.shape) != (M * Wg,)
+                or tuple(icu.shape) != (M * Wg,)):
+            raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
+                             f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ_band "
+                             f"{tuple(occ_band.shape)} do not fit PB={PB}, Wg={Wg}")
+        if not cudalib.use_kernel(gT, iru, icu, dbT, occ_band):
+            return compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB, Wg)
+        dt = cudalib.float_dtype(gT, dbT)
+        cudalib.check(gT, "gT", dt, 2)
+        cudalib.check(dbT, "dbT", dt, 2)
+        cudalib.check(occ_band, "occ_band", torch.int32, 1)
+        if table is None:
+            raise ValueError("compact_to_band: the kernel needs table=band_table(iru, icu, PB)")
+        cudalib.check(table, "table", torch.int32, 2)
+        if tuple(table.shape) != (PB, 2 * BAND_TILE) or table.device != gT.device:
+            raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+        cudalib.check_int32("compact_to_band", M * 6 * BAND_TILE * 12 * BAND_TILE, gT.numel())
+        out = torch.empty((M * 6 * BAND_TILE, 12 * BAND_TILE), dtype=dt, device=gT.device)
+        cudalib.call("compact_to_band", gT, _entry("cuba_compact_to_band", dt),
+                     gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
+                     occ_band.data_ptr(), M, out.data_ptr())
+        cudalib.count("compact_to_band", dt)
+        return out
 
 
 DENSE_TILE_P, DENSE_TILE_Q = 64, 128  # compact_to_dense's occupancy tiles, pose blocks
@@ -868,35 +881,36 @@ def compact_to_dense(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *,
     [PB/64 * PB/128] marks empty are zero.  ``table`` is :func:`dense_table`
     of (iru, icu), built once per structure; the kernel needs it
     (:func:`compact_to_dense_launch`, ``walks.compact_to_dense_walk``)."""
-    if PB % DENSE_TILE_Q != 0:
-        raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
-    M = PB // BAND_TILE
-    n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
-    if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
-            or tuple(occ2.shape) != (n_occ,) or tuple(iru.shape) != (M * Wg,)
-            or tuple(icu.shape) != (M * Wg,)):
-        raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
-                         f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ2 "
-                         f"{tuple(occ2.shape)} do not fit PB={PB}, Wg={Wg}")
-    if not cudalib.use_kernel(gT, iru, icu, dbT, occ2):
-        return compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB, Wg)
-    dt = cudalib.float_dtype(gT, dbT)
-    cudalib.check(gT, "gT", dt, 2)
-    cudalib.check(dbT, "dbT", dt, 2)
-    cudalib.check(occ2, "occ2", torch.int32, 1)
-    if table is None:
-        raise ValueError("compact_to_dense: the kernel needs table=dense_table(iru, icu, PB)")
-    cudalib.check(table, "table", torch.int32, 2)
-    if tuple(table.shape) != (PB, PB) or table.device != gT.device:
-        raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
-    # int64 offsets of the output's rows; the table's and gT's indices int32
-    cudalib.check_int32("compact_to_dense", PB * PB, gT.numel())
-    out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=gT.device)
-    cudalib.call("compact_to_dense", gT, _entry("cuba_compact_to_dense", dt),
-                 gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
-                 occ2.data_ptr(), out.data_ptr())
-    cudalib.count("compact_to_dense", dt)
-    return out
+    with trace.span("k.compact_to_dense"):
+        if PB % DENSE_TILE_Q != 0:
+            raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
+        M = PB // BAND_TILE
+        n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
+        if (tuple(gT.shape) != (36, M * Wg) or tuple(dbT.shape) != (36, PB)
+                or tuple(occ2.shape) != (n_occ,) or tuple(iru.shape) != (M * Wg,)
+                or tuple(icu.shape) != (M * Wg,)):
+            raise ValueError(f"gT {tuple(gT.shape)}, iru {tuple(iru.shape)}, icu "
+                             f"{tuple(icu.shape)}, dbT {tuple(dbT.shape)}, occ2 "
+                             f"{tuple(occ2.shape)} do not fit PB={PB}, Wg={Wg}")
+        if not cudalib.use_kernel(gT, iru, icu, dbT, occ2):
+            return compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB, Wg)
+        dt = cudalib.float_dtype(gT, dbT)
+        cudalib.check(gT, "gT", dt, 2)
+        cudalib.check(dbT, "dbT", dt, 2)
+        cudalib.check(occ2, "occ2", torch.int32, 1)
+        if table is None:
+            raise ValueError("compact_to_dense: the kernel needs table=dense_table(iru, icu, PB)")
+        cudalib.check(table, "table", torch.int32, 2)
+        if tuple(table.shape) != (PB, PB) or table.device != gT.device:
+            raise ValueError(f"table {tuple(table.shape)} does not fit PB={PB}")
+        # int64 offsets of the output's rows; the table's and gT's indices int32
+        cudalib.check_int32("compact_to_dense", PB * PB, gT.numel())
+        out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=gT.device)
+        cudalib.call("compact_to_dense", gT, _entry("cuba_compact_to_dense", dt),
+                     gT.data_ptr(), gT.shape[1], table.data_ptr(), dbT.data_ptr(), PB,
+                     occ2.data_ptr(), out.data_ptr())
+        cudalib.count("compact_to_dense", dt)
+        return out
 
 
 def band_transpose_plain(m4, occ, PB: int):
@@ -914,18 +928,19 @@ def band_transpose(m4, occ, PB: int):
     segmm.band_transpose): out[6p+i, 6q+j] = m4[i*6+j, p, q] for m4 [36, PB,
     PB], zero on the 64x128-block tiles that occ [PB/64 * PB/128] marks
     empty.  A copy: the kernel is bit-equal to the plain version."""
-    if PB % DENSE_TILE_Q != 0:
-        raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
-    n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
-    if tuple(m4.shape) != (36, PB, PB) or tuple(occ.shape) != (n_occ,):
-        raise ValueError(f"m4 {tuple(m4.shape)}, occ {tuple(occ.shape)} does not fit PB={PB}")
-    if not cudalib.use_kernel(m4, occ):
-        return band_transpose_plain(m4, occ, PB)
-    dt = cudalib.float_dtype(m4)
-    cudalib.check(m4, "m4", dt, 3)
-    cudalib.check(occ, "occ", torch.int32, 1)
-    out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=m4.device)
-    cudalib.call("band_transpose", m4, _entry("cuba_band_transpose", dt),
-                 m4.data_ptr(), occ.data_ptr(), PB, out.data_ptr())
-    cudalib.count("band_transpose", dt)
-    return out
+    with trace.span("k.band_transpose"):
+        if PB % DENSE_TILE_Q != 0:
+            raise ValueError(f"PB={PB} is not a multiple of {DENSE_TILE_Q}")
+        n_occ = (PB // DENSE_TILE_P) * (PB // DENSE_TILE_Q)
+        if tuple(m4.shape) != (36, PB, PB) or tuple(occ.shape) != (n_occ,):
+            raise ValueError(f"m4 {tuple(m4.shape)}, occ {tuple(occ.shape)} does not fit PB={PB}")
+        if not cudalib.use_kernel(m4, occ):
+            return band_transpose_plain(m4, occ, PB)
+        dt = cudalib.float_dtype(m4)
+        cudalib.check(m4, "m4", dt, 3)
+        cudalib.check(occ, "occ", torch.int32, 1)
+        out = torch.empty((6 * PB, 6 * PB), dtype=dt, device=m4.device)
+        cudalib.call("band_transpose", m4, _entry("cuba_band_transpose", dt),
+                     m4.data_ptr(), occ.data_ptr(), PB, out.data_ptr())
+        cudalib.count("band_transpose", dt)
+        return out

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.parallel import rows_shard
 from cuba_tpu_torch.solver import assembly, comm, engine, pcg
@@ -86,19 +87,24 @@ class MultiChipEngine(engine.BlockSolverEngine):
         self.group = group
         self.global_structure = structure
         self.n_shards, self.rank = comm.size(group), comm.rank(group)
-        device = engine.resolve_device(config)
-        solver, band_m, pad_blocks, lr = engine.resolve_solver(structure, config)
-        engine.check_solver(solver, config)
-        sp = None if aos else rows_shard.plan_sharded(structure, group, device, config.dtype,
-                                                      solver, pad_blocks, lr)
-        if sp is not None:
-            local, plan, rc = sp
-        else:
-            if solver == "band_lr":
-                solver = "dense_cholesky"
-            local = rows_shard.cut_shards(structure, self.n_shards)[self.rank]
-            plan = rc = None
-        self._setup(local, kernels, config, device, solver, band_m, pad_blocks, lr, plan, rc)
+        with trace.span("engine"):
+            device = engine.resolve_device(config)
+            with trace.span("engine.resolve"):
+                solver, band_m, pad_blocks, lr = engine.resolve_solver(structure, config)
+            engine.check_solver(solver, config)
+            with trace.span("engine.plan_rows"):
+                sp = None if aos else rows_shard.plan_sharded(structure, group, device,
+                                                              config.dtype, solver, pad_blocks,
+                                                              lr)
+            if sp is not None:
+                local, plan, rc = sp
+            else:
+                if solver == "band_lr":
+                    solver = "dense_cholesky"
+                local = rows_shard.cut_shards(structure, self.n_shards)[self.rank]
+                plan = rc = None
+            self._setup(local, kernels, config, device, solver, band_m, pad_blocks, lr, plan,
+                        rc)
         # the shard's active landmarks: ceil(L / S) on every shard
         self.base = local.num_l
 

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.ops import jacobians, projection, robust, segmm
 from cuba_tpu_torch.ops.segmm import SegmentCSR
 
@@ -39,13 +40,12 @@ class EdgeConsts(NamedTuple):
 def edge_consts(meas, omega, pose_idx, lm_idx, edge2hpl, num_p, num_l, n_hpl, device,
                 dtype) -> EdgeConsts:
     """Upload one edge type's arrays and build its three CSRs."""
-    def ids(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=device)
+    def up(a, dt=torch.int64):
+        with trace.span("engine.upload"):
+            return torch.as_tensor(a, dtype=dt, device=device)
 
     return EdgeConsts(
-        torch.as_tensor(meas, dtype=dtype, device=device),
-        torch.as_tensor(omega, dtype=dtype, device=device),
-        ids(pose_idx), ids(lm_idx), ids(edge2hpl),
+        up(meas, dtype), up(omega, dtype), up(pose_idx), up(lm_idx), up(edge2hpl),
         segmm.segment_csr(pose_idx, num_p, device),
         segmm.segment_csr(lm_idx, num_l, device),
         segmm.segment_csr(edge2hpl, n_hpl, device),

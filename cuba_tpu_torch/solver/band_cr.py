@@ -30,6 +30,8 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
+from cuba_tpu_torch import trace
+
 B = 384  # CR block: 64 pose blocks of 6
 POSES_PER_BLOCK = B // 6
 
@@ -217,21 +219,25 @@ def _factor_equilibrated(D: torch.Tensor, U: torch.Tensor, inv: InvFn = _inv_spd
     Us = U * s[:, :, None] * sr[:, None, :]
     sf = s.reshape(-1)
     reads = 0
-    levels, base = factor(Ds, Us, inv)
-    if D.dtype == torch.float32:
-        # one retry at a strong boost; if that fails too, ok=False rejects
-        # the LM step and lambda escalation re-damps
-        bad = ~torch.isfinite(base.sum())
-        for (Dinv_o, *_rest) in levels:
-            bad = bad | ~torch.isfinite(Dinv_o[-1].sum())
-        reads = 1
-        if bool(bad):
-            eye = torch.eye(Bd, dtype=D.dtype, device=D.device)
-            levels, base = factor(Ds + 1e-3 * eye, Us, inv)
+    with trace.span("cr.factor"):
+        levels, base = factor(Ds, Us, inv)
+        if D.dtype == torch.float32:
+            # one retry at a strong boost; if that fails too, ok=False rejects
+            # the LM step and lambda escalation re-damps
+            bad = ~torch.isfinite(base.sum())
+            for (Dinv_o, *_rest) in levels:
+                bad = bad | ~torch.isfinite(Dinv_o[-1].sum())
+            reads = 1
+            with trace.span("read.cr_boost"):
+                retry = bool(bad)
+            if retry:
+                eye = torch.eye(Bd, dtype=D.dtype, device=D.device)
+                levels, base = factor(Ds + 1e-3 * eye, Us, inv)
 
     def solve_with(rhs):
         sc = sf if rhs.dim() == 1 else sf[:, None]
-        return sc * solve(levels, base, rhs * sc)
+        with trace.span("cr.solve"):
+            return sc * solve(levels, base, rhs * sc)
 
     return solve_with, reads
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.solver import trisolve
 
 _BOOST0, _BOOST_GROWTH, _BOOST_TRIES = 1e-5, 32.0, 4
@@ -46,20 +47,23 @@ def _cholesky(As: torch.Tensor):
 def factor(As: torch.Tensor):
     """Cholesky factor of the equilibrated As, with the fp32 boost retry.
     Returns (L, host_reads); L is all NaN where every try failed."""
-    L, info = _cholesky(As)
-    reads = 0
-    if As.dtype == torch.float32:
-        delta = 0.0
-        for _ in range(_BOOST_TRIES):
-            reads += 1
-            if not bool(_failed(L, info)):
-                return L, reads
-            delta = _BOOST0 if delta == 0.0 else delta * _BOOST_GROWTH
-            Ab = As.clone()
-            Ab.diagonal().add_(delta)
-            L, info = _cholesky(Ab)
-    nan = torch.full((), float("nan"), dtype=L.dtype, device=L.device)
-    return torch.where(_failed(L, info), nan, L), reads
+    with trace.span("dense.factor"):
+        L, info = _cholesky(As)
+        reads = 0
+        if As.dtype == torch.float32:
+            delta = 0.0
+            for _ in range(_BOOST_TRIES):
+                reads += 1
+                with trace.span("read.dense_boost"):
+                    failed = bool(_failed(L, info))
+                if not failed:
+                    return L, reads
+                delta = _BOOST0 if delta == 0.0 else delta * _BOOST_GROWTH
+                Ab = As.clone()
+                Ab.diagonal().add_(delta)
+                L, info = _cholesky(Ab)
+        nan = torch.full((), float("nan"), dtype=L.dtype, device=L.device)
+        return torch.where(_failed(L, info), nan, L), reads
 
 
 def cholesky_solve(A: torch.Tensor, b: torch.Tensor, refinement_steps: int = 0,
@@ -75,15 +79,17 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor, refinement_steps: int = 0,
         invd = trisolve.prepare(L)
 
         def solve_with(rhs):
-            y = trisolve.solve_lower(L, invd, rhs * s)
-            return s * trisolve.solve_upper(L, invd, y)
+            with trace.span("dense.solve"):
+                y = trisolve.solve_lower(L, invd, rhs * s)
+                return s * trisolve.solve_upper(L, invd, y)
 
         def mv(v):
             return trisolve.matvec(A, v)
     else:
         def solve_with(rhs):
-            y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
-            return s * torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+            with trace.span("dense.solve"):
+                y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
+                return s * torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
 
         def mv(v):
             return A @ v

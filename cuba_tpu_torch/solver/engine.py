@@ -22,7 +22,9 @@ law is ``cuba_tpu``'s (``_make_lm_run``): lambda0 = tau * max diag,
 attenuation clamped to [1/3, 2/3], nu doubling, x8 escalation when the
 solve fails, and the accepted trial's residual packs carried into the next
 build.  Given a :class:`PhaseMarks`, ``optimize`` marks the boundaries of
-its five loop phases as it goes.  ``optimize_profiled`` is ``cuba_tpu``'s
+its five loop phases as it goes; under ``torch.profiler`` the same
+boundaries open and close the phases' spans (``trace.py``), and each host
+read has a span of its own.  ``optimize_profiled`` is ``cuba_tpu``'s
 host-stepped driver with its own control law and exact per-phase timing.
 """
 
@@ -34,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.config import BAConfig
 from cuba_tpu_torch.ops import se3, smallmat
 from cuba_tpu_torch.solver import (assembly, band_cr, comm, dense_cholesky, edgerows, pcg,
@@ -60,6 +63,8 @@ PROFILE_ITEMS = (
 # solver here has a symbolic pass of its own at optimize time)
 LOOP_PHASES = tuple(PROFILE_ITEMS[i] for i in (2, 3, 4, 6, 7))
 _ERROR, _BUILD, _SCHUR, _DECOMP, _UPDATE = LOOP_PHASES
+# the phases' spans (trace.span)
+_SPANS = dict(zip(LOOP_PHASES, ("lm.error", "lm.build", "lm.schur", "lm.decomp", "lm.update")))
 
 
 class State(NamedTuple):
@@ -78,7 +83,7 @@ class LMResult(NamedTuple):
     final_lambda: float  # the damping at exit, in the compute dtype
 
 
-def _no_mark(_phase) -> None:
+def _no_phase(_phase) -> None:
     pass
 
 
@@ -112,6 +117,41 @@ class PhaseMarks:
             if phase is not None:
                 out[phase] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
         return out
+
+
+class _Phases:
+    """The phase boundaries of one ``optimize``, each made once: a
+    :meth:`begin` ends the phase open since the previous boundary and opens
+    ``phase``'s span (``lm.*``; None opens none).  With ``marks``, the same
+    call charges the closed interval to the phase that was open
+    (:meth:`PhaseMarks.mark`), so the spans and the phase marks share one
+    set of boundaries.  The first phase opens at construction, after the
+    marks' first boundary (their construction)."""
+
+    __slots__ = ("_mark", "_open", "_span")
+
+    def __init__(self, first: str, marks: Optional[PhaseMarks] = None):
+        self._mark = None if marks is None else marks.mark
+        self._span = None
+        self._enter(first)
+
+    def _enter(self, phase: Optional[str]) -> None:
+        self._open = phase
+        if phase is not None:
+            self._span = trace.span(_SPANS[phase])
+            self._span.__enter__()
+
+    def begin(self, phase: Optional[str]) -> None:
+        self.close()
+        if self._mark is not None:
+            self._mark(self._open)
+        self._enter(phase)
+
+    def close(self) -> None:
+        """Leaves the open span, if any; marks nothing."""
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
 
 
 def _set_exact_fp32() -> None:
@@ -193,14 +233,18 @@ class BlockSolverEngine:
     group = None  # the landmark shards' process group; None: one device
 
     def __init__(self, structure: BAStructure, kernels, config: BAConfig):
-        device = resolve_device(config)
-        solver, band_m, pad_blocks, lr = resolve_solver(structure, config)
-        check_solver(solver, config)
-        plan, rc = rows.plan_rows(
-            structure, device, config.dtype, pad_blocks=0 if solver == "pcg" else pad_blocks,
-            dense=solver == "dense_cholesky", lr=lr)
-        self._setup(structure, kernels, config, device, solver, band_m, pad_blocks, lr,
-                    plan, rc)
+        with trace.span("engine"):
+            device = resolve_device(config)
+            with trace.span("engine.resolve"):
+                solver, band_m, pad_blocks, lr = resolve_solver(structure, config)
+            check_solver(solver, config)
+            with trace.span("engine.plan_rows"):
+                plan, rc = rows.plan_rows(
+                    structure, device, config.dtype,
+                    pad_blocks=0 if solver == "pcg" else pad_blocks,
+                    dense=solver == "dense_cholesky", lr=lr)
+            self._setup(structure, kernels, config, device, solver, band_m, pad_blocks, lr,
+                        plan, rc)
 
     def _setup(self, s: BAStructure, kernels, config: BAConfig, device, solver, band_m,
                pad_blocks, lr, plan, rc) -> None:
@@ -223,12 +267,13 @@ class BlockSolverEngine:
         # band_lr's host Woodbury plan and its loop columns (ob_i, ob_j,
         # jrows) on the device, for every formation
         self.lr = lr if self.solver == "band_lr" else None
+
+        def dev(a, dtype=self.dtype):
+            with trace.span("engine.upload"):
+                return torch.as_tensor(a, dtype=dtype, device=self.device)
+
         self.lr_dev = None if self.lr is None else tuple(
-            torch.from_numpy(self.lr[k]).to(self.device) for k in ("ob_i", "ob_j", "jrows"))
-
-        def dev(a):
-            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
-
+            dev(self.lr[k], None) for k in ("ob_i", "ob_j", "jrows"))
         self.cams = dev(s.cams)
         self.state = State(dev(s.qs), dev(s.ts), dev(s.Xws))
         if not self.use_rows:
@@ -314,24 +359,37 @@ class BlockSolverEngine:
         Vob = band_cr.ob_from_dense(Dm, self.lr["obr"], self.lr["obc"])
         return band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev, max(refine, 1))
 
-    def _solve(self, sys, lam, mark=_no_mark):
+    @property
+    def _solve_phase(self) -> str:
+        """The phase a trial solve opens with: the Schur complement's, or
+        the decomposition's where there is none (pose-only and
+        landmark-only problems)."""
+        return _SCHUR if self.use_rows or (self.num_p and self.num_l) else _DECOMP
+
+    def _pcg_reads(self, k: int) -> int:
+        """The stop test's host reads of a PCG solve of ``k`` steps: one a
+        step, and the one that stopped it unless it ran out of steps."""
+        return k + (k < self.config.pcg_max_iterations)
+
+    def _solve(self, sys, lam, begin=_no_phase):
         """One damped trial solve.  Returns (xp [P, 6], xl [L, 3], ok,
-        cg_steps, host_reads).  ``mark`` closes the Schur complement's
-        phase (the factors and the formation) and the decomposition's (the
-        reduced solve and the back-substitution)."""
+        cg_steps, host_reads).  ``begin`` (:meth:`_Phases.begin`) opens the
+        decomposition's phase (the reduced solve and the back-substitution)
+        after the Schur complement's (the factors and the formation), then
+        the update's."""
         if not self.use_rows:
-            return self._solve_aos(sys, lam, mark)
+            return self._solve_aos(sys, lam, begin)
         HppT, HllT, HplT = sys
         plan, rc, P = self.plan, self.rc, self.num_p
         iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
                                                  self.num_l, plan, rc, group=self.group)
         if self.solver == "pcg":
-            mark(_SCHUR)
+            begin(_DECOMP)
             xT, ok, k = rows.pcg_solve_rows(
                 HppT, HplT, W, lam, bscT, P, self.num_l, plan, rc,
                 self.config.pcg_max_iterations, self.config.pcg_tol, group=self.group,
             )
-            xp, reads = xT.T, k + 1
+            xp, reads = xT.T, self._pcg_reads(k)
         else:
             rhs = self._reduced_rhs(bscT.T)
             refine = self._refine()
@@ -342,18 +400,18 @@ class BlockSolverEngine:
                 else:
                     D, U = band_cr.from_dense(rows.schur_dense(HppT, W, HplT, lam, P, plan, rc),
                                               self.band_m)
-                mark(_SCHUR)
+                begin(_DECOMP)
                 x, ok, reads = band_cr.cr_solve(D, U, rhs, refine)
             elif self.solver == "band_lr":
                 if plan.v2:
                     D, U, Vob = rows.band_from_compact(self._schur_table(W, HplT), HppT, lam,
                                                        P, plan, rc, with_ob=True)
-                    mark(_SCHUR)
+                    begin(_DECOMP)
                     x, ok, reads = band_cr.cr_solve_woodbury(D, U, rhs, Vob, *self.lr_dev,
                                                              max(refine, 1))
                 else:
                     Dm = rows.schur_dense(HppT, W, HplT, lam, P, plan, rc)
-                    mark(_SCHUR)
+                    begin(_DECOMP)
                     x, ok, reads = self._woodbury(Dm, rhs, refine)
             else:
                 if plan.v2:
@@ -361,7 +419,7 @@ class BlockSolverEngine:
                                                  plan, rc)
                 else:
                     Dm = rows.schur_dense_v1(HppT, W, HplT, lam, P, plan, rc)
-                mark(_SCHUR)
+                begin(_DECOMP)
                 # the blocked trisolve kernels on the card (cuba_tpu takes
                 # them on the TPU), with one extra refinement sweep for the
                 # inverted-diagonal-block substitution's larger residual, as
@@ -373,7 +431,7 @@ class BlockSolverEngine:
                                                              use_kernels=use_ts)
             xp, k = x[:6 * P].reshape(P, 6), 0
         xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
-        mark(_DECOMP)
+        begin(_UPDATE)
         return xp, xl, ok, k, reads
 
     def _schur_table(self, W, HplT):
@@ -386,7 +444,7 @@ class BlockSolverEngine:
         """The AoS path's matrix-free Schur operator."""
         return pcg.SchurOperator(Hpp_d, Hpl, W, self.sc, self.num_p, self.num_l)
 
-    def _solve_aos(self, sys, lam, mark=_no_mark):
+    def _solve_aos(self, sys, lam, begin=_no_phase):
         """The AoS path's trial solve (cuba_tpu's non-MXU branch): the Schur
         reduction with any of the four solvers, or the diagonal pose-only
         or landmark-only solve (all of it the decomposition's phase)."""
@@ -398,15 +456,15 @@ class BlockSolverEngine:
                                                    self.sc, P, group=self.group)
             k = 0
             if self.solver == "pcg":
-                mark(_SCHUR)
+                begin(_DECOMP)
                 xp, ok, k = pcg.pcg_solve(self._schur_operator(Hpp_d, Hpl, W), bsc,
                                           self.config.pcg_max_iterations,
                                           self.config.pcg_tol)
-                reads = k + 1
+                reads = self._pcg_reads(k)
             else:
                 blocks = comm.all_reduce_sum(schur.schur_blocks(W, Hpl, self.sc), self.group)
                 Dm = schur.dense_from_blocks(Hpp_d, blocks, self.sc, P, self.pad_blocks)
-                mark(_SCHUR)
+                begin(_DECOMP)
                 rhs = self._reduced_rhs(bsc)
                 refine = self._refine()
                 if self.solver == "band_cr":
@@ -418,14 +476,14 @@ class BlockSolverEngine:
                     x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine)
                 xp = x[:6 * P].reshape(P, 6)
             xl = schur.back_substitute(invHll, bl, Hpl, xp, self.sc, L)
-            mark(_DECOMP)
+            begin(_UPDATE)
             return xp, xl, ok, k, reads
         if P:
             xp = smallmat.solve_sym6x6(assembly.damp(Hpp, lam), bp)
-            mark(_DECOMP)
+            begin(_UPDATE)
             return xp, bp.new_zeros((0, 3)), torch.isfinite(xp).all(), 0, 0
         xl = smallmat.solve_sym3x3(assembly.damp(Hll, lam), bl)
-        mark(_DECOMP)
+        begin(_UPDATE)
         ok = comm.all_reduce_min(torch.isfinite(xl).all(), self.group)
         return bl.new_zeros((0, 6)), xl, ok, 0, 0
 
@@ -466,15 +524,26 @@ class BlockSolverEngine:
 
     def optimize(self, state: State, niterations: int,
                  marks: Optional[PhaseMarks] = None) -> LMResult:
-        """The LM loop; with ``marks``, the boundaries of its phases (as
-        ``cuba_tpu``'s ``attribute_phases`` draws them: both residual
-        passes; the build with its right-hand side and the first damping;
-        the factors and the Schur formation; the reduced solve and the
-        back-substitution; the update and the accept selects)."""
+        """The LM loop, in the span ``optimize``, with the span of each of
+        its phases (``lm.*``) and of each host read (``read.*``); with
+        ``marks``, the boundaries of its phases (as ``cuba_tpu``'s
+        ``attribute_phases`` draws them: both residual passes; the build
+        with its right-hand side and the first damping; the factors and the
+        Schur formation; the reduced solve and the back-substitution; the
+        update and the accept selects)."""
+        with trace.span("optimize"):
+            phases = _Phases(_ERROR, marks)
+            try:
+                return self._lm(self.state if state is None else state, niterations,
+                                phases.begin)
+            finally:
+                phases.close()
+
+    def _lm(self, st: State, niterations: int, begin) -> LMResult:
+        """:meth:`optimize`'s loop from ``st``, the error phase open;
+        ``begin`` (:meth:`_Phases.begin`) makes each phase boundary."""
         cfg, dt = self.config, self.dtype
         maxq = cfg.max_inner_iterations
-        st = self.state if state is None else state
-        mark = _no_mark if marks is None else marks.mark
 
         def attenuation(rho):
             a = 1.0 - (2.0 * rho - 1.0) ** 3
@@ -482,7 +551,7 @@ class BlockSolverEngine:
 
         pack_m, pack_s, F0 = self._residuals_and_chi(st)
         F = F0.to(dt)
-        mark(_ERROR)
+        begin(_BUILD)
         lam = torch.zeros((), dtype=dt, device=self.device)
         nu = torch.full((), 2.0, dtype=dt, device=self.device)
         minus_one = torch.full((), -1.0, dtype=dt, device=self.device)
@@ -493,17 +562,17 @@ class BlockSolverEngine:
             bp, bl = self._rhs_of(sys)
             if it == 0:
                 lam = cfg.tau * self._max_diag(sys).to(dt)
-            mark(_BUILD)
+            begin(self._solve_phase)
             q = 0
             while True:
-                xp, xl, ok, k, solve_reads = self._solve(sys, lam, mark)
+                xp, xl, ok, k, solve_reads = self._solve(sys, lam, begin)
                 cg += k
                 reads += solve_reads
                 trial = self._apply_update(st, xp, xl)
-                mark(_UPDATE)
+                begin(_ERROR)
                 tm, ts_, F0t = self._residuals_and_chi(trial)
                 Fhat = F0t.to(dt)
-                mark(_ERROR)
+                begin(_UPDATE)
                 scale = self._scale(xp, xl, bp, bl, lam) + cfg.scale_eps
                 rho = torch.where(ok, (F - Fhat) / scale, minus_one)
                 accept = rho > 0
@@ -518,22 +587,31 @@ class BlockSolverEngine:
                 pack_s = None if pack_s is None else tuple(
                     torch.where(accept, a, b) for a, b in zip(ts_, pack_s))
                 F = torch.where(accept, Fhat, F)
-                mark(_UPDATE)
+                begin(None)
                 q += 1
-                rho_h, lam_finite = torch.stack(
-                    [rho, torch.isfinite(lam).to(dt)]).tolist()
-                mark(None)
+                with trace.span("read.accept"):
+                    rho_h, lam_finite = torch.stack(
+                        [rho, torch.isfinite(lam).to(dt)]).tolist()
                 reads += 1
-                if not (q < maxq and rho_h < 0):
+                retry = q < maxq and rho_h < 0
+                stop = not retry and (q == maxq or rho_h <= 0 or not lam_finite)
+                # the next phase: another attempt's, the next build, or none
+                if retry:
+                    begin(self._solve_phase)
+                else:
+                    begin(None if stop or it + 1 == niterations else _BUILD)
                     break
             natt += q
             chis.append(F.to(self.chi_dtype))
-            if q == maxq or rho_h <= 0 or not lam_finite:
+            if stop:
                 break
-        chis_h = torch.stack(chis).cpu().numpy() if chis else np.zeros(0)
+        # the trajectory and the final damping, the card idle after the first
+        with trace.span("read.chis"):
+            chis_h = torch.stack(chis).cpu().numpy() if chis else np.zeros(0)
+            final_lambda = float(lam)
         reads += 1
         return LMResult(state=st, chis=chis_h, niters=len(chis), nattempts=natt,
-                        cg_steps=cg, host_reads=reads, final_lambda=float(lam))
+                        cg_steps=cg, host_reads=reads, final_lambda=final_lambda)
 
     def optimize_profiled(self, state: State, niterations: int):
         """``cuba_tpu``'s host-stepped LM driver with per-phase timers

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.solver.assembly import segment_sum
 from cuba_tpu_torch.solver.schur import SchurConsts
 
@@ -70,7 +71,10 @@ def pcg_solve(op: SchurOperator, b: torch.Tensor, max_iterations: int, tol: floa
     rz = dot(r, z)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     k = 0
-    while k < max_iterations and bool(dot(r, r) > tol2):
+    while k < max_iterations:
+        with trace.span("read.cg_stop"):
+            if not bool(dot(r, r) > tol2):
+                break
         Ap = op.matvec(p)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, one, pAp)

@@ -51,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.ops import segmm
 from cuba_tpu_torch.ops.segmm import AccumWindowPlan, SegmentCSR, TilePlan
 from cuba_tpu_torch.solver import comm, edgerows
@@ -408,7 +409,8 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
     the band placement table, with ``dense`` the dense one and with the
     loop plan ``lr`` the out-of-band blocks' slots; for v1 the two
     combines' keys and CSRs and ``band_transpose``'s occupancy."""
-    plan, t = plan_row_tables(s, pad_blocks, lr)
+    with trace.span("plan.row_tables"):
+        plan, t = plan_row_tables(s, pad_blocks, lr)
     if plan is None:
         return None, None
     Em, Es = s.mono.count, s.stereo.count
@@ -421,11 +423,15 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
     omegaT_s = np.zeros(plan.e_pad_s)
     omegaT_s[:Es] = s.stereo.omegas
 
+    def up(a, dt=None):
+        with trace.span("engine.upload"):
+            return torch.as_tensor(a, dtype=dt, device=device)
+
     def ints(name):
-        return torch.from_numpy(t[name]).to(device) if name in t else None
+        return up(t[name]) if name in t else None
 
     def floats(a):
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return up(a, dtype)
 
     def csr(name, num_out):
         return segmm.segment_csr(t[name], num_out, device)
@@ -446,27 +452,28 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
     if plan.schur is None:
         return plan, consts
     PB, sc = plan.pad_blocks, plan.schur
+    with trace.span("plan.schur_lane_csr"):
+        csr_sc = segmm.schur_lane_csr(sc, device)
     consts = dataclasses.replace(
         consts, **{name: ints(name) for name in ("sc_sb", "sc_li", "sc_lj", "sc_lk")},
-        csr_sc=segmm.schur_lane_csr(sc, device))
+        csr_sc=csr_sc)
     if plan.v2:
         gkey = _pad_ids(t["gkey_up2"], plan.wpad)
         consts = dataclasses.replace(
             consts, **{name: ints(name) for name in (
                 "iru", "icu", "band_occ", "occ2", "ob_rkey")},
-            gkey_up2=torch.from_numpy(gkey).to(device),
-            band_table=torch.from_numpy(segmm.band_table(t["iru"], t["icu"], PB)).to(device),
+            gkey_up2=up(gkey),
+            band_table=up(segmm.band_table(t["iru"], t["icu"], PB)),
             csr_up2=segmm.segment_csr(gkey, PB // 64 * plan.wg, device),
         )
         if dense:
-            consts.dense_table = torch.from_numpy(
-                segmm.dense_table(t["iru"], t["icu"], PB)).to(device)
+            consts.dense_table = up(segmm.dense_table(t["iru"], t["icu"], PB))
         return plan, consts
     keys = {name: _pad_ids(t[name], plan.wpad) for name in ("gkey_up", "gkey_lo")}
     consts = dataclasses.replace(
         consts, occ=ints("occ"),
-        gkey_up=torch.from_numpy(keys["gkey_up"]).to(device),
-        gkey_lo=torch.from_numpy(keys["gkey_lo"]).to(device),
+        gkey_up=up(keys["gkey_up"]),
+        gkey_lo=up(keys["gkey_lo"]),
         csr_up=segmm.segment_csr(keys["gkey_up"], PB * PB, device),
         csr_lo=segmm.segment_csr(keys["gkey_lo"], PB * PB, device),
     )
@@ -505,8 +512,9 @@ def edge_rows(qs, ts, Xws, cams, kernels, chi_dtype, counts, plan: RowPlan, rc: 
         else:
             g12 = segmm.resident_gather(psrc, pgid)
         xw = segmm.tiled_gather(XwT, lgid, xwg, xwg.base_block)
-        err, Xc, _R, inv_z = edgerows.residual_rows(g12, xw, measT, pgid >= 0, mdim)
-        chi = chi + edgerows.chi_rows(err, omegaT, kern, chi_dtype)
+        with trace.span("rows.edge_residuals"):
+            err, Xc, _R, inv_z = edgerows.residual_rows(g12, xw, measT, pgid >= 0, mdim)
+            chi = chi + edgerows.chi_rows(err, omegaT, kern, chi_dtype)
         packs.append((g12, err, Xc, inv_z))
     return packs[0], packs[1], chi
 
@@ -531,8 +539,10 @@ def build_system_rows(pack_m, pack_s, kernels, num_p, num_l, plan: RowPlan, rc: 
         if pack is None:
             continue
         g12, err, Xc, inv_z = pack
-        R = edgerows.rotmat_rows(g12[0:4])
-        v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], omegaT, kern, mdim)
+        with trace.span("rows.edge_terms"):
+            R = edgerows.rotmat_rows(g12[0:4])
+            v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], omegaT, kern,
+                                               mdim)
         HppT = _pose_accum(v42, pose_ids, num_p, paw, c_p)
         HllT = segmm.tiled_segsum(v12, lm_ids, num_l, hll_p, hll_p.base_block, csr=c_l)
         HplT = segmm.tiled_segsum(v18, e2h, plan.hpl_pad, hpl_p, hpl_p.base_block, csr=c_h)
@@ -574,17 +584,18 @@ def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowC
     ``group``: the landmark shards' process group, over which the W bl pose
     sum is all-reduced (HppT must already be the global one; HllT and HplT
     are the shard's)."""
-    hll_d = HllT[:9].clone()
-    hll_d[0::4] += lam
-    # near-singular landmarks make an fp32 determinant cancel: invert in fp64
-    iv9 = _sym3x3_inv_rows(hll_d.double()).to(hll_d.dtype)
-    src12 = torch.cat([iv9, HllT[9:12]])
-    g12 = segmm.tiled_gather(src12, rc.hpl_col, plan.ivs, plan.ivs.base_block)
-    H = g12.shape[1]
-    W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
-    wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
-    bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    return iv9, W.reshape(18, H), HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
+    with trace.span("rows.prepare_factors"):
+        hll_d = HllT[:9].clone()
+        hll_d[0::4] += lam
+        # near-singular landmarks make an fp32 determinant cancel: invert in fp64
+        iv9 = _sym3x3_inv_rows(hll_d.double()).to(hll_d.dtype)
+        src12 = torch.cat([iv9, HllT[9:12]])
+        g12 = segmm.tiled_gather(src12, rc.hpl_col, plan.ivs, plan.ivs.base_block)
+        H = g12.shape[1]
+        W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
+        wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
+        bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        return iv9, W.reshape(18, H), HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
 
 
 def schur_compact(W, HplT, plan: RowPlan, rc: RowConsts):
@@ -682,13 +693,14 @@ def schur_dense_v1(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
 
 def back_substitute(iv9, HllT, HplT, g12, xp, num_l, plan: RowPlan, rc: RowConsts):
     """xl = Hll^-1 (bl - Hpl^T xp) in transposed layout.  Returns [L, 3]."""
-    xpg = segmm.tiled_gather(xp.T.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
-    H = xpg.shape[1]
-    contrib = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xpg).contiguous()
-    red = segmm.tiled_segsum(contrib, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
-                             csr=rc.csr_hpl_col)
-    clT = HllT[9:12] - red
-    return torch.einsum("mje,je->me", iv9.view(3, 3, -1), clT).T
+    with trace.span("rows.back_substitute"):
+        xpg = segmm.tiled_gather(xp.T.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
+        H = xpg.shape[1]
+        contrib = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xpg).contiguous()
+        red = segmm.tiled_segsum(contrib, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
+                                 csr=rc.csr_hpl_col)
+        clT = HllT[9:12] - red
+        return torch.einsum("mje,je->me", iv9.view(3, 3, -1), clT).T
 
 
 def _hpp_matvec_rows(HppT, lam, xT):
@@ -702,15 +714,16 @@ def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, plan: RowPlan, rc: R
     gather of x, a per-landmark segment sum, a gather back to the slots and
     a pose-side accumulate, all-reduced over ``group``'s landmark shards (x
     is the same on every rank)."""
-    xg = segmm.tiled_gather(xT.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
-    H = xg.shape[1]
-    a3 = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xg).contiguous()
-    aL = segmm.tiled_segsum(a3, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
-                            csr=rc.csr_hpl_col)
-    ag = segmm.tiled_gather(aL, rc.hpl_col, plan.ivs, plan.ivs.base_block)
-    y6 = torch.einsum("ike,ke->ie", W.view(6, 3, H), ag).contiguous()
-    ysub = _pose_accum(y6, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    return _hpp_matvec_rows(HppT, lam, xT) - comm.all_reduce_sum(ysub, group)
+    with trace.span("rows.schur_matvec"):
+        xg = segmm.tiled_gather(xT.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
+        H = xg.shape[1]
+        a3 = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xg).contiguous()
+        aL = segmm.tiled_segsum(a3, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
+                                csr=rc.csr_hpl_col)
+        ag = segmm.tiled_gather(aL, rc.hpl_col, plan.ivs, plan.ivs.base_block)
+        y6 = torch.einsum("ike,ke->ie", W.view(6, 3, H), ag).contiguous()
+        ysub = _pose_accum(y6, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        return _hpp_matvec_rows(HppT, lam, xT) - comm.all_reduce_sum(ysub, group)
 
 
 def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts,
@@ -718,15 +731,16 @@ def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts
     """Inverted exact 6x6 block diagonal of the damped Schur complement,
     [6, 6, P]: the block-Jacobi preconditioner (its slot sum all-reduced
     over ``group``'s landmark shards)."""
-    H = HplT.shape[1]
-    d36 = torch.einsum("ike,jke->ije", W.view(6, 3, H), HplT.view(6, 3, H)).reshape(36, H)
-    corr = _pose_accum(d36.contiguous(), rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-    M = (HppT[:36] - comm.all_reduce_sum(corr, group)).T.reshape(num_p, 6, 6)
-    M = M + lam * torch.eye(6, dtype=M.dtype, device=M.device)
-    # inv_ex: a singular block gives non-finite values (and a rejected step)
-    # without the host synchronisation of torch.linalg.inv's error check
-    Minv = torch.linalg.inv_ex(M).inverse
-    return Minv.reshape(num_p, 36).T.reshape(6, 6, num_p)
+    with trace.span("rows.block_diag_inv"):
+        H = HplT.shape[1]
+        d36 = torch.einsum("ike,jke->ije", W.view(6, 3, H), HplT.view(6, 3, H)).reshape(36, H)
+        corr = _pose_accum(d36.contiguous(), rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        M = (HppT[:36] - comm.all_reduce_sum(corr, group)).T.reshape(num_p, 6, 6)
+        M = M + lam * torch.eye(6, dtype=M.dtype, device=M.device)
+        # inv_ex: a singular block gives non-finite values (and a rejected step)
+        # without the host synchronisation of torch.linalg.inv's error check
+        Minv = torch.linalg.inv_ex(M).inverse
+        return Minv.reshape(num_p, 36).T.reshape(6, 6, num_p)
 
 
 def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowConsts,
@@ -755,7 +769,10 @@ def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowC
     one = torch.ones((), dtype=bT.dtype, device=bT.device)
     rr = dot(r, r)
     k = 0
-    while k < max_iterations and bool(rr > tol2):
+    while k < max_iterations:
+        with trace.span("read.cg_stop"):
+            if not bool(rr > tol2):
+                break
         Ap = schur_matvec_rows(HppT, HplT, W, lam, p, num_p, num_l, plan, rc, group)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, one, pAp)

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.ops import segmm, smallmat
 from cuba_tpu_torch.ops.segmm import SegmentCSR
 from cuba_tpu_torch.solver import comm
@@ -34,7 +35,8 @@ class SchurConsts(NamedTuple):
 def schur_consts(s, device) -> SchurConsts:
     """Upload a structure's Schur tables and build their CSRs."""
     def ids(a):
-        return torch.as_tensor(a, dtype=torch.int64, device=device)
+        with trace.span("engine.upload"):
+            return torch.as_tensor(a, dtype=torch.int64, device=device)
 
     return SchurConsts(
         ids(s.hpl_row), ids(s.hpl_col), ids(s.hsc_row), ids(s.hsc_col),

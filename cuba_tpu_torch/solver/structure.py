@@ -16,7 +16,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from cuba_tpu_torch import native
+from cuba_tpu_torch import native, trace
 
 PDIM = 6  # pose block size
 LDIM = 3  # landmark block size
@@ -92,41 +92,42 @@ def build_structure_from_arrays(
     fixed appended after; both-fixed edges dropped.  Vertices with no edges
     are kept (they simply have empty rows).
     """
-    nP, nL = qs.shape[0], Xws.shape[0]
-    fixed_pose_mask = np.asarray(fixed_pose_mask, bool)
-    fixed_lm_mask = np.asarray(fixed_lm_mask, bool)
+    with trace.span("structure"):
+        nP, nL = qs.shape[0], Xws.shape[0]
+        fixed_pose_mask = np.asarray(fixed_pose_mask, bool)
+        fixed_lm_mask = np.asarray(fixed_lm_mask, bool)
 
-    def perm_of(fixed_mask):
-        order = np.concatenate([np.where(~fixed_mask)[0], np.where(fixed_mask)[0]])
-        inv = np.empty_like(order)
-        inv[order] = np.arange(order.size)
-        return order, inv
+        def perm_of(fixed_mask):
+            order = np.concatenate([np.where(~fixed_mask)[0], np.where(fixed_mask)[0]])
+            inv = np.empty_like(order)
+            inv[order] = np.arange(order.size)
+            return order, inv
 
-    p_order, p_inv = perm_of(fixed_pose_mask)
-    l_order, l_inv = perm_of(fixed_lm_mask)
-    num_p = int((~fixed_pose_mask).sum())
-    num_l = int((~fixed_lm_mask).sum())
+        p_order, p_inv = perm_of(fixed_pose_mask)
+        l_order, l_inv = perm_of(fixed_lm_mask)
+        num_p = int((~fixed_pose_mask).sum())
+        num_l = int((~fixed_lm_mask).sum())
 
-    def gather(ep, el, ez, ew, mdim):
-        ep = np.asarray(ep, np.int64)
-        el = np.asarray(el, np.int64)
-        keep = ~(fixed_pose_mask[ep] & fixed_lm_mask[el])
-        return EdgeArrays(
-            np.asarray(ez, np.float64).reshape(-1, mdim)[keep],
-            np.asarray(ew, np.float64)[keep],
-            p_inv[ep[keep]].astype(np.int32),
-            l_inv[el[keep]].astype(np.int32),
+        def gather(ep, el, ez, ew, mdim):
+            ep = np.asarray(ep, np.int64)
+            el = np.asarray(el, np.int64)
+            keep = ~(fixed_pose_mask[ep] & fixed_lm_mask[el])
+            return EdgeArrays(
+                np.asarray(ez, np.float64).reshape(-1, mdim)[keep],
+                np.asarray(ew, np.float64)[keep],
+                p_inv[ep[keep]].astype(np.int32),
+                l_inv[el[keep]].astype(np.int32),
+            )
+
+        return _finish_structure(
+            num_p, num_l, nP, nL,
+            np.asarray(qs, np.float64)[p_order],
+            np.asarray(ts, np.float64)[p_order],
+            np.asarray(cams, np.float64)[p_order],
+            np.asarray(Xws, np.float64)[l_order],
+            gather(mono_p, mono_l, mono_z, mono_w, 2),
+            gather(stereo_p, stereo_l, stereo_z, stereo_w, 3),
         )
-
-    return _finish_structure(
-        num_p, num_l, nP, nL,
-        np.asarray(qs, np.float64)[p_order],
-        np.asarray(ts, np.float64)[p_order],
-        np.asarray(cams, np.float64)[p_order],
-        np.asarray(Xws, np.float64)[l_order],
-        gather(mono_p, mono_l, mono_z, mono_w, 2),
-        gather(stereo_p, stereo_l, stereo_z, stereo_w, 3),
-    )
 
 
 def build_structure(
@@ -143,62 +144,63 @@ def build_structure(
     0..n-1 in id order, fixed ones are appended after; edges with both
     endpoints fixed are dropped.  Sets each vertex's ``iP`` / ``iL``.
     """
-    active_p, fixed_p = [], []
-    for pid in pose_ids_sorted:
-        v = poses[pid]
-        if v.edges:
-            (fixed_p if v.fixed else active_p).append(v)
-    active_l, fixed_l = [], []
-    for lid in lm_ids_sorted:
-        v = landmarks[lid]
-        if v.edges:
-            (fixed_l if v.fixed else active_l).append(v)
+    with trace.span("structure"):
+        active_p, fixed_p = [], []
+        for pid in pose_ids_sorted:
+            v = poses[pid]
+            if v.edges:
+                (fixed_p if v.fixed else active_p).append(v)
+        active_l, fixed_l = [], []
+        for lid in lm_ids_sorted:
+            v = landmarks[lid]
+            if v.edges:
+                (fixed_l if v.fixed else active_l).append(v)
 
-    num_p, num_l = len(active_p), len(active_l)
-    all_p = active_p + fixed_p
-    all_l = active_l + fixed_l
-    for i, v in enumerate(all_p):
-        v.iP = i
-    for i, v in enumerate(all_l):
-        v.iL = i
+        num_p, num_l = len(active_p), len(active_l)
+        all_p = active_p + fixed_p
+        all_l = active_l + fixed_l
+        for i, v in enumerate(all_p):
+            v.iP = i
+        for i, v in enumerate(all_l):
+            v.iL = i
 
-    total_p, total_l = len(all_p), len(all_l)
-    qs = np.stack([v.q for v in all_p]) if total_p else np.zeros((0, 4))
-    ts = np.stack([v.t for v in all_p]) if total_p else np.zeros((0, 3))
-    cams = np.stack([v.camera.to_array() for v in all_p]) if total_p else np.zeros((0, 5))
-    Xws = np.stack([v.Xw for v in all_l]) if total_l else np.zeros((0, 3))
+        total_p, total_l = len(all_p), len(all_l)
+        qs = np.stack([v.q for v in all_p]) if total_p else np.zeros((0, 4))
+        ts = np.stack([v.t for v in all_p]) if total_p else np.zeros((0, 3))
+        cams = np.stack([v.camera.to_array() for v in all_p]) if total_p else np.zeros((0, 5))
+        Xws = np.stack([v.Xw for v in all_l]) if total_l else np.zeros((0, 3))
 
-    def gather(edges, mdim):
-        meas, om, pi, li = [], [], [], []
-        for e in edges:
-            vp, vl = e.vertexP, e.vertexL
-            if vp.fixed and vl.fixed:
-                continue
-            meas.append(e.measurement)
-            om.append(e.information)
-            pi.append(vp.iP)
-            li.append(vl.iL)
-        if meas:
+        def gather(edges, mdim):
+            meas, om, pi, li = [], [], [], []
+            for e in edges:
+                vp, vl = e.vertexP, e.vertexL
+                if vp.fixed and vl.fixed:
+                    continue
+                meas.append(e.measurement)
+                om.append(e.information)
+                pi.append(vp.iP)
+                li.append(vl.iL)
+            if meas:
+                return EdgeArrays(
+                    np.asarray(meas, dtype=np.float64).reshape(-1, mdim),
+                    np.asarray(om, dtype=np.float64),
+                    np.asarray(pi, dtype=np.int32),
+                    np.asarray(li, dtype=np.int32),
+                )
             return EdgeArrays(
-                np.asarray(meas, dtype=np.float64).reshape(-1, mdim),
-                np.asarray(om, dtype=np.float64),
-                np.asarray(pi, dtype=np.int32),
-                np.asarray(li, dtype=np.int32),
+                np.zeros((0, mdim)), np.zeros(0), np.zeros(0, np.int32), np.zeros(0, np.int32)
             )
-        return EdgeArrays(
-            np.zeros((0, mdim)), np.zeros(0), np.zeros(0, np.int32), np.zeros(0, np.int32)
-        )
 
-    s = _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
-                          gather(mono_edges, 2), gather(stereo_edges, 3))
-    # the symbolic pass renumbers active landmarks (and maybe active poses):
-    # keep the vertices' internal indices in step so write-back hits their rows
-    for v in active_l:
-        v.iL = int(s.lm_rank[v.iL])
-    if s.pose_rank is not None:
-        for v in active_p:
-            v.iP = int(s.pose_rank[v.iP])
-    return s
+        s = _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
+                              gather(mono_edges, 2), gather(stereo_edges, 3))
+        # the symbolic pass renumbers active landmarks (and maybe active poses):
+        # keep the vertices' internal indices in step so write-back hits their rows
+        for v in active_l:
+            v.iL = int(s.lm_rank[v.iL])
+        if s.pose_rank is not None:
+            for v in active_p:
+                v.iP = int(s.pose_rank[v.iP])
+        return s
 
 
 def _pose_band_perm(num_p, mono: EdgeArrays, stereo: EdgeArrays):
@@ -354,7 +356,8 @@ def _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
     """Shared symbolic pass: pose band permutation, landmark locality
     reorder, the Hpl slot pattern, the Hsc pattern and the Schur triplets
     (C++ when built, else NumPy)."""
-    pose_rank = _pose_band_perm(num_p, mono, stereo)
+    with trace.span("structure.band_perm"):
+        pose_rank = _pose_band_perm(num_p, mono, stereo)
     if pose_rank is not None:
         order = np.argsort(pose_rank)  # new -> old
         qs, ts, cams = qs.copy(), ts.copy(), cams.copy()
@@ -370,9 +373,10 @@ def _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
         mono = remap_poses(mono)
         stereo = remap_poses(stereo)
     if num_l:
-        lm_rank, mono, mono_perm, stereo, stereo_perm, Xws = _locality_reorder(
-            num_l, mono, stereo, Xws
-        )
+        with trace.span("structure.locality"):
+            lm_rank, mono, mono_perm, stereo, stereo_perm, Xws = _locality_reorder(
+                num_l, mono, stereo, Xws
+            )
     else:
         lm_rank = np.zeros(0, np.int64)
         mono_perm = np.arange(mono.count, dtype=np.int64)
@@ -380,9 +384,10 @@ def _finish_structure(num_p, num_l, total_p, total_l, qs, ts, cams, Xws,
 
     e_pi = np.concatenate([mono.pose_idx, stereo.pose_idx])
     e_li = np.concatenate([mono.lm_idx, stereo.lm_idx])
-    sym = native.symbolic_compile(e_pi, e_li, num_p, num_l)
-    if sym is None:
-        sym = _symbolic_numpy(e_pi, e_li, num_p, num_l, total_p)
+    with trace.span("structure.symbolic"):
+        sym = native.symbolic_compile(e_pi, e_li, num_p, num_l)
+        if sym is None:
+            sym = _symbolic_numpy(e_pi, e_li, num_p, num_l, total_p)
     hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, mul_i, mul_j, mul_k, schur_native = sym
     return BAStructure(
         num_p=num_p, num_l=num_l, total_p=total_p, total_l=total_l,

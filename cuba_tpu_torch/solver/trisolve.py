@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from cuba_tpu_torch import trace
 from cuba_tpu_torch.ops import cudalib
 from cuba_tpu_torch.ops.cudalib import LAUNCHES
 
@@ -110,21 +111,23 @@ def diag_launch(K: int) -> dict:
 def extract_diag_blocks(L, block: int = BLOCK):
     """[K, B, B] copy of L's diagonal B x B blocks.  On the card: B = 256
     and L 16-byte aligned (the kernel's float4 loads), else it raises."""
-    K = _stripes(L, block)
-    if not cudalib.use_kernel(L):
-        return extract_diag_blocks_plain(L, block)
-    cudalib.check(L, "L", torch.float32, 2)
-    if block != BLOCK:
-        raise ValueError(f"extract_diag_blocks: the kernel copies blocks of {BLOCK}, not {block}")
-    if L.data_ptr() % 16:
-        raise ValueError("extract_diag_blocks: L must be 16-byte aligned (float4 loads)")
-    # int64 offsets of L's rows; the copy's own indices (n * 64 float4) int32
-    cudalib.check_int32("extract_diag_blocks", K * BLOCK * BLOCK)
-    out = torch.empty((K, BLOCK, BLOCK), dtype=torch.float32, device=L.device)
-    cudalib.call("extract_diag_blocks", L, _lib().cuba_extract_diag_blocks,
-                 L.data_ptr(), L.shape[0], out.data_ptr())
-    LAUNCHES["extract_diag_blocks"] += 1
-    return out
+    with trace.span("k.extract_diag"):
+        K = _stripes(L, block)
+        if not cudalib.use_kernel(L):
+            return extract_diag_blocks_plain(L, block)
+        cudalib.check(L, "L", torch.float32, 2)
+        if block != BLOCK:
+            raise ValueError(f"extract_diag_blocks: the kernel copies blocks of {BLOCK}, "
+                             f"not {block}")
+        if L.data_ptr() % 16:
+            raise ValueError("extract_diag_blocks: L must be 16-byte aligned (float4 loads)")
+        # int64 offsets of L's rows; the copy's own indices (n * 64 float4) int32
+        cudalib.check_int32("extract_diag_blocks", K * BLOCK * BLOCK)
+        out = torch.empty((K, BLOCK, BLOCK), dtype=torch.float32, device=L.device)
+        cudalib.call("extract_diag_blocks", L, _lib().cuba_extract_diag_blocks,
+                     L.data_ptr(), L.shape[0], out.data_ptr())
+        LAUNCHES["extract_diag_blocks"] += 1
+        return out
 
 
 def tri_inv_blocks(Ld: torch.Tensor) -> torch.Tensor:
@@ -160,9 +163,10 @@ def solve_lower(L, invd, b, block: int = BLOCK):
     ``walks.solve_lower_walk``), left-looking over row stripes, after one
     zeroing of its workspace; B = 256, and L and invd 16-byte aligned,
     else it raises."""
-    if not _check_sweep(L, invd, b, block):
-        return solve_lower_plain(L, invd, b, block)
-    return _sweep_kernel("solve_lower", L, invd, b, block)
+    with trace.span("k.solve_lower"):
+        if not _check_sweep(L, invd, b, block):
+            return solve_lower_plain(L, invd, b, block)
+        return _sweep_kernel("solve_lower", L, invd, b, block)
 
 
 def _sweep_kernel(name, L, invd, v, block):
@@ -219,9 +223,10 @@ def solve_upper(L, invd, y, block: int = BLOCK):
     ``solve_upper_kernel`` (:func:`solve_upper_launch`,
     ``walks.solve_upper_walk``) after one zeroing of its workspace; B = 256,
     and L and invd 16-byte aligned, else it raises."""
-    if not _check_sweep(L, invd, y, block):
-        return solve_upper_plain(L, invd, y, block)
-    return _sweep_kernel("solve_upper", L, invd, y, block)
+    with trace.span("k.solve_upper"):
+        if not _check_sweep(L, invd, y, block):
+            return solve_upper_plain(L, invd, y, block)
+        return _sweep_kernel("solve_upper", L, invd, y, block)
 
 
 def solve_upper_launch(n: int) -> dict:
@@ -269,19 +274,20 @@ def _float4(A, x) -> bool:
 def matvec(A, x, block: int = BLOCK):
     """y = A x in exact fp32, one fixed summation order per row
     (``walks.matvec_walk``; the iterative-refinement residual)."""
-    n = A.shape[0]
-    if A.dim() != 2 or A.shape[1] != n or tuple(x.shape) != (n,):
-        raise ValueError(f"A {tuple(A.shape)} and x {tuple(x.shape)} do not fit")
-    if not cudalib.use_kernel(A, x):
-        return matvec_plain(A, x, block)
-    cudalib.check(A, "A", torch.float32, 2)
-    cudalib.check(x, "x", torch.float32, 1)
-    cudalib.check_int32("matvec", n)  # int64 offsets of A's rows
-    if n == 0:
-        return torch.empty_like(x)
-    y = _matvec_kernel(A, x, matvec_slices(n))
-    LAUNCHES["matvec"] += 1
-    return y
+    with trace.span("k.matvec"):
+        n = A.shape[0]
+        if A.dim() != 2 or A.shape[1] != n or tuple(x.shape) != (n,):
+            raise ValueError(f"A {tuple(A.shape)} and x {tuple(x.shape)} do not fit")
+        if not cudalib.use_kernel(A, x):
+            return matvec_plain(A, x, block)
+        cudalib.check(A, "A", torch.float32, 2)
+        cudalib.check(x, "x", torch.float32, 1)
+        cudalib.check_int32("matvec", n)  # int64 offsets of A's rows
+        if n == 0:
+            return torch.empty_like(x)
+        y = _matvec_kernel(A, x, matvec_slices(n))
+        LAUNCHES["matvec"] += 1
+        return y
 
 
 def _matvec_kernel(A, x, slices: int):

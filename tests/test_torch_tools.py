@@ -4,7 +4,7 @@ The large-landmark tool's graph at a reduced size against ``cuba_tpu``'s
 fp64 engine (the XLA path, ``mxu="off"``) per iteration to 1e-6; each
 tool's ``main([... "--device", "cpu"])`` at a tiny size; each tool's
 refusal to run without the card it asks for by default; the crossover's
-error rule; the split of ``initialize()`` summing to its wall; the
+error rule; the split of ``initialize()`` by the spans inside it; the
 kitti07 parity against the oracle copy at 12 poses / 300 landmarks; the
 roofline work counts against hand counts; the roofline table's call sites
 equal to ``chip_smoke.py``'s kernel checks; and the probes' yardstick,
@@ -202,17 +202,23 @@ def test_crossover_records_out_of_memory_and_goes_on(monkeypatch, capsys):
 
 
 def test_profile_ctor_steps_sum_to_initialize():
-    """The steps of one trial sum to within 5% of its initialize() wall, the
-    ones the split names are there, and the wrapped functions are restored."""
-    before = {(o, n): getattr(o, n) for o, n, _s, _d in profile_ctor.STEPS}
+    """Every step span of one trial lies inside initialize()'s spans
+    (``structure`` and ``engine``), the ones the split names are there, each
+    step's own seconds are at most its seconds, and the unattributed and
+    outside seconds are the rest of the wall."""
     r = profile_ctor.trial(synthetic.generate(**BAND), BAConfig(device="cpu"))
-    assert abs(r["unattributed"]) <= profile_ctor.TOLERANCE * r["wall"], r
-    assert {"graph arrays", "resolve_solver", "row tables", "window plans", "schur_lane_csr",
-            "band / dense tables", "segment CSRs", "upload", "edge list"} <= set(r["steps"])
-    assert any(k.startswith("symbolic pass") for k in r["steps"])
-    assert all(v >= 0 for v in r["steps"].values()) and r["first_residual"] > 0
+    roots = [(a, b) for n, a, b in r["spans"] if n in profile_ctor.ROOTS]
+    assert sorted(n for n, _a, _b in r["spans"] if n in profile_ctor.ROOTS) == \
+        ["engine", "structure"]
+    for n, a, b in r["spans"]:
+        assert any(a0 <= a and b <= b0 for a0, b0 in roots), n
+    assert set(profile_ctor.WHAT) <= set(r["steps"])
+    assert all(0 <= own <= sec + 1e-9 for sec, own in r["steps"].values())
+    assert 0 <= r["unattributed"] and 0 <= r["outside"]
+    assert r["unattributed"] + sum(own for _s, own in r["steps"].values()) + r["outside"] == \
+        pytest.approx(r["wall"], rel=1e-6)
+    assert r["first_residual"] > 0 and not torch.autograd.profiler._is_profiler_enabled
     assert (r["route"], r["solver"]) == ("v2", "band_cr")
-    assert all(getattr(o, n) is fn for (o, n), fn in before.items())
 
 
 def test_parity_kitti07_small_graph_against_the_oracle(tmp_path):
