@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero, before the result line):
 
 1. Device and build: the card's name and power limit, the torch and CUDA
-   versions, the nvcc builds of ``cuba_tpu_torch/csrc/segmm.cu`` and
-   ``csrc/trisolve.cu`` (one nvcc each, in parallel, timed) and which
-   symbolic pass (C++ or NumPy) the host runs.
+   versions, the nvcc builds of ``cuba_tpu_torch/csrc/segmm.cu``,
+   ``csrc/trisolve.cu`` and ``csrc/edgeterms.cu`` (one nvcc each, in
+   parallel, timed) and which symbolic pass (C++ or NumPy) the host runs.
 2. Kernels against their plain torch versions, on the slice's own plan and
    tensors (the problem below after ``initialize()``): gathers must be equal
    bit for bit, segment sums within 1e-5 of each output's sum of |vals|,
@@ -45,10 +45,12 @@ Phases (any failure exits non-zero, before the result line):
    of the path must have launched.
 6. Every kernel of the band path against its plain version on that run's
    plan and first-attempt tensors: kernels 1-6 at phase 2's call sites,
-   ``tiled_segsum`` also at the combine of ``rows.schur_compact``, and
-   kernels 7-8 (``schur_fused``, ``compact_to_band``).  Gathers and
-   ``compact_to_band`` equal bit for bit, sums within 1e-5 of each
-   output's sum of |terms|; median CUDA-event times of 25 launches.
+   ``tiled_segsum`` also at the combine of ``rows.schur_compact``, kernels
+   7-8 (``schur_fused``, ``compact_to_band``) and ``edge_terms`` (the
+   per-edge Gauss-Newton terms, mono and stereo, on the engine's initial
+   state).  Gathers and ``compact_to_band`` equal bit for bit, sums and
+   the edge terms within 1e-5 of each output's sum of |terms|; median
+   CUDA-event times of 25 launches.
 7. Phase 5's run with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
 8. The dense path through the public API: ``bench.py --quick``'s kitti07
@@ -139,8 +141,8 @@ Phases (any failure exits non-zero, before the result line):
    with finite, falling chi² lines.
 16. fp64 on the card (``BAConfig(dtype=float64, device="cuda")``): the
    fp64 builds of kernels 1-10 (entries ``cuba_<name>_f64`` of
-   ``csrc/segmm.cu``) and, in the dense solve, ``cholesky_ex`` +
-   ``solve_triangular`` (the ``trisolve.cu`` kernels are fp32 only, as
+   ``csrc/segmm.cu``) and of ``edge_terms`` (``csrc/edgeterms.cu``) and,
+   in the dense solve, ``cholesky_ex`` + ``solve_triangular`` (the ``trisolve.cu`` kernels are fp32 only, as
    ``cuba_tpu``'s are).  Phase 5's fp32 trajectory is logged against the
    recorded fp64 one (``CHI2_FP64_TRAJECTORY``, copied from
    ``docs/_parity_kitti00_fp64.json``; not gated).  Then, for each path, a
@@ -150,7 +152,7 @@ Phases (any failure exits non-zero, before the result line):
    |terms|, a second launch bit for bit; timed as in phase 2), and a
    counted run in which every launch must be an fp64 one
    (``LAUNCHES_F64`` equal to ``LAUNCHES``): the kitti00 loop (``auto`` ->
-   ``band_cr`` m = 22 on v2, kernels 1, 3-8), kitti07 (``dense_cholesky``
+   ``band_cr`` m = 22 on v2, kernels 1, 3-8 and ``edge_terms``), kitti07 (``dense_cholesky``
    on v2, kernels 2-7 and 9) and the kitti00 odometry graph with the v2
    gate closed (v1, ``band_cr``, kernels 1-7 and 10), each ``optimize(10)``
    within 1e-6 of its recorded fp64 trajectory at every iteration, each
@@ -359,10 +361,11 @@ TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec
 # build's segmm.kernel_attributes), logged beside its times
 LAUNCH_NOTES = ("grid", "threads", "smem", "registers", "spill_bytes", "blocks_per_sm",
                 "loads", "tile", "slices", "accs", "float4")
-# the __global__ names of csrc/segmm.cu and csrc/trisolve.cu, as a profile lists them
+# the __global__ names of csrc/segmm.cu, csrc/trisolve.cu and csrc/edgeterms.cu, as a
+# profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
                 "compact_to_dense", "band_transpose", "extract_diag", "solve_lower_kernel",
-                "solve_upper_kernel", "matvec_kernel")
+                "solve_upper_kernel", "matvec_kernel", "edge_terms_kernel")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -378,10 +381,14 @@ REPLACES = {
     "solve_upper": "cuba_tpu/solver/trisolve.py:159",
     "matvec": "cuba_tpu/solver/trisolve.py:200",
     "band_transpose": "cuba_tpu/ops/segmm.py:903",
+    # no Pallas kernel: XLA fused term_rows on the TPU
+    "edge_terms": "none (XLA fused cuba_tpu/solver/edgerows.py:132 term_rows)",
 }
 
 
 def kernel_source(name: str) -> str:
+    if name == "edge_terms":
+        return "cuba_tpu_torch/csrc/edgeterms.cu"
     return "cuba_tpu_torch/csrc/" + ("trisolve.cu" if name in TRISOLVE_KERNELS else "segmm.cu")
 
 
@@ -537,7 +544,8 @@ def compare_cases(cases, torch, bound_of, dtype=None):
     """Each case's kernel against its plain version, both of ``dtype``
     (float32 by default; the bound's operations counted in it): equal bit
     for bit ("exact"), or within ``bound_of(*kind)`` elementwise; and a
-    second launch equal bit for bit to the first.  A case is (kind, call, kernel,
+    second launch equal bit for bit to the first (a call that returns
+    several tables is compared on them concatenated).  A case is (kind, call, kernel,
     plain, (bytes, flops), library call or None[, notes]); its label is the
     wrapper's name, with ``:site`` where one wrapper has two call sites.
     Then the kernel, the plain version and the library call of every case
@@ -548,10 +556,14 @@ def compare_cases(cases, torch, bound_of, dtype=None):
     library_cold_device_ms, **notes}}."""
     out, fns = {}, {}
     dtype = torch.float32 if dtype is None else dtype
+
+    def joined(r):  # a call that returns several tables is compared on all of them
+        return torch.cat(r) if isinstance(r, tuple) else r
+
     for name, (kind, call, kern, plain, work, library, *notes) in cases.items():
-        got = call(kern)
+        got = joined(call(kern))
         torch.cuda.synchronize()
-        ref = call(plain)
+        ref = joined(call(plain))
         if got.shape != ref.shape or got.dtype != dtype or ref.dtype != dtype:
             fail(f"{name}: kernel gave {tuple(got.shape)} {got.dtype}, "
                  f"plain {tuple(ref.shape)} {ref.dtype}")
@@ -562,7 +574,7 @@ def compare_cases(cases, torch, bound_of, dtype=None):
         elif not bool((diff <= bound_of(*kind)).all()):
             fail(f"{name}: kernel and plain sums differ beyond the stated bound "
                  f"(max abs diff {float(diff.max())})")
-        again = call(kern)
+        again = joined(call(kern))
         if not bool((got.view(torch.int32) == again.view(torch.int32)).all()):
             fail(f"{name}: two launches on the same input gave different bits")
         err = float(diff.max()) if diff.numel() else 0.0
@@ -640,9 +652,10 @@ def sites_bound(sites, segmm):
 def check_band_kernels(engine, torch, segmm):
     """Phase 6: every kernel of the band path against its plain version on
     the band run's plan and first-attempt tensors: kernels 1-7 (as
-    :func:`check_schur_kernels`) and ``compact_to_band``.  Returns the
-    kernel entries.  (The CR factor and solve with each diagonal-block
-    inverse are timed in phase 19, stage by stage.)"""
+    :func:`check_schur_kernels`), ``compact_to_band`` and ``edge_terms``
+    (:func:`check_edge_terms`).  Returns the kernel entries.  (The CR
+    factor and solve with each diagonal-block inverse are timed in phase
+    19, stage by stage.)"""
     from cuba_tpu_torch.solver import rows
 
     plan, rc = engine.plan, engine.rc
@@ -652,7 +665,32 @@ def check_band_kernels(engine, torch, segmm):
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, plan.pad_blocks)
     out.update(compare_cases({"compact_to_band": band_case(gT, dbT, engine, segmm, torch)},
                              torch, None, engine.dtype))
+    out.update(check_edge_terms(engine, torch))
     return out
+
+
+def check_edge_terms(engine, torch):
+    """``edge_terms`` (``edgerows.term_rows``) against its plain version
+    (``term_rows_plain``) at each edge type's call site on the engine's
+    initial state (``roofline.edge_sites``): the three tables within
+    :func:`sum_rtol` of each entry's sum of |products|
+    (``edgerows.term_rows_scale``: both versions form the same weighted
+    Jacobians, one rounding an operation, and sum their products in other
+    orders; an entry that cancels to 0 in exact arithmetic, as Hpp's (2, 5)
+    does where fu == fv, is rounding alone), timed as every case.  No one
+    PyTorch call computes the terms (library "none").  Returns {label:
+    entry}."""
+    from cuba_tpu_torch.solver import edgerows
+
+    sites = roofline.edge_sites(engine)
+    cases = {label: (("edge_terms", site.args), site.call, edgerows.term_rows,
+                     edgerows.term_rows_plain, site.work(), None)
+             for label, site in sites.items()}
+
+    def bound_of(_kind, args):
+        return sum_rtol(args[0]) * torch.cat(edgerows.term_rows_scale(*args))
+
+    return compare_cases(cases, torch, bound_of, engine.dtype)
 
 
 def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True, trisolve_kernels=True):
@@ -846,7 +884,7 @@ def expected_kernels(facts):
     path, solver = str(facts["path"]), str(facts["solver"])
     if path == "aos":
         return {"accum_segsum"}  # the AoS path's segment sums
-    expected = {"tiled_gather", "tiled_segsum",
+    expected = {"tiled_gather", "tiled_segsum", "edge_terms",
                 "windowed_gather" if bool(facts["windowed"]) else "resident_gather"}
     for ok in facts["paw_ok"]:
         expected.add("accum_segsum_windowed" if ok else "accum_segsum")
@@ -1636,11 +1674,14 @@ def stress_cases(engine, torch, segmm):
     attempt), kept where the route launches the kernel
     (:func:`engine_kernels`: the windowed or the resident pose fetch by the
     ``windowed`` fact, the resident pose sums only where a window plan
-    fails).  Returns {label: entry}."""
+    fails), and ``edge_terms`` (:func:`check_edge_terms`).  Returns {label:
+    entry}."""
     keep = engine_kernels(engine)
     sites = {k: v for k, v in roofline.engine_sites(engine).items() if v.kernel in keep}
-    return compare_cases({k: site_case(v, segmm, torch) for k, v in sites.items()}, torch,
-                         sites_bound(sites, segmm), engine.dtype)
+    out = compare_cases({k: site_case(v, segmm, torch) for k, v in sites.items()}, torch,
+                        sites_bound(sites, segmm), engine.dtype)
+    out.update(check_edge_terms(engine, torch))
+    return out
 
 
 def peak_gib(torch) -> str:
@@ -1909,8 +1950,8 @@ def main() -> None:
         build_s = segmm.build_kernels()
     except (RuntimeError, OSError, subprocess.SubprocessError) as e:
         fail(f"kernel build failed: {e}")
-    log(f"nvcc builds of cuba_tpu_torch/csrc/segmm.cu and trisolve.cu (in parallel): "
-        f"{build_s:.2f} s")
+    log(f"nvcc builds of cuba_tpu_torch/csrc/segmm.cu, trisolve.cu and edgeterms.cu (in "
+        f"parallel): {build_s:.2f} s")
     log(f"symbolic pass: {native.backend()}")
 
     prob = synthetic.generate(**graphs.PCG4096)

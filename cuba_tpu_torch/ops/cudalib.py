@@ -13,10 +13,11 @@ tests and ``chip_smoke.py``.  Every kernel launch adds one to
 ``LAUNCHES[wrapper name]`` (:func:`count`), and an fp64 launch to
 ``LAUNCHES_F64[wrapper name]`` as well.
 
-Element types: ``csrc/segmm.cu`` builds each of its kernels for float32
-and float64 (entry ``cuba_<name>`` and its twin ``cuba_<name>_f64``,
-:func:`symbol`); a call takes the one float dtype of its float inputs
-(:func:`float_dtype`).  ``csrc/trisolve.cu`` is float32 only.
+Element types: ``csrc/segmm.cu`` and ``csrc/edgeterms.cu`` build each of
+their kernels for float32 and float64 (entry ``cuba_<name>`` and its twin
+``cuba_<name>_f64``, :func:`symbol`); a call takes the one float dtype of
+its float inputs (:func:`float_dtype`).  ``csrc/trisolve.cu`` is float32
+only.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ import torch
 from cuba_tpu_torch import native
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = {name: os.path.join(CSRC, f"{name}.cu") for name in ("segmm", "trisolve")}
+SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
+           for name in ("segmm", "trisolve", "edgeterms")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -54,6 +56,7 @@ LAUNCHES = {
     "solve_lower": 0,
     "solve_upper": 0,
     "matvec": 0,
+    "edge_terms": 0,
 }
 # the same counts, of fp64 launches only
 LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)

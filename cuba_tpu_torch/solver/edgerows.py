@@ -5,13 +5,18 @@ terms over ``[D, E]`` tensors, E on the last axis (port of
 Padding lanes carry gathered zeros, which would give inf/NaN through the
 1/Z projection; ``inv_z`` is therefore masked by validity, and the padded
 omega (0) kills what remains in the weighted terms.
+
+:func:`term_rows` is a hand kernel's call site: a CUDA tensor launches
+``ops/edgeterms.py``'s ``edge_terms`` (one launch an edge type), a CPU
+tensor or ``cudalib.use_plain()`` takes :func:`term_rows_plain`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cuba_tpu_torch.ops import robust
+from cuba_tpu_torch import trace
+from cuba_tpu_torch.ops import cudalib, edgeterms, robust
 
 
 def rotmat_rows(q4: torch.Tensor) -> torch.Tensor:
@@ -96,20 +101,52 @@ def jac_rows(Xc: torch.Tensor, R: torch.Tensor, inv_z: torch.Tensor,
     return JP, torch.stack([jl0, jl1, jl2])
 
 
-def term_rows(err, Xc, R, inv_z, cam, omega, kernel, mdim: int):
+def term_rows(g12, err, Xc, inv_z, omega, kernel, mdim: int):
     """Weighted GN term rows: (v42 [42, E], v12 [12, E], v18 [18, E]).
 
     Row order is the planner's table layout: Hpp row-major (i*6+j) then bp,
     Hll (a*3+b) then bl, Hpl (i*3+b).  Padding lanes have omega == 0.
+    g12 [12, E] are the gathered pose rows q(4), t(3), cam(5); err, Xc and
+    inv_z :func:`residual_rows`' of the same lanes.  On the card one
+    ``edge_terms`` launch (Hpp and Hll exactly symmetric there); on the
+    CPU, and under ``cudalib.use_plain()``, :func:`term_rows_plain`.
     """
-    E = err.shape[1]
+    with trace.span("k.edge_terms"):
+        if cudalib.use_kernel(g12, err, Xc, inv_z, omega):
+            return edgeterms.edge_terms(g12, err, Xc, inv_z, omega, kernel, mdim)
+        return term_rows_plain(g12, err, Xc, inv_z, omega, kernel, mdim)
+
+
+def term_rows_plain(g12, err, Xc, inv_z, omega, kernel, mdim: int):
+    """:func:`term_rows` in torch: the rotation, the Jacobians
+    (:func:`jac_rows`) and the IRLS weight (:func:`weighted_jacobians`),
+    then einsums over the lanes (:func:`weighted_products`)."""
+    return weighted_products(*weighted_jacobians(g12, err, Xc, inv_z, omega, kernel, mdim), err)
+
+
+def weighted_jacobians(g12, err, Xc, inv_z, omega, kernel, mdim: int):
+    """(wJP, JP, wJL, JL) of the lanes, w = omega rho'(omega |err|^2)."""
+    R = rotmat_rows(g12[0:4])
     w = omega * robust.weight(chi_per_edge(err, omega), kernel[0], kernel[1])
-    JP, JL = jac_rows(Xc, R, inv_z, cam, mdim)
-    wJP = w * JP
-    wJL = w * JL
+    JP, JL = jac_rows(Xc, R, inv_z, g12[7:12], mdim)
+    return w * JP, JP, w * JL, JL
+
+
+def weighted_products(wJP, JP, wJL, JL, err):
+    """The term tables (v42, v12, v18) of the weighted Jacobians."""
+    E = err.shape[1]
     v42 = torch.cat([torch.einsum("kie,kje->ije", wJP, JP).reshape(36, E),
                      torch.einsum("kie,ke->ie", wJP, err)])
     v12 = torch.cat([torch.einsum("kae,kbe->abe", wJL, JL).reshape(9, E),
                      torch.einsum("kae,ke->ae", wJL, err)])
     v18 = torch.einsum("kie,kbe->ibe", wJP, JL).reshape(18, E).contiguous()
     return v42, v12, v18
+
+
+def term_rows_scale(g12, err, Xc, inv_z, omega, kernel, mdim: int):
+    """Each term-table entry's sum of |products| (the scale of its
+    rounding, for comparing two summation orders): Hpp's (2, 5) entry, for
+    one, is 0 in exact arithmetic wherever fu == fv, so its computed value
+    is rounding alone."""
+    return weighted_products(*(t.abs() for t in weighted_jacobians(
+        g12, err, Xc, inv_z, omega, kernel, mdim)), err.abs())

@@ -540,9 +540,7 @@ def build_system_rows(pack_m, pack_s, kernels, num_p, num_l, plan: RowPlan, rc: 
             continue
         g12, err, Xc, inv_z = pack
         with trace.span("rows.edge_terms"):
-            R = edgerows.rotmat_rows(g12[0:4])
-            v42, v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], omegaT, kern,
-                                               mdim)
+            v42, v12, v18 = edgerows.term_rows(g12, err, Xc, inv_z, omegaT, kern, mdim)
         HppT = _pose_accum(v42, pose_ids, num_p, paw, c_p)
         HllT = segmm.tiled_segsum(v12, lm_ids, num_l, hll_p, hll_p.base_block, csr=c_l)
         HplT = segmm.tiled_segsum(v18, e2h, plan.hpl_pad, hpl_p, hpl_p.base_block, csr=c_h)

@@ -100,13 +100,26 @@ def dense_work(plan, rc, size: int = 4):
             + 4 * (2 * rc.iru.numel() + rc.occ2.numel()), 36 * PB)
 
 
+def edge_terms_work(E: int, mdim: int, size: int = 4):
+    """``edge_terms``' (bytes, flops) over E lanes for values of ``size``
+    bytes: each value it needs read once (q 4, fu fv 2, X Y 2, inv_z,
+    omega, err mdim and, in stereo, bf) and each of its 72 outputs written
+    once; flops: the 54 weighted products' (21 + 6 unique Hpp and Hll, 6 +
+    3 gradients, 18 Hpl, each mdim multiplies and mdim - 1 adds) and the
+    weighting's (9 mdim), plus ~60 for the rotation, the Jacobians and the
+    weight."""
+    reads = 10 + mdim + (mdim == 3)
+    return E * (reads + 72) * size, E * (54 * (2 * mdim - 1) + 9 * mdim + 60)
+
+
 class Site(NamedTuple):
     """A kernel wrapper's call at one of an engine's call sites: its name
     in ``ops.segmm`` (the plain version, ``kernel + "_plain"``, takes the
     same arguments), the arguments, and what its work is counted on:
     ``kind`` "gather" (inputs: src, ids), "segsum" (vals, ids, num_out,
     csr), "schur" (W, G, the plan's (plan, sb, li, lj, lk), csr), "band" or
-    "dense" (plan, rc, the values' element size)."""
+    "dense" (plan, rc, the values' element size), "edge_terms" (E, mdim,
+    the values' element size; its wrapper is ``edgerows.term_rows``)."""
 
     kernel: str
     args: tuple
@@ -127,6 +140,8 @@ class Site(NamedTuple):
         if self.kind == "schur":
             W, _G, sc, csr = self.inputs
             return schur_work(sc[0], sc, csr, W.element_size())
+        if self.kind == "edge_terms":
+            return edge_terms_work(*self.inputs)
         return (band_work if self.kind == "band" else dense_work)(*self.inputs)
 
 
@@ -156,9 +171,7 @@ def row_sites(engine):
     psrc[:, :total_p] = torch.cat([st.qs, st.ts, engine.cams], dim=1).T
     pack_m, pack_s, _chi = engine._residuals_and_chi(st)
     g12, err, Xc, inv_z = pack_m
-    R = edgerows.rotmat_rows(g12[0:4])
-    v42, _v12, v18 = edgerows.term_rows(err, Xc, R, inv_z, g12[7:12], rc.omegaT_m,
-                                        engine.kernels[0], 2)
+    v42, _v12, v18 = edgerows.term_rows(g12, err, Xc, inv_z, rc.omegaT_m, engine.kernels[0], 2)
     HppT, HllT, HplT = engine._build(pack_m, pack_s)
     lam = torch.ones((), dtype=st.qs.dtype, device=st.qs.device)
     iv9 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, plan, rc)[0]
@@ -186,6 +199,25 @@ def row_sites(engine):
                                csr=rc.csr_e2h_m),
         "accum_segsum": segsum("accum_segsum", v42, rc.pose_acc_m, P, csr=rc.csr_pose_m),
     }
+
+
+def edge_sites(engine):
+    """{label: Site} of ``edge_terms`` at ``rows.build_system_rows``' call,
+    one an edge type the engine holds (``edge_terms:mono``,
+    ``edge_terms:stereo``), on the engine's initial state."""
+    rc = engine.rc
+    packs = engine._residuals_and_chi(engine.state)[:2]
+    out = {}
+    for label, pack, omegaT, kern, mdim in (("mono", packs[0], rc.omegaT_m, engine.kernels[0], 2),
+                                            ("stereo", packs[1], rc.omegaT_s, engine.kernels[1],
+                                             3)):
+        if pack is None:
+            continue
+        g12, err, Xc, inv_z = pack
+        out[f"edge_terms:{label}"] = Site("edge_terms", (g12, err, Xc, inv_z, omegaT, kern, mdim),
+                                          {}, "edge_terms",
+                                          (g12.shape[1], mdim, g12.element_size()))
+    return out
 
 
 def schur_sites(engine, HplT, W):

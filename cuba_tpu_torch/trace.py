@@ -25,7 +25,9 @@ The names (``PERF.md`` §3 lists them with the metrics that read them):
   solvers' ``cr.factor``, ``cr.solve``, ``dense.factor`` and
   ``dense.solve``;
 - the hand kernels: ``k.<kernel>``, one a wrapper call of
-  ``ops/segmm.py`` or ``solver/trisolve.py`` (its plain version too).
+  ``ops/segmm.py`` or ``solver/trisolve.py``, or ``k.edge_terms`` one
+  ``edgerows.term_rows`` call (``ops/edgeterms.py``; the plain versions
+  too).
 """
 
 from __future__ import annotations

@@ -13,8 +13,8 @@ import torch
 
 from cuba_tpu_torch import BAConfig, EdgeType, RobustKernelType
 from cuba_tpu_torch.io import synthetic
-from cuba_tpu_torch.ops import segmm, walks
-from cuba_tpu_torch.solver import dense_cholesky, rows, structure, trisolve
+from cuba_tpu_torch.ops import robust, segmm, walks
+from cuba_tpu_torch.solver import dense_cholesky, edgerows, rows, structure, trisolve
 
 pytestmark = pytest.mark.gpu
 
@@ -117,6 +117,74 @@ def test_kernel_wrappers_reject_bad_input(cuda):
         segmm.resident_gather(torch.zeros((3, 10)), ids)
 
 
+def _edge_lanes(rng, E, mdim, dtype, device):
+    """(g12, err, Xc, inv_z, omega, valid) of E lanes of one edge type:
+    unit quaternions, KITTI cameras (fu == fv, so Hpp's (2, 5) entry
+    cancels), camera-frame points 2-30 m ahead, residuals of 0.01-30 pixels
+    (so both robust branches are taken), and a tenth of the lanes padding
+    as the front end leaves them (gathered zeros, so Xc 0; inv_z, err and
+    omega 0)."""
+    q = rng.standard_normal((4, E))
+    q /= np.linalg.norm(q, axis=0)
+    cam = np.array([718.856, 718.856, 607.19, 185.22, 386.14])[:, None].repeat(E, 1)
+    valid = rng.random(E) > 0.1
+    Xc = np.concatenate([rng.uniform(-20, 20, (2, E)), rng.uniform(2, 30, (1, E))])
+    err = rng.standard_normal((mdim, E)) * rng.choice([0.01, 1.0, 30.0], E)
+    vals = [np.concatenate([q, rng.standard_normal((3, E)), cam]), err, Xc, 1 / Xc[2],
+            rng.uniform(0.5, 2.0, E)]
+    for v in vals:
+        v[..., ~valid] = 0
+    return (*(torch.from_numpy(np.ascontiguousarray(v)).to(device, dtype) for v in vals),
+            torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["none", "huber", "tukey"])
+@pytest.mark.parametrize("mdim", [2, 3])
+def test_edge_terms_kernel_matches_plain(cuda, mdim, kind, dtype):
+    """``edge_terms`` against ``term_rows``' plain version on the card, at
+    E = 70,001 (no block size divides it): every entry within 1e-5 (fp32)
+    or 1e-12 (fp64) of its sum of |products| (``term_rows_scale``: both
+    form the weighted Jacobians alike and sum in other orders; an entry
+    that cancels, as Hpp's (2, 5) does here, is rounding alone); padding
+    lanes exactly 0; Hpp and Hll symmetric bit for bit; one launch a call,
+    an fp64 one in fp64; float16 and a mixed-device call raise."""
+    rng = np.random.default_rng(mdim * 10 + len(kind))
+    g12, err, Xc, inv_z, omega, valid = _edge_lanes(rng, 70001, mdim, dtype, cuda)
+    kernel = {"none": (robust.NONE, 0.0), "huber": (robust.HUBER, float(np.sqrt(5.991))),
+              "tukey": (robust.TUKEY, 3.0)}[kind]
+    args = (g12, err, Xc, inv_z, omega, kernel, mdim)
+    before, before64 = segmm.LAUNCHES["edge_terms"], segmm.LAUNCHES_F64["edge_terms"]
+    got = edgerows.term_rows(*args)
+    torch.cuda.synchronize()
+    assert segmm.LAUNCHES["edge_terms"] == before + 1
+    assert segmm.LAUNCHES_F64["edge_terms"] == before64 + (dtype == torch.float64)
+    with segmm.use_plain():
+        want = edgerows.term_rows(*args)
+    assert segmm.LAUNCHES["edge_terms"] == before + 1
+    scale = edgerows.term_rows_scale(*args)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    # both branches of the robust weight are taken
+    w = robust.weight(edgerows.chi_per_edge(err, omega), *kernel)[valid]
+    if kind == "huber":
+        assert bool((w < 1).any()) and bool((w == 1).any())
+    elif kind == "tukey":
+        assert bool((w == 0).any()) and bool((w > 0).any())
+    for g, w, sc, rows_ in zip(got, want, scale, (42, 12, 18)):
+        assert g.shape == (rows_, 70001) and g.dtype == dtype and g.is_contiguous()
+        assert bool(((g - w).abs() <= rtol * sc).all()), float(((g - w).abs() / sc).nan_to_num()
+                                                              .max())
+        assert bool((g[:, ~valid] == 0).all())
+    hpp, hll = got[0][:36].view(6, 6, -1), got[1][:9].view(3, 3, -1)
+    assert torch.equal(hpp, hpp.transpose(0, 1)) and torch.equal(hll, hll.transpose(0, 1))
+    # deterministic: a second launch gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, edgerows.term_rows(*args)))
+    with pytest.raises(TypeError):
+        edgerows.term_rows(*(a.half() if torch.is_tensor(a) else a for a in args))
+    with pytest.raises(ValueError):
+        edgerows.term_rows(g12, err, Xc, inv_z.cpu(), omega, kernel, mdim)
+
+
 def test_slice_on_card_matches_plain(cuda):
     prob = synthetic.generate(num_poses=40, num_landmarks=600, seed=4)
 
@@ -131,7 +199,7 @@ def test_slice_on_card_matches_plain(cuda):
 
     segmm.reset_launches()
     got = run()
-    assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum"))
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum", "edge_terms"))
     with segmm.use_plain():
         want = run()
     n = min(len(got), len(want))

@@ -12,7 +12,7 @@ import sys
 import pytest
 import torch
 
-from cuba_tpu_torch.ops import cudalib, segmm
+from cuba_tpu_torch.ops import cudalib, edgeterms, segmm
 from cuba_tpu_torch.solver import trisolve
 
 torch.set_num_threads(1)
@@ -202,7 +202,9 @@ def test_kernel_source_and_binding_import_without_nvcc():
             (trisolve.KERNEL_SRC, ("cuba_extract_diag_blocks", "cuba_solve_lower",
                                    "cuba_solve_lower_work", "cuba_solve_upper",
                                    "cuba_solve_upper_work", "cuba_matvec"),
-             trisolve._SIGNATURES)):
+             trisolve._SIGNATURES),
+            (edgeterms.KERNEL_SRC, ("cuba_edge_terms", "cuba_edge_terms_f64"),
+             edgeterms._SIGNATURES)):
         src = open(path).read()
         for entry in entries + ("__global__",):
             assert entry in src, (path, entry)
@@ -212,7 +214,8 @@ def test_kernel_source_and_binding_import_without_nvcc():
             assert len(head) == 2 and head[0].rstrip().endswith(("int", "int64_t")), entry
             params = head[1].split(")", 1)[0]
             assert params.count(",") + 1 == len(argtypes), (entry, params)
-    assert sorted(cudalib.SOURCES.values()) == sorted([segmm.KERNEL_SRC, trisolve.KERNEL_SRC])
+    assert sorted(cudalib.SOURCES.values()) == sorted([segmm.KERNEL_SRC, trisolve.KERNEL_SRC,
+                                                       edgeterms.KERNEL_SRC])
     assert "arch=compute_90a,code=sm_90a" in cudalib.NVCC_FLAGS
 
 
