@@ -39,9 +39,11 @@ def _cholesky(As: torch.Tensor):
     """(L, info), L lower and row-major.  torch returns factors in
     column-major storage; the upper factor's is L in row-major order, which
     the stripe kernels read row by row (``contiguous`` copies nothing
-    then)."""
-    U, info = torch.linalg.cholesky_ex(As, upper=True)
-    return U.mT.contiguous(), info
+    then).  Each call, the first factorisation and every boost retry, is
+    one ``dense.cholesky`` span."""
+    with trace.span("dense.cholesky"):
+        U, info = torch.linalg.cholesky_ex(As, upper=True)
+        return U.mT.contiguous(), info
 
 
 def factor(As: torch.Tensor):
@@ -71,34 +73,37 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor, refinement_steps: int = 0,
     """Solve A x = b for SPD A [n, n].  Returns (x, ok, host_reads); x is 0
     where ok is False.  ``use_kernels`` takes the blocked sweeps of
     :mod:`trisolve` (their kernels on the card; n must pass
-    :func:`trisolve.usable` there)."""
-    s = torch.rsqrt(torch.clamp(torch.diagonal(A), min=1e-30))
-    L, reads = factor(A * s[:, None] * s[None, :])
+    :func:`trisolve.usable` there).  The whole solve is one ``dense`` span,
+    the diagonal blocks' inverses one ``dense.prepare``."""
+    with trace.span("dense"):
+        s = torch.rsqrt(torch.clamp(torch.diagonal(A), min=1e-30))
+        L, reads = factor(A * s[:, None] * s[None, :])
 
-    if use_kernels:
-        invd = trisolve.prepare(L)
+        if use_kernels:
+            with trace.span("dense.prepare"):
+                invd = trisolve.prepare(L)
 
-        def solve_with(rhs):
-            with trace.span("dense.solve"):
-                y = trisolve.solve_lower(L, invd, rhs * s)
-                return s * trisolve.solve_upper(L, invd, y)
+            def solve_with(rhs):
+                with trace.span("dense.solve"):
+                    y = trisolve.solve_lower(L, invd, rhs * s)
+                    return s * trisolve.solve_upper(L, invd, y)
 
-        def mv(v):
-            return trisolve.matvec(A, v)
-    else:
-        def solve_with(rhs):
-            with trace.span("dense.solve"):
-                y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
-                return s * torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+            def mv(v):
+                return trisolve.matvec(A, v)
+        else:
+            def solve_with(rhs):
+                with trace.span("dense.solve"):
+                    y = torch.linalg.solve_triangular(L, (rhs * s)[:, None], upper=False)
+                    return s * torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
 
-        def mv(v):
-            return A @ v
+            def mv(v):
+                return A @ v
 
-    x = solve_with(b)
-    for _ in range(refinement_steps):
-        x2 = x + solve_with(b - mv(x))
-        # refinement diverges near the fp32 precision floor while the factor
-        # stays finite: keep the last finite iterate
-        x = torch.where(torch.isfinite(x2.sum()), x2, x)
-    ok = torch.isfinite(x).all()
-    return torch.where(ok, x, torch.zeros_like(x)), ok, reads
+        x = solve_with(b)
+        for _ in range(refinement_steps):
+            x2 = x + solve_with(b - mv(x))
+            # refinement diverges near the fp32 precision floor while the factor
+            # stays finite: keep the last finite iterate
+            x = torch.where(torch.isfinite(x2.sum()), x2, x)
+        ok = torch.isfinite(x).all()
+        return torch.where(ok, x, torch.zeros_like(x)), ok, reads

@@ -22,8 +22,10 @@ The names (``PERF.md`` §3 lists them with the metrics that read them):
 - the per-attempt algebra: ``rows.edge_residuals``, ``rows.edge_terms``,
   ``rows.prepare_factors``, ``rows.back_substitute``,
   ``rows.schur_matvec``, ``rows.block_diag_inv``, and the reduced
-  solvers' ``cr.factor``, ``cr.solve``, ``dense.factor`` and
-  ``dense.solve``;
+  solvers' ``cr.factor``, ``cr.solve`` and ``dense``: the whole dense
+  solve, with ``dense.factor`` (one ``dense.cholesky`` a factorisation,
+  the first and each boost retry), ``dense.prepare`` (the diagonal
+  blocks' inverses, where the blocked sweeps run) and ``dense.solve``;
 - the hand kernels: ``k.<kernel>``, one a wrapper call of
   ``ops/segmm.py`` or ``solver/trisolve.py``, or ``k.edge_terms`` one
   ``edgerows.term_rows`` call (``ops/edgeterms.py``; the plain versions

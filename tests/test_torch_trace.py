@@ -5,8 +5,10 @@
 ``optimize``, the planner's spans under ``engine`` and the symbolic pass's
 under ``structure``; one ``read.*`` span a host read that
 ``LMResult.host_reads`` counts, on ``band_cr``, ``dense_cholesky`` and
-``pcg``; the phase spans and ``PhaseMarks`` share their boundaries; and an
-unprofiled ``optimize`` makes no ``record_function`` call.
+``pcg``; the dense solve's spans, one ``dense.cholesky`` a factorisation
+(a boost retry opens another); the phase spans and ``PhaseMarks`` share
+their boundaries; and an unprofiled ``optimize`` makes no
+``record_function`` call.
 """
 
 import pytest
@@ -16,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cuba_tpu_torch import BAConfig
 from cuba_tpu_torch.io import synthetic
-from cuba_tpu_torch.solver import engine
+from cuba_tpu_torch.solver import dense_cholesky, engine
 from cuba_tpu_torch.tools import graphs
 
 BAND = dict(num_poses=600, num_landmarks=12000, mean_obs_per_landmark=5.0,
@@ -30,8 +32,8 @@ NAMES = {
     "engine.upload", "optimize", *PHASES,
     "read.accept", "read.cr_boost", "read.dense_boost", "read.cg_stop", "read.chis",
     "rows.edge_residuals", "rows.edge_terms", "rows.prepare_factors", "rows.back_substitute",
-    "rows.schur_matvec", "rows.block_diag_inv", "cr.factor", "cr.solve", "dense.factor",
-    "dense.solve", "k.gather_cols", "k.segsum_csr", "k.schur_fused", "k.compact_to_band",
+    "rows.schur_matvec", "rows.block_diag_inv", "cr.factor", "cr.solve", "dense",
+    "dense.cholesky", "dense.factor", "dense.solve", "k.gather_cols", "k.segsum_csr", "k.schur_fused", "k.compact_to_band",
     "k.compact_to_dense", "k.edge_terms",
 }
 
@@ -83,7 +85,9 @@ def test_every_span_is_named(traced):
         seen |= {n for n, _a, _b in spans}
     assert NAMES <= seen, NAMES - seen
     # nothing under the benchmark's own prefix, no name off the list
-    assert seen <= NAMES | {"k.extract_diag", "k.solve_lower", "k.solve_upper", "k.matvec"}
+    # the blocked sweeps' spans: on the card's dense route (below: a direct call)
+    assert seen <= NAMES | {"dense.prepare", "k.extract_diag", "k.solve_lower", "k.solve_upper",
+                            "k.matvec"}
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
@@ -124,6 +128,58 @@ def test_phase_spans_and_marks_share_boundaries(traced, solver):
     charged = [names[phase] for phase, _t in marks.marks[1:] if phase is not None]
     assert charged == [n for n, _a, _b in sorted(spans, key=lambda x: x[1]) if n in PHASES]
     assert set(charged) == set(PHASES)
+
+
+def test_dense_spans_nest_one_factor_an_attempt(traced):
+    """One ``dense`` span a solve, inside the decomposition; its factor
+    opens one ``dense.cholesky`` a factorisation, one for each boost
+    decision read where every factor succeeds."""
+    spans, res, _marks = traced["dense_cholesky"]
+    names = [n for n, _a, _b in spans]
+    assert names.count("dense") == res.nattempts
+    assert _inside(spans, "dense", "lm.decomp")
+    for child in ("dense.factor", "dense.solve"):
+        assert _inside(spans, child, "dense"), child
+    assert _inside(spans, "dense.cholesky", "dense.factor")
+    assert names.count("dense.cholesky") == names.count("read.dense_boost") == res.nattempts
+
+
+def _profiled_solve(A, b, refine):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _x, ok, reads = dense_cholesky.cholesky_solve(A, b, refine, use_kernels=True)
+    assert bool(ok)
+    spans = _spans(prof)
+    return spans, [n for n, _a, _b in spans], reads
+
+
+def test_dense_route_with_the_sweeps_opens_prepare():
+    """With the blocked sweeps (the card's route; their plain versions
+    here) the solve opens ``dense.prepare`` around the diagonal blocks'
+    inverses, and the sweeps' and the refinement's kernel spans inside
+    ``dense``."""
+    n = 512
+    g = torch.Generator().manual_seed(3)
+    M = torch.randn(n, n, generator=g)
+    A = M @ M.T / n + torch.eye(n)
+    spans, names, reads = _profiled_solve(A, torch.randn(n, generator=g), 1)
+    assert names.count("dense") == 1 and names.count("dense.prepare") == 1
+    assert names.count("dense.cholesky") == 1 == reads
+    assert _inside(spans, "k.extract_diag", "dense.prepare")
+    for child in ("dense.factor", "dense.prepare", "dense.solve", "k.matvec"):
+        assert _inside(spans, child, "dense"), child
+    assert names.count("k.solve_lower") == names.count("k.solve_upper") == 2
+
+
+def test_a_boost_retry_opens_a_second_factor():
+    """A system whose first fp32 factor fails (a 2x2 block just past
+    singular) and whose first boost (1e-5) factors: two ``dense.cholesky``
+    spans in one solve, two boost reads."""
+    n = 512
+    A = torch.eye(n)
+    A[0, 1] = A[1, 0] = 1.0 + 2.0 ** -20
+    _spans_, names, reads = _profiled_solve(A, torch.ones(n), 0)
+    assert names.count("dense.cholesky") == 2 == reads
+    assert names.count("dense.factor") == 1 and names.count("dense") == 1
 
 
 def test_unprofiled_optimize_calls_no_record_function(prob, monkeypatch):
