@@ -7,8 +7,9 @@ Phases (any failure exits non-zero, before the result line):
 
 1. Device and build: the card's name and power limit, the torch and CUDA
    versions, the nvcc builds of ``cuba_tpu_torch/csrc/segmm.cu``,
-   ``csrc/trisolve.cu`` and ``csrc/edgeterms.cu`` (one nvcc each, in
-   parallel, timed) and which symbolic pass (C++ or NumPy) the host runs.
+   ``csrc/trisolve.cu``, ``csrc/edgeterms.cu`` and ``csrc/factors.cu`` (one
+   nvcc each, in parallel, timed) and which symbolic pass (C++ or NumPy)
+   the host runs.
 2. Kernels against their plain torch versions, on the slice's own plan and
    tensors (the problem below after ``initialize()``): gathers must be equal
    bit for bit, segment sums within 1e-5 of each output's sum of |vals|,
@@ -46,11 +47,14 @@ Phases (any failure exits non-zero, before the result line):
 6. Every kernel of the band path against its plain version on that run's
    plan and first-attempt tensors: kernels 1-6 at phase 2's call sites,
    ``tiled_segsum`` also at the combine of ``rows.schur_compact``, kernels
-   7-8 (``schur_fused``, ``compact_to_band``) and ``edge_terms`` (the
+   7-8 (``schur_fused``, ``compact_to_band``), ``edge_terms`` (the
    per-edge Gauss-Newton terms, mono and stereo, on the engine's initial
-   state).  Gathers and ``compact_to_band`` equal bit for bit, sums and
-   the edge terms within 1e-5 of each output's sum of |terms|; median
-   CUDA-event times of 25 launches.
+   state) and the Schur factors (``hll_inverse``, ``slot_factors`` at
+   ``rows.prepare_factors``' call on the first damped attempt,
+   :func:`check_factors`).  Gathers and ``compact_to_band`` equal bit for
+   bit, [Hll^-1; bl] within one ulp, sums, the edge terms, W and W bl
+   within 1e-5 of each output's sum of |terms|; median CUDA-event times of
+   25 launches.
 7. Phase 5's run with the plain versions on the card: the chi²
    trajectories must agree to rtol 5e-3 per iteration.
 8. The dense path through the public API: ``bench.py --quick``'s kitti07
@@ -63,8 +67,8 @@ Phases (any failure exits non-zero, before the result line):
    of ``bench.CHI2_FP64_FINAL[("kitti07_scale", 10)]``, and every kernel of
    the path must have launched.
 9. Every kernel of the dense path against its plain version on the warm-up
-   engine's first-attempt tensors: kernels 1-7 as in phase 6, then
-   ``compact_to_dense`` and ``extract_diag_blocks`` bit for bit, ``matvec``
+   engine's first-attempt tensors: kernels 1-7 and the Schur factors as in
+   phase 6, then ``compact_to_dense`` and ``extract_diag_blocks`` bit for bit, ``matvec``
    within 1e-5 of each row's sum of |A_ij x_j|, ``solve_lower`` /
    ``solve_upper`` within SOLVE_RTOL of max |result|; median CUDA-event
    times of 25 launches; the whole ``cholesky_solve`` against the same call
@@ -141,7 +145,8 @@ Phases (any failure exits non-zero, before the result line):
    with finite, falling chi² lines.
 16. fp64 on the card (``BAConfig(dtype=float64, device="cuda")``): the
    fp64 builds of kernels 1-10 (entries ``cuba_<name>_f64`` of
-   ``csrc/segmm.cu``) and of ``edge_terms`` (``csrc/edgeterms.cu``) and,
+   ``csrc/segmm.cu``), of ``edge_terms`` (``csrc/edgeterms.cu``) and of
+   ``hll_inverse`` and ``slot_factors`` (``csrc/factors.cu``) and,
    in the dense solve, ``cholesky_ex`` + ``solve_triangular`` (the ``trisolve.cu`` kernels are fp32 only, as
    ``cuba_tpu``'s are).  Phase 5's fp32 trajectory is logged against the
    recorded fp64 one (``CHI2_FP64_TRAJECTORY``, copied from
@@ -361,11 +366,12 @@ TRISOLVE_KERNELS = ("extract_diag_blocks", "solve_lower", "solve_upper", "matvec
 # build's segmm.kernel_attributes), logged beside its times
 LAUNCH_NOTES = ("grid", "threads", "smem", "registers", "spill_bytes", "blocks_per_sm",
                 "loads", "tile", "slices", "accs", "float4")
-# the __global__ names of csrc/segmm.cu, csrc/trisolve.cu and csrc/edgeterms.cu, as a
-# profile lists them
+# the __global__ names of csrc/segmm.cu, csrc/trisolve.cu, csrc/edgeterms.cu and
+# csrc/factors.cu, as a profile lists them
 HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
                 "compact_to_dense", "band_transpose", "extract_diag", "solve_lower_kernel",
-                "solve_upper_kernel", "matvec_kernel", "edge_terms_kernel")
+                "solve_upper_kernel", "matvec_kernel", "edge_terms_kernel", "hll_inverse_kernel",
+                "slot_factors_kernel")
 REPLACES = {
     "resident_gather": "cuba_tpu/ops/segmm.py:1257",
     "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
@@ -383,12 +389,17 @@ REPLACES = {
     "band_transpose": "cuba_tpu/ops/segmm.py:903",
     # no Pallas kernel: XLA fused term_rows on the TPU
     "edge_terms": "none (XLA fused cuba_tpu/solver/edgerows.py:132 term_rows)",
+    # no Pallas kernels: XLA fused prepare_factors_mxu on the TPU
+    "hll_inverse": "none (XLA fused cuba_tpu/solver/mxu.py:1575 prepare_factors_mxu)",
+    "slot_factors": "none (XLA fused cuba_tpu/solver/mxu.py:1575 prepare_factors_mxu)",
 }
 
 
 def kernel_source(name: str) -> str:
     if name == "edge_terms":
         return "cuba_tpu_torch/csrc/edgeterms.cu"
+    if name in ("hll_inverse", "slot_factors"):
+        return "cuba_tpu_torch/csrc/factors.cu"
     return "cuba_tpu_torch/csrc/" + ("trisolve.cu" if name in TRISOLVE_KERNELS else "segmm.cu")
 
 
@@ -652,8 +663,9 @@ def sites_bound(sites, segmm):
 def check_band_kernels(engine, torch, segmm):
     """Phase 6: every kernel of the band path against its plain version on
     the band run's plan and first-attempt tensors: kernels 1-7 (as
-    :func:`check_schur_kernels`), ``compact_to_band`` and ``edge_terms``
-    (:func:`check_edge_terms`).  Returns the kernel entries.  (The CR
+    :func:`check_schur_kernels`), ``compact_to_band``, ``edge_terms``
+    (:func:`check_edge_terms`) and the Schur factors
+    (:func:`check_factors`).  Returns the kernel entries.  (The CR
     factor and solve with each diagonal-block inverse are timed in phase
     19, stage by stage.)"""
     from cuba_tpu_torch.solver import rows
@@ -666,6 +678,7 @@ def check_band_kernels(engine, torch, segmm):
     out.update(compare_cases({"compact_to_band": band_case(gT, dbT, engine, segmm, torch)},
                              torch, None, engine.dtype))
     out.update(check_edge_terms(engine, torch))
+    out.update(check_factors(engine, torch))
     return out
 
 
@@ -693,18 +706,58 @@ def check_edge_terms(engine, torch):
     return compare_cases(cases, torch, bound_of, engine.dtype)
 
 
+def check_factors(engine, torch):
+    """``hll_inverse`` and ``slot_factors`` (``rows.hll_inverse_rows``,
+    ``rows.slot_factors_rows``) against their plain versions at
+    ``rows.prepare_factors``' call on the engine's first damped attempt
+    (``roofline.factor_sites``): [Hll^-1; bl] within one ulp of the plain
+    version's (the same fp64 operations, each rounded once, then rounded to
+    the working dtype), W and W bl within :func:`sum_rtol` of each entry's
+    sum of |products| (``rows.slot_factors_scale``: sums of three products
+    in another order), timed as every case.  Library: for ``hll_inverse``
+    ``torch.linalg.inv`` of the damped fp64 [L, 3, 3] blocks (built outside
+    the timed call); none for ``slot_factors``, whose plain version is the
+    einsum pair the kernel replaced.  Returns {label: entry}."""
+    from cuba_tpu_torch.solver import rows
+
+    sites = roofline.factor_sites(engine)
+    inv_site, slot_site = sites["hll_inverse"], sites["slot_factors"]
+    HllT, lam = inv_site.args
+    blocks = HllT[:9].clone()
+    blocks[0::4] += lam
+    blocks = blocks.double().T.reshape(-1, 3, 3).contiguous()
+    cases = {
+        "hll_inverse": (("ulp",), inv_site.call, rows.hll_inverse_rows, rows.hll_inverse_plain,
+                        inv_site.work(), lambda: torch.linalg.inv(blocks)),
+        "slot_factors": (("sums",), slot_site.call, rows.slot_factors_rows,
+                         rows.slot_factors_plain, slot_site.work(), None),
+    }
+
+    def bound_of(kind):
+        if kind == "ulp":
+            ref = rows.hll_inverse_plain(HllT, lam).abs()
+            return torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref
+        return sum_rtol(HllT) * torch.cat(rows.slot_factors_scale(*slot_site.args))
+
+    return compare_cases(cases, torch, bound_of, engine.dtype)
+
+
 def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True, trisolve_kernels=True):
     """Phase 9: every kernel of the dense path against its plain version on
     the engine's plan and first-attempt tensors (kernels 1-7 as
-    :func:`check_schur_kernels` with ``schur_kernels``, then kernels 9 and,
-    with ``trisolve_kernels``, 11-14), the whole ``cholesky_solve`` against
+    :func:`check_schur_kernels` and the Schur factors as
+    :func:`check_factors` with ``schur_kernels``, then kernels 9 and, with
+    ``trisolve_kernels``, 11-14), the whole ``cholesky_solve`` against
     the same call under ``use_plain()``, and the two sweeps against
     ``torch.linalg.solve_triangular``.  Returns the kernel entries."""
     from cuba_tpu_torch.solver import dense_cholesky, rows, trisolve
 
     plan, rc = engine.plan, engine.rc
     HppT, HplT, lam, W, bscT = roofline.first_attempt(engine)
-    out = check_schur_kernels(engine, torch, segmm, HplT, W) if schur_kernels else {}
+    out = {}
+    if schur_kernels:
+        out.update(check_schur_kernels(engine, torch, segmm, HplT, W))
+        out.update(check_factors(engine, torch))
     PB = plan.pad_blocks
     gT = rows.schur_compact(W, HplT, plan, rc)
     dbT = rows.damped_diagonal_T(HppT, lam, engine.num_p, PB)
@@ -884,7 +937,7 @@ def expected_kernels(facts):
     path, solver = str(facts["path"]), str(facts["solver"])
     if path == "aos":
         return {"accum_segsum"}  # the AoS path's segment sums
-    expected = {"tiled_gather", "tiled_segsum", "edge_terms",
+    expected = {"tiled_gather", "tiled_segsum", "edge_terms", "hll_inverse", "slot_factors",
                 "windowed_gather" if bool(facts["windowed"]) else "resident_gather"}
     for ok in facts["paw_ok"]:
         expected.add("accum_segsum_windowed" if ok else "accum_segsum")
@@ -1674,13 +1727,14 @@ def stress_cases(engine, torch, segmm):
     attempt), kept where the route launches the kernel
     (:func:`engine_kernels`: the windowed or the resident pose fetch by the
     ``windowed`` fact, the resident pose sums only where a window plan
-    fails), and ``edge_terms`` (:func:`check_edge_terms`).  Returns {label:
-    entry}."""
+    fails), ``edge_terms`` (:func:`check_edge_terms`) and the Schur factors
+    (:func:`check_factors`).  Returns {label: entry}."""
     keep = engine_kernels(engine)
     sites = {k: v for k, v in roofline.engine_sites(engine).items() if v.kernel in keep}
     out = compare_cases({k: site_case(v, segmm, torch) for k, v in sites.items()}, torch,
                         sites_bound(sites, segmm), engine.dtype)
     out.update(check_edge_terms(engine, torch))
+    out.update(check_factors(engine, torch))
     return out
 
 
@@ -1950,8 +2004,8 @@ def main() -> None:
         build_s = segmm.build_kernels()
     except (RuntimeError, OSError, subprocess.SubprocessError) as e:
         fail(f"kernel build failed: {e}")
-    log(f"nvcc builds of cuba_tpu_torch/csrc/segmm.cu, trisolve.cu and edgeterms.cu (in "
-        f"parallel): {build_s:.2f} s")
+    log(f"nvcc builds of cuba_tpu_torch/csrc/segmm.cu, trisolve.cu, edgeterms.cu and "
+        f"factors.cu (in parallel): {build_s:.2f} s")
     log(f"symbolic pass: {native.backend()}")
 
     prob = synthetic.generate(**graphs.PCG4096)

@@ -13,8 +13,10 @@ tests and ``chip_smoke.py``.  Every kernel launch adds one to
 ``LAUNCHES[wrapper name]`` (:func:`count`), and an fp64 launch to
 ``LAUNCHES_F64[wrapper name]`` as well.
 
-Element types: ``csrc/segmm.cu`` and ``csrc/edgeterms.cu`` build each of
-their kernels for float32 and float64 (entry ``cuba_<name>`` and its twin
+Element types: ``csrc/segmm.cu``, ``csrc/edgeterms.cu`` and
+``csrc/factors.cu`` (``hll_inverse`` and ``slot_factors``, whose launches
+``LAUNCHES`` counts under those names) build each of their kernels for
+float32 and float64 (entry ``cuba_<name>`` and its twin
 ``cuba_<name>_f64``, :func:`symbol`); a call takes the one float dtype of
 its float inputs (:func:`float_dtype`).  ``csrc/trisolve.cu`` is float32
 only.
@@ -37,7 +39,7 @@ from cuba_tpu_torch import native
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = {name: os.path.join(CSRC, f"{name}.cu")
-           for name in ("segmm", "trisolve", "edgeterms")}
+           for name in ("segmm", "trisolve", "edgeterms", "factors")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -57,6 +59,8 @@ LAUNCHES = {
     "solve_upper": 0,
     "matvec": 0,
     "edge_terms": 0,
+    "hll_inverse": 0,
+    "slot_factors": 0,
 }
 # the same counts, of fp64 launches only
 LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)

@@ -3,8 +3,12 @@ Schur formations (port of ``cuba_tpu/solver/mxu.py``), over transposed
 ``[D, N]`` tensors.
 
 Every index-driven step goes through the wrappers of ``ops/segmm.py``
-(hand-written CUDA kernels on the card); the per-slot 6x6/3x3 block algebra
-is reshapes and einsums.  Function by function:
+(hand-written CUDA kernels on the card).  The Schur factors of
+:func:`prepare_factors` are two more on the card (``ops/factors.py``: the
+landmarks' damped fp64 3x3 inverses, and each slot's W = Hpl Hll^-1 and W
+bl), dispatched by :func:`hll_inverse_rows` and :func:`slot_factors_rows`;
+the rest of the per-slot 6x6/3x3 block algebra is reshapes and einsums.
+Function by function:
 
 =========================  ==================================
 this module                ``cuba_tpu/solver/mxu.py``
@@ -16,6 +20,8 @@ this module                ``cuba_tpu/solver/mxu.py``
 ``_pose_accum``            ``_pose_accum`` (1478)
 ``build_system_rows``      ``build_system_rows`` (1488)
 ``_sym3x3_inv_rows``       ``_sym3x3_inv_rows`` (1548)
+``hll_inverse_rows``       ``prepare_factors_mxu``'s damped inverse
+``slot_factors_rows``      ``prepare_factors_mxu``'s W and W bl einsums
 ``prepare_factors``        ``prepare_factors_mxu`` (1575)
 ``schur_band``             ``schur_band_mxu`` (1676)
 ``schur_compact``          ``schur_compact_mxu`` (1698)
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from cuba_tpu_torch import trace
-from cuba_tpu_torch.ops import segmm
+from cuba_tpu_torch.ops import cudalib, factors, segmm
 from cuba_tpu_torch.ops.segmm import AccumWindowPlan, SegmentCSR, TilePlan
 from cuba_tpu_torch.solver import comm, edgerows
 from cuba_tpu_torch.solver.structure import BAStructure
@@ -574,6 +580,53 @@ def _sym3x3_inv_rows(h: torch.Tensor) -> torch.Tensor:
     return torch.stack([b00, b01, b02, b01, b11, b12, b02, b12, b22])
 
 
+def hll_inverse_plain(HllT, lam):
+    """:func:`hll_inverse_rows` in torch: the diagonal damped in the
+    working dtype, the inverse in fp64, rounded back, and bl."""
+    hll_d = HllT[:9].clone()
+    hll_d[0::4] += lam
+    iv9 = _sym3x3_inv_rows(hll_d.double()).to(hll_d.dtype)
+    return torch.cat([iv9, HllT[9:12]])
+
+
+def hll_inverse_rows(HllT, lam):
+    """[Hll^-1 (9 rows); bl (3 rows)] [12, L] of HllT [12, L] damped by
+    ``lam``.  Near-singular landmarks make an fp32 determinant cancel, so
+    the inverse is taken in fp64 on every route.  On the card one
+    ``hll_inverse`` launch (``lam`` read there); on the CPU, and under
+    ``cudalib.use_plain()``, :func:`hll_inverse_plain`."""
+    with trace.span("k.hll_inverse"):
+        if cudalib.use_kernel(HllT):
+            return factors.hll_inverse(HllT, lam)
+        return hll_inverse_plain(HllT, lam)
+
+
+def slot_factors_plain(HplT, g12):
+    """:func:`slot_factors_rows` in torch: two einsums."""
+    H = g12.shape[1]
+    W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
+    wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
+    return W.reshape(18, H), wbl
+
+
+def slot_factors_rows(HplT, g12):
+    """(W [18, H], W bl [6, H]) of the slots: W = Hpl Hll^-1 (row i*3+m)
+    from HplT [18, H] and the gathered [Hll^-1; bl] g12 [12, H].  On the
+    card one ``slot_factors`` launch; on the CPU, and under
+    ``cudalib.use_plain()``, :func:`slot_factors_plain`."""
+    with trace.span("k.slot_factors"):
+        if cudalib.use_kernel(HplT, g12):
+            return factors.slot_factors(HplT, g12)
+        return slot_factors_plain(HplT, g12)
+
+
+def slot_factors_scale(HplT, g12):
+    """Each entry's sum of |products| in :func:`slot_factors_rows`: (|Hpl|
+    |Hll^-1| [18, H], (|Hpl| |Hll^-1|) |bl| [6, H]), the scale that two
+    summation orders' results are compared on."""
+    return slot_factors_plain(HplT.abs(), g12.abs())
+
+
 def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowConsts,
                     group=None):
     """Damped inverse Hll, W = Hpl Hll^-1 and bsc = bp - W bl, transposed.
@@ -583,17 +636,11 @@ def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowC
     sum is all-reduced (HppT must already be the global one; HllT and HplT
     are the shard's)."""
     with trace.span("rows.prepare_factors"):
-        hll_d = HllT[:9].clone()
-        hll_d[0::4] += lam
-        # near-singular landmarks make an fp32 determinant cancel: invert in fp64
-        iv9 = _sym3x3_inv_rows(hll_d.double()).to(hll_d.dtype)
-        src12 = torch.cat([iv9, HllT[9:12]])
+        src12 = hll_inverse_rows(HllT, lam)
         g12 = segmm.tiled_gather(src12, rc.hpl_col, plan.ivs, plan.ivs.base_block)
-        H = g12.shape[1]
-        W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
-        wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
+        W, wbl = slot_factors_rows(HplT, g12)
         bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
-        return iv9, W.reshape(18, H), HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
+        return src12[:9], W, HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
 
 
 def schur_compact(W, HplT, plan: RowPlan, rc: RowConsts):

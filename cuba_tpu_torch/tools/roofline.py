@@ -112,6 +112,28 @@ def edge_terms_work(E: int, mdim: int, size: int = 4):
     return E * (reads + 72) * size, E * (54 * (2 * mdim - 1) + 9 * mdim + 60)
 
 
+def hll_inverse_work(L: int, size: int = 4):
+    """``hll_inverse``'s (bytes, flops) over L landmarks for values of
+    ``size`` bytes: the 6 distinct entries of each symmetric Hll and its bl
+    read once (the 3 mirrored rows are never read), its 12 outputs written
+    once; flops: 3 damping adds, 17 for the determinant, the reciprocal,
+    18 for the cofactors and 6 scalings."""
+    return L * (9 + 12) * size, L * 45
+
+
+def slot_factors_work(H: int, size: int = 4):
+    """``slot_factors``' (bytes, flops) over H slots for values of ``size``
+    bytes: Hpl (18) and the gathered [Hll^-1; bl] (12) read once, W (18) and
+    W bl (6) written once; flops: 3 multiplies and 2 adds for each of the
+    24 outputs."""
+    return H * (30 + 24) * size, H * 24 * 5
+
+
+# the work counts of the kinds whose inputs are the count's own arguments
+_WORK = {"edge_terms": edge_terms_work, "hll_inverse": hll_inverse_work,
+         "slot_factors": slot_factors_work}
+
+
 class Site(NamedTuple):
     """A kernel wrapper's call at one of an engine's call sites: its name
     in ``ops.segmm`` (the plain version, ``kernel + "_plain"``, takes the
@@ -119,7 +141,9 @@ class Site(NamedTuple):
     ``kind`` "gather" (inputs: src, ids), "segsum" (vals, ids, num_out,
     csr), "schur" (W, G, the plan's (plan, sb, li, lj, lk), csr), "band" or
     "dense" (plan, rc, the values' element size), "edge_terms" (E, mdim,
-    the values' element size; its wrapper is ``edgerows.term_rows``)."""
+    the values' element size; its wrapper is ``edgerows.term_rows``),
+    "hll_inverse" (L, the element size; ``rows.hll_inverse_rows``) or
+    "slot_factors" (H, the element size; ``rows.slot_factors_rows``)."""
 
     kernel: str
     args: tuple
@@ -140,8 +164,8 @@ class Site(NamedTuple):
         if self.kind == "schur":
             W, _G, sc, csr = self.inputs
             return schur_work(sc[0], sc, csr, W.element_size())
-        if self.kind == "edge_terms":
-            return edge_terms_work(*self.inputs)
+        if self.kind in _WORK:
+            return _WORK[self.kind](*self.inputs)
         return (band_work if self.kind == "band" else dense_work)(*self.inputs)
 
 
@@ -172,10 +196,8 @@ def row_sites(engine):
     pack_m, pack_s, _chi = engine._residuals_and_chi(st)
     g12, err, Xc, inv_z = pack_m
     v42, _v12, v18 = edgerows.term_rows(g12, err, Xc, inv_z, rc.omegaT_m, engine.kernels[0], 2)
-    HppT, HllT, HplT = engine._build(pack_m, pack_s)
-    lam = torch.ones((), dtype=st.qs.dtype, device=st.qs.device)
-    iv9 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, plan, rc)[0]
-    src12 = torch.cat([iv9, HllT[9:12]])
+    HllT = engine._build(pack_m, pack_s)[1]
+    src12 = rows.hll_inverse_rows(HllT, torch.ones((), dtype=st.qs.dtype, device=st.qs.device))
     if plan.rg_m is not None:
         wsrc, wids = psrc.index_select(1, rc.res_perm), rc.pose_gidr_m
     else:
@@ -218,6 +240,22 @@ def edge_sites(engine):
                                           {}, "edge_terms",
                                           (g12.shape[1], mdim, g12.element_size()))
     return out
+
+
+def factor_sites(engine):
+    """{label: Site} of ``hll_inverse`` and ``slot_factors`` at
+    ``rows.prepare_factors``' call on the engine's first damped attempt (at
+    its own λ = τ·max diag): the landmarks' HllT and λ, the slots' HplT and
+    gathered [Hll^-1; bl]."""
+    HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
+    lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
+    g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, engine.plan,
+                               engine.rc)[3]
+    size = HllT.element_size()
+    return {"hll_inverse": Site("hll_inverse", (HllT, lam), {}, "hll_inverse",
+                                (HllT.shape[1], size)),
+            "slot_factors": Site("slot_factors", (HplT, g12), {}, "slot_factors",
+                                 (HplT.shape[1], size))}
 
 
 def schur_sites(engine, HplT, W):

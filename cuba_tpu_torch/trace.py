@@ -27,9 +27,11 @@ The names (``PERF.md`` §3 lists them with the metrics that read them):
   the first and each boost retry), ``dense.prepare`` (the diagonal
   blocks' inverses, where the blocked sweeps run) and ``dense.solve``;
 - the hand kernels: ``k.<kernel>``, one a wrapper call of
-  ``ops/segmm.py`` or ``solver/trisolve.py``, or ``k.edge_terms`` one
-  ``edgerows.term_rows`` call (``ops/edgeterms.py``; the plain versions
-  too).
+  ``ops/segmm.py`` or ``solver/trisolve.py``, ``k.edge_terms`` one
+  ``edgerows.term_rows`` call (``ops/edgeterms.py``), or
+  ``k.hll_inverse`` / ``k.slot_factors`` one ``rows.hll_inverse_rows`` /
+  ``rows.slot_factors_rows`` call inside ``rows.prepare_factors``
+  (``ops/factors.py``); the plain versions too.
 """
 
 from __future__ import annotations

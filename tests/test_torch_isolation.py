@@ -12,7 +12,7 @@ import sys
 import pytest
 import torch
 
-from cuba_tpu_torch.ops import cudalib, edgeterms, segmm
+from cuba_tpu_torch.ops import cudalib, edgeterms, factors, segmm
 from cuba_tpu_torch.solver import trisolve
 
 torch.set_num_threads(1)
@@ -204,7 +204,10 @@ def test_kernel_source_and_binding_import_without_nvcc():
                                    "cuba_solve_upper_work", "cuba_matvec"),
              trisolve._SIGNATURES),
             (edgeterms.KERNEL_SRC, ("cuba_edge_terms", "cuba_edge_terms_f64"),
-             edgeterms._SIGNATURES)):
+             edgeterms._SIGNATURES),
+            (factors.KERNEL_SRC, ("cuba_hll_inverse", "cuba_hll_inverse_f64",
+                                  "cuba_slot_factors", "cuba_slot_factors_f64"),
+             factors._SIGNATURES)):
         src = open(path).read()
         for entry in entries + ("__global__",):
             assert entry in src, (path, entry)
@@ -215,7 +218,7 @@ def test_kernel_source_and_binding_import_without_nvcc():
             params = head[1].split(")", 1)[0]
             assert params.count(",") + 1 == len(argtypes), (entry, params)
     assert sorted(cudalib.SOURCES.values()) == sorted([segmm.KERNEL_SRC, trisolve.KERNEL_SRC,
-                                                       edgeterms.KERNEL_SRC])
+                                                       edgeterms.KERNEL_SRC, factors.KERNEL_SRC])
     assert "arch=compute_90a,code=sm_90a" in cudalib.NVCC_FLAGS
 
 

@@ -352,7 +352,7 @@ def test_route_facts_name_the_kernels_of_the_route(graph, solver, want):
         assert facts["path"] == "aos" and got == {"accum_segsum"}
         return
     plan = eng.plan
-    front = {"tiled_gather", "tiled_segsum", "edge_terms",
+    front = {"tiled_gather", "tiled_segsum", "edge_terms", "hll_inverse", "slot_factors",
              "windowed_gather" if plan.rg_m is not None else "resident_gather"}
     front |= {"accum_segsum_windowed" if p.ok else "accum_segsum"
               for p in (plan.paw_m, plan.paw_s, plan.paw_b)}

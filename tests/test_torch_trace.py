@@ -34,7 +34,7 @@ NAMES = {
     "rows.edge_residuals", "rows.edge_terms", "rows.prepare_factors", "rows.back_substitute",
     "rows.schur_matvec", "rows.block_diag_inv", "cr.factor", "cr.solve", "dense",
     "dense.cholesky", "dense.factor", "dense.solve", "k.gather_cols", "k.segsum_csr", "k.schur_fused", "k.compact_to_band",
-    "k.compact_to_dense", "k.edge_terms",
+    "k.compact_to_dense", "k.edge_terms", "k.hll_inverse", "k.slot_factors",
 }
 
 
