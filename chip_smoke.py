@@ -45,9 +45,10 @@ Phases (any failure exits non-zero, before the result line):
    of the recorded fp64 value ``bench.CHI2_FP64_FINAL``, and every kernel
    of the path must have launched.
 6. Every kernel of the band path against its plain version on that run's
-   plan and first-attempt tensors: kernels 1-6 at phase 2's call sites,
-   ``tiled_segsum`` also at the combine of ``rows.schur_compact``, kernels
-   7-8 (``schur_fused``, ``compact_to_band``), ``edge_terms`` (the
+   plan and first-attempt tensors: the gather and the segment sum
+   (``gather``, ``segsum``: the sites of kernels 1-6) at phase
+   2's call sites, ``segsum`` also at the combine of
+   ``rows.schur_compact``, kernels 7-8 (``schur_fused``, ``compact_to_band``), ``edge_terms`` (the
    per-edge Gauss-Newton terms, mono and stereo, on the engine's initial
    state) and the Schur factors (``hll_inverse``, ``slot_factors`` at
    ``rows.prepare_factors``' call on the first damped attempt,
@@ -83,7 +84,7 @@ Phases (any failure exits non-zero, before the result line):
    =False``: 1322 poses, 133,383 landmarks, seed 0) with the v2 gate closed
    (``rows._WG_MAX = 0``, restored after): ``solver="auto"`` must resolve
    to ``band_cr`` (m = 22) through the v1 formation and ``from_dense``;
-   kernels 1-7 at its call sites (``tiled_segsum`` at both combines) and
+   kernels 1-7 at its call sites (``segsum`` at both combines) and
    ``band_transpose`` (bit for bit at PB = 1408, timed beside its plain
    version and the permuted copy) against their plain versions; the
    counted ``optimize(10)`` must land within CHI2_REL_BAND of the fp64
@@ -101,8 +102,10 @@ Phases (any failure exits non-zero, before the result line):
    ``optimize(10)`` against the plain run (5e-3) and against
    ``solver="dense_cholesky"`` on the same graph (rtol 2e-2 per iteration,
    final chi² within 5e-3).
-13. The AoS path: the same graph with three chords, where the planner's
-   ``ok`` fails: ``auto`` must resolve to ``band_lr`` on the AoS route; the
+13. The AoS path: the same graph with three chords, the rows planner made
+   to find no plan (:func:`planner_closed`, as the tests close it; the
+   graph plans for the card): ``auto`` must resolve to ``band_lr`` on the
+   AoS route; the
    segment-sum kernel against its plain version at two AoS call sites (the
    pose sums of the mono terms, the per-block triplet sums); the checks of
    phase 12; then kitti07's graph with every landmark fixed (pose-only) and
@@ -186,7 +189,7 @@ Phases (any failure exits non-zero, before the result line):
    within CHI2_REL_BAND of its fp64 record), pcg4096 (``solver="pcg"``,
    ``optimize(3)``, within 5e-3 of phase 3's first three iterations) and
    the three-chord graph (phase 13's structure through
-   ``MultiChipSolverAdapter(aos=True)``, since each of its shards plans:
+   ``MultiChipSolverAdapter(aos=True)``, since its shards plan:
    the AoS shard body, kernel 6, where ``band_lr`` is an explicit
    ``dense_cholesky``; ``optimize(3)`` within 2e-2 of phase 13's per
    iteration).  Every rank's trajectory and estimates must equal every
@@ -286,6 +289,7 @@ true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -373,12 +377,10 @@ HAND_KERNELS = ("gather_cols", "segsum_", "schur_fused", "compact_to_band",
                 "solve_upper_kernel", "matvec_kernel", "edge_terms_kernel", "hll_inverse_kernel",
                 "slot_factors_kernel")
 REPLACES = {
-    "resident_gather": "cuba_tpu/ops/segmm.py:1257",
-    "windowed_gather": "cuba_tpu/ops/segmm.py:1215",
-    "tiled_gather": "cuba_tpu/ops/segmm.py:487",
-    "accum_segsum_windowed": "cuba_tpu/ops/segmm.py:205",
-    "tiled_segsum": "cuba_tpu/ops/segmm.py:425",
-    "accum_segsum": "cuba_tpu/ops/segmm.py:105",
+    "gather": "cuba_tpu/ops/segmm.py:1257 resident_gather, :1215 windowed_gather, "
+                   ":487 tiled_gather",
+    "segsum": "cuba_tpu/ops/segmm.py:105 accum_segsum, :205 accum_segsum_windowed, "
+                  ":425 tiled_segsum",
     "schur_fused": "cuba_tpu/ops/segmm.py:798",
     "compact_to_band": "cuba_tpu/ops/segmm.py:1093",
     "compact_to_dense": "cuba_tpu/ops/segmm.py:964",
@@ -498,7 +500,7 @@ def site_case(site, segmm, torch):
     exact, their library call ``roofline.placement_library`` (one
     accumulating ``index_put_`` over a flat index built once per
     structure).  Notes of both: the launch and the build's attributes."""
-    kern, plain = getattr(segmm, site.kernel), getattr(segmm, site.kernel + "_plain")
+    kern, plain = site.wrapper(segmm), site.plain(segmm)
     work = site.work()
     if site.kind == "gather":
         src, ids = site.inputs
@@ -540,15 +542,15 @@ def check_kernels(engine, torch, segmm):
 
 
 def kernel_cases(engine, torch, segmm):
-    """The cases of kernels 1-6 at the rows front end's call sites
-    (``roofline.row_sites``)."""
+    """The cases of the gather and the segment sum at the rows front end's
+    call sites (``roofline.row_sites``)."""
     return {k: site_case(v, segmm, torch) for k, v in roofline.row_sites(engine).items()}
 
 
 def segsum_bound(segmm, vals, ids, num_out):
     """A segment sum's bound: :func:`sum_rtol` times each output's sum of
     |vals|."""
-    return sum_rtol(vals) * segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+    return sum_rtol(vals) * segmm.segsum_plain(vals.abs(), ids, num_out)
 
 
 def compare_cases(cases, torch, bound_of, dtype=None):
@@ -630,8 +632,9 @@ def band_case(gT, dbT, engine, segmm, torch):
 
 
 def check_schur_kernels(engine, torch, segmm, HplT, W):
-    """Kernels 1-6 at the call sites of phase 2, ``schur_fused``, and
-    ``tiled_segsum`` at the combine of the engine's formation: v2's one
+    """The gather and the segment sum at the call sites of phase 2,
+    ``schur_fused``, and the segment sum at the combine of the engine's
+    formation: v2's one
     (``rows.schur_compact``) or v1's two (``rows.dense_block_table``)."""
     out = check_kernels(engine, torch, segmm)
     cases, bound_of = schur_cases(engine, torch, segmm, HplT, W)
@@ -640,7 +643,7 @@ def check_schur_kernels(engine, torch, segmm, HplT, W):
 
 
 def schur_cases(engine, torch, segmm, HplT, W):
-    """The cases of ``schur_fused`` and of ``tiled_segsum`` at the combine
+    """The cases of ``schur_fused`` and of the segment sum at the combine
     of the engine's formation, on W and HplT (``roofline.schur_sites``),
     and their bound: (cases, bound_of)."""
     sites = roofline.schur_sites(engine, HplT, W)
@@ -766,7 +769,7 @@ def check_dense_kernels(engine, torch, segmm, label, schur_kernels=True, trisolv
     if not trisolve_kernels:
         out.update(compare_cases({"compact_to_dense": dense_case}, torch, None, engine.dtype))
         return out
-    A = dense_site.call(segmm.compact_to_dense)
+    A = dense_site.call(dense_site.wrapper(segmm))
     n = A.shape[0]
     rhs = bscT.new_zeros(n)
     rhs[:6 * engine.num_p] = bscT.T.reshape(-1)
@@ -839,7 +842,7 @@ def dense_attempt_phases(engine, torch):
     pack_m, pack_s, _chi = engine._residuals_and_chi(st)
     HppT, HllT, HplT = engine._build(pack_m, pack_s)
     lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
-    iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P, engine.num_l, plan, rc)
+    iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P, rc)
     gT = rows.schur_compact(W, HplT, plan, rc)
     A = rows.dense_from_compact(gT, HppT, lam, P, plan, rc)
     n = A.shape[0]
@@ -854,12 +857,11 @@ def dense_attempt_phases(engine, torch):
 
     x = solve_with(rhs)
     xp = x[:6 * P].reshape(P, 6)
-    xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, engine.num_l, plan, rc)
+    xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, engine.num_l, rc)
     phases = {
         "edge_rows": lambda: engine._residuals_and_chi(st),
         "build_system": lambda: engine._build(pack_m, pack_s),
-        "prepare_factors": lambda: rows.prepare_factors(HppT, HllT, HplT, lam, P,
-                                                        engine.num_l, plan, rc),
+        "prepare_factors": lambda: rows.prepare_factors(HppT, HllT, HplT, lam, P, rc),
         "schur_compact": lambda: rows.schur_compact(W, HplT, plan, rc),
         "dense_from_compact": lambda: rows.dense_from_compact(gT, HppT, lam, P, plan, rc),
         "equilibrate+factor": lambda: dense_cholesky.factor(A * s[:, None] * s[None, :]),
@@ -867,7 +869,7 @@ def dense_attempt_phases(engine, torch):
         "first solve": lambda: solve_with(rhs),
         "one refinement sweep": lambda: x + solve_with(rhs - trisolve.matvec(A, x)),
         "back_substitute": lambda: rows.back_substitute(iv9, HllT, HplT, g12, xp,
-                                                        engine.num_l, plan, rc),
+                                                        engine.num_l, rc),
         "update+trial residuals": lambda: engine._residuals_and_chi(
             engine._apply_update(st, xp, xl)),
     }
@@ -926,6 +928,21 @@ def run_path(prob, config, torch, label, fix=None, iters=ITERS):
     return ba, chis, t_init, t_opt
 
 
+@contextlib.contextmanager
+def planner_closed():
+    """Inside, the rows planner finds no plan (``rows.plan_row_tables``
+    returns (None, None), as the tests close it), so every engine made
+    there takes the AoS path."""
+    from cuba_tpu_torch.solver import rows
+
+    plan_row_tables = rows.plan_row_tables
+    rows.plan_row_tables = lambda s, pad_blocks=0, lr=None: (None, None)
+    try:
+        yield
+    finally:
+        rows.plan_row_tables = plan_row_tables
+
+
 def expected_kernels(facts):
     """The kernel wrappers that a route and solver run the LM loop through,
     from an engine's route facts (``drive.route_facts``: a rank's come back
@@ -936,11 +953,8 @@ def expected_kernels(facts):
 
     path, solver = str(facts["path"]), str(facts["solver"])
     if path == "aos":
-        return {"accum_segsum"}  # the AoS path's segment sums
-    expected = {"tiled_gather", "tiled_segsum", "edge_terms", "hll_inverse", "slot_factors",
-                "windowed_gather" if bool(facts["windowed"]) else "resident_gather"}
-    for ok in facts["paw_ok"]:
-        expected.add("accum_segsum_windowed" if ok else "accum_segsum")
+        return {"segsum"}  # the AoS path's segment sums
+    expected = {"gather", "segsum", "edge_terms", "hll_inverse", "slot_factors"}
     if path == "v1":
         expected |= {"schur_fused", "band_transpose"}
     elif path == "v2":
@@ -1171,10 +1185,10 @@ def check_aos_kernels(engine, torch, segmm):
     prod = schur.triplet_products(W, Hpl, sc)
     n_hsc = sc.hsc_row.shape[0]
     sites = {
-        "accum_segsum": (v42, ec.pose_idx, P, ec.csr_pose),
-        "accum_segsum:triplets": (prod, sc.mul_k, n_hsc, sc.csr_mul),
+        "segsum:pose": (v42, ec.pose_idx, P, ec.csr_pose),
+        "segsum:triplets": (prod, sc.mul_k, n_hsc, sc.csr_mul),
     }
-    cases = {label: site_case(roofline.Site("accum_segsum", (vals, ids, num_out), dict(csr=csr),
+    cases = {label: site_case(roofline.Site("segsum", (vals, ids, num_out), dict(csr=csr),
                                             "segsum", (vals, ids, num_out, csr)), segmm, torch)
              for label, (vals, ids, num_out, csr) in sites.items()}
     return compare_cases(cases, torch, lambda *kind: segsum_bound(segmm, *kind), engine.dtype)
@@ -1585,9 +1599,9 @@ def mesh_cases(kprob, cprob, dprob, prob, astructure, akernels, torch):
     out = [dict(name=name, kind="api", problem=p, config=cfg, iters=iters, per_edge=False,
                 trace=name == "loop")
            for name, (p, cfg, iters, _e) in cases.items()]
-    # each shard of the three-chord graph plans (the single-device plan
-    # fails on the whole graph's windows): the case asks for the AoS body,
-    # as phase 11 closes the v2 gate
+    # the three-chord graph's shards plan (phase 13 closes the planner on
+    # one device): the case asks for the AoS body, as phase 11 closes the
+    # v2 gate
     out.append(dict(name="3chords", kind="engine", structure=astructure, kernels=akernels,
                     config=dict(dtype=f32), iters=FP64_SHORT_ITERS, aos=True))
     expect["3chords"] = ("aos", "dense_cholesky", 0)
@@ -1701,7 +1715,7 @@ def check_mesh_kernels(structure, kernels, config, torch, segmm):
     systems = [e._build(*e._residuals_and_chi(e.state)[:2]) for e in engines]
     HppT = sum(s[0] for s in systems)
     lam = config.tau * torch.stack([rows.max_diagonal_T(HppT, s[1]) for s in systems]).max()
-    Ws = [rows.prepare_factors(HppT, HllT, HplT, lam, e.num_p, e.num_l, e.plan, e.rc)[1]
+    Ws = [rows.prepare_factors(HppT, HllT, HplT, lam, e.num_p, e.rc)[1]
           .contiguous() for e, (_h, HllT, HplT) in zip(engines, systems)]
     e0 = engines[0]
     log(f"mesh shard 0 of {MESH_RANKS}: L {e0.num_l}, slots {e0.structure.n_hpl}, "
@@ -1722,12 +1736,11 @@ STRESS_PLAIN_ITERS = 5  # the plain run's depth: its first steps against the ker
 
 def stress_cases(engine, torch, segmm):
     """The kernel checks of the stress route at its call sites
-    (``roofline.engine_sites``: kernels 1-6 on the engine's initial state,
-    ``schur_fused``, the combine and ``compact_to_band`` on its first damped
-    attempt), kept where the route launches the kernel
-    (:func:`engine_kernels`: the windowed or the resident pose fetch by the
-    ``windowed`` fact, the resident pose sums only where a window plan
-    fails), ``edge_terms`` (:func:`check_edge_terms`) and the Schur factors
+    (``roofline.engine_sites``: the gather and the segment sum on the
+    engine's initial state, ``schur_fused``, the combine and
+    ``compact_to_band`` on its first damped attempt), kept where the route
+    launches the kernel (:func:`engine_kernels`), ``edge_terms``
+    (:func:`check_edge_terms`) and the Schur factors
     (:func:`check_factors`).  Returns {label: entry}."""
     keep = engine_kernels(engine)
     sites = {k: v for k, v in roofline.engine_sites(engine).items() if v.kernel in keep}
@@ -2256,30 +2269,32 @@ def main() -> None:
         f"{ct_opt_plain} s); dense_cholesky on the same graph {ct_opt_dense} s")
     stamp("phase 12")
 
-    # phase 13: the AoS path, three loop chords (the planner's ok fails)
+    # phase 13: the AoS path, three loop chords, the planner closed
     aprob = with_chords(oprob, 3)
-    aba, _achis, _at_init0, at_opt0 = run_path(aprob, kconfig, torch, "aos warm-up")
-    aengine = aba._engine
-    if (aengine.path, aengine.solver) != ("aos", "band_lr"):
-        fail(f"the three-chord graph took {aengine.path!r} / {aengine.solver!r}, "
-             "expected aos / band_lr")
-    kern_aos = check_aos_kernels(aengine, torch, segmm)
-    del aba, aengine
-    aba, achis, at_opt, launches_aos = counted_run(aprob, kconfig, torch, segmm,
-                                                   "aos path", "aos")
-    attempts["aos"] = aba.last_result.nattempts
-    astructure, akernels = aba._engine.structure, aba._kernels
-    profile_optimize(aba, torch, "aos path", at_opt)
-    del aba
-    with segmm.use_plain():
-        _p, achis_plain, _ti, at_opt_plain = run_path(aprob, kconfig, torch, "aos plain path")
-    del _p
-    compare_trajectories(achis, achis_plain, "aos")
-    _p, achis_dense, _ti, at_opt_dense = run_path(aprob, dnconfig, torch,
-                                                  "three chords, dense_cholesky")
-    if _p._engine.path != "aos":
-        fail("the three-chord dense_cholesky run did not take the AoS path")
-    del _p
+    with planner_closed():
+        aba, _achis, _at_init0, at_opt0 = run_path(aprob, kconfig, torch, "aos warm-up")
+        aengine = aba._engine
+        if (aengine.path, aengine.solver) != ("aos", "band_lr"):
+            fail(f"the three-chord graph took {aengine.path!r} / {aengine.solver!r}, "
+                 "expected aos / band_lr")
+        kern_aos = check_aos_kernels(aengine, torch, segmm)
+        del aba, aengine
+        aba, achis, at_opt, launches_aos = counted_run(aprob, kconfig, torch, segmm,
+                                                       "aos path", "aos")
+        attempts["aos"] = aba.last_result.nattempts
+        astructure, akernels = aba._engine.structure, aba._kernels
+        profile_optimize(aba, torch, "aos path", at_opt)
+        del aba
+        with segmm.use_plain():
+            _p, achis_plain, _ti, at_opt_plain = run_path(aprob, kconfig, torch,
+                                                          "aos plain path")
+        del _p
+        compare_trajectories(achis, achis_plain, "aos")
+        _p, achis_dense, _ti, at_opt_dense = run_path(aprob, dnconfig, torch,
+                                                      "three chords, dense_cholesky")
+        if _p._engine.path != "aos":
+            fail("the three-chord dense_cholesky run did not take the AoS path")
+        del _p
     compare_solvers(achis, achis_dense, "three chords")
     log(f"aos walls ({card}): optimize({ITERS}) {at_opt} s (cold {at_opt0} s, plain "
         f"{at_opt_plain} s); dense_cholesky on the same graph {at_opt_dense} s")
@@ -2329,11 +2344,12 @@ def main() -> None:
     finally:
         rows._WG_MAX = wg_max
     log(f"v2 gate restored: rows._WG_MAX = {rows._WG_MAX}")
-    runs64["aos-fp64"] = fp64_run(
-        aprob, f64, torch, segmm, "aos-fp64", dict(path="aos", solver="band_lr"),
-        lambda e: check_aos_kernels(e, torch, segmm), iters=FP64_SHORT_ITERS)
-    at_plain64 = fp64_against_plain(aprob, f64, torch, "aos-fp64", runs64["aos-fp64"][2],
-                                    FP64_SHORT_ITERS)
+    with planner_closed():
+        runs64["aos-fp64"] = fp64_run(
+            aprob, f64, torch, segmm, "aos-fp64", dict(path="aos", solver="band_lr"),
+            lambda e: check_aos_kernels(e, torch, segmm), iters=FP64_SHORT_ITERS)
+        at_plain64 = fp64_against_plain(aprob, f64, torch, "aos-fp64", runs64["aos-fp64"][2],
+                                        FP64_SHORT_ITERS)
     p64 = BAConfig(dtype=torch.float64, solver="pcg", device="cuda")
     runs64["pcg-fp64"] = fp64_run(
         prob, p64, torch, segmm, "pcg-fp64", dict(path="rows", solver="pcg"),

@@ -6,8 +6,8 @@ its own copy of that C++ source (byte-equal to ``cuba_tpu``'s, which
 ``tests/test_torch_api.py`` checks), compiles it with g++ into its own build
 directory at first use and binds the entry points the port needs: the
 symbolic pass (Hpl slots, the Schur co-observation pattern, the
-multiplication triplets and the fused Schur chunk plan), the per-tile
-min/max scan and the locality reorder.  Where no g++ or no source is found,
+multiplication triplets and the fused Schur chunk plan) and the locality
+reorder.  Where no g++ or no source is found,
 :func:`get_lib` returns None and the callers take their NumPy paths, which
 give the same tables.
 """
@@ -87,11 +87,6 @@ def _bind(lib: ctypes.CDLL) -> Optional[ctypes.CDLL]:
     lib.ba_fsp_copy.argtypes = [ctypes.c_void_p, _i32p, _i32p, _i32p, _i32p, _i32p]
     lib.ba_symbolic_free.restype = None
     lib.ba_symbolic_free.argtypes = [ctypes.c_void_p]
-    lib.ba_tile_minmax.restype = None
-    lib.ba_tile_minmax.argtypes = [
-        _i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int32, ctypes.c_int64, _i64p, _i64p,
-    ]
     lib.ba_locality_reorder.restype = None
     lib.ba_locality_reorder.argtypes = [
         _i32p, _i32p, ctypes.c_int64, _i32p, _i32p, ctypes.c_int64,
@@ -169,20 +164,6 @@ def symbolic_compile(e_pi: np.ndarray, e_li: np.ndarray, num_p: int, num_l: int)
     finally:
         lib.ba_symbolic_free(h)
     return (hpl_row, hpl_col, edge2hpl, hsc_row, hsc_col, *mul, schur_native)
-
-
-def tile_minmax(ids: np.ndarray, bound: int, tile: int, mode: int, num_tiles: int):
-    """Per-tile (mode 0) or per-chunk (mode 1) min/max scan; None without
-    the library (see symbolic.cpp::ba_tile_minmax)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    ids = np.ascontiguousarray(ids, np.int32)
-    mn = np.empty(num_tiles, np.int64)
-    mx = np.empty(num_tiles, np.int64)
-    lib.ba_tile_minmax(_ptr32(ids), ids.size, int(bound), int(tile), int(mode),
-                       int(num_tiles), _ptr64(mn), _ptr64(mx))
-    return mn, mx
 
 
 def locality_reorder(mono_pi, mono_li, stereo_pi, stereo_li, total_p, total_l, num_l):

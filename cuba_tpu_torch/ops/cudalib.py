@@ -10,8 +10,8 @@ Dispatch: a CPU tensor takes a wrapper's plain torch version, a CUDA tensor
 the kernel (or an exception: there is no fallback).  :func:`use_plain`
 switches CUDA tensors to the plain versions too, for the comparisons in the
 tests and ``chip_smoke.py``.  Every kernel launch adds one to
-``LAUNCHES[wrapper name]`` (:func:`count`), and an fp64 launch to
-``LAUNCHES_F64[wrapper name]`` as well.
+``LAUNCHES[name]`` (:func:`count`; ``name`` is the launching wrapper's),
+and an fp64 launch to ``LAUNCHES_F64[name]`` as well.
 
 Element types: ``csrc/segmm.cu``, ``csrc/edgeterms.cu`` and
 ``csrc/factors.cu`` (``hll_inverse`` and ``slot_factors``, whose launches
@@ -44,12 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
-    "resident_gather": 0,
-    "windowed_gather": 0,
-    "tiled_gather": 0,
-    "accum_segsum": 0,
-    "accum_segsum_windowed": 0,
-    "tiled_segsum": 0,
+    "gather": 0,
+    "segsum": 0,
     "schur_fused": 0,
     "compact_to_band": 0,
     "compact_to_dense": 0,
@@ -77,7 +73,7 @@ def reset_launches() -> None:
 
 
 def count(name: str, dtype: torch.dtype) -> None:
-    """One launch of wrapper ``name``'s kernel, built for ``dtype``."""
+    """One launch of kernel ``name``, built for ``dtype``."""
     LAUNCHES[name] += 1
     if dtype == torch.float64:
         LAUNCHES_F64[name] += 1

@@ -2,15 +2,15 @@
 ``[D, N]`` fp32 or fp64 tables.
 
 Port of the ten one-hot-matmul Pallas kernels of ``cuba_tpu/ops/segmm.py``.
-Each wrapper keeps its TPU kernel's
-argument list, output shape and layout and invalid-id rules; its output
-takes its inputs' dtype:
+Each wrapper keeps its output shape and layout and invalid-id rules; its
+output takes its inputs' dtype:
 
-* gathers ``resident_gather`` / ``windowed_gather`` / ``tiled_gather``:
-  ``out[:, n] = src[:, ids[n]]``, 0 where ``ids[n] < 0`` or ``>= S``;
-* segment sums ``accum_segsum`` / ``accum_segsum_windowed`` /
-  ``tiled_segsum``: ``out[:, s] = sum of vals[:, n] over ids[n] == s`` for
-  ``0 <= s < num_out``; other ids are dropped;
+* ``gather``: ``out[:, n] = src[:, ids[n]]``, 0 where ``ids[n] < 0`` or
+  ``>= S`` (the sites of the TPU's ``resident_gather``,
+  ``windowed_gather`` and ``tiled_gather``);
+* ``segsum``: ``out[:, s] = sum of vals[:, n] over ids[n] == s`` for
+  ``0 <= s < num_out``; other ids are dropped (the sites of
+  ``accum_segsum``, ``accum_segsum_windowed`` and ``tiled_segsum``);
 * ``schur_fused``: per-chunk windowed W (x) Hpl pair products, [36, C*kwin];
 * ``compact_to_band``: the band-major compact Schur table placed into
   block-tridiagonal storage [M*384, 768];
@@ -20,14 +20,13 @@ takes its inputs' dtype:
   interleaved into the dense matrix [6PB, 6PB].
 
 The TPU kernels' windows and tiles only kept a one-hot factor inside VMEM;
-here the plan arguments are accepted and ignored where the kernel does not
-need them.  Underneath, six hand-written CUDA kernels (``csrc/segmm.cu``)
-serve the ten wrappers: a column gather, a deterministic CSR segment sum,
-a per-lane CSR pair-product sum, two table-driven placements (band and
-dense) and a lane-interleave copy.  The CSRs and the placement tables of
-a call site are built once per structure by the planner
-(``solver/rows.py``); the kernels need them, and only the segment sums
-build a missing CSR on the spot (which only tests do).
+the card needs none of them.  Underneath, six hand-written CUDA kernels
+(``csrc/segmm.cu``) serve the six wrappers: a column gather, a
+deterministic CSR segment sum, a per-lane CSR pair-product sum, two
+table-driven placements (band and dense) and a lane-interleave copy.  The
+CSRs and the placement tables of a call site are built once per structure
+by the planner (``solver/rows.py``); the kernels need them, and only the
+segment sum builds a missing CSR on the spot (which only tests do).
 
 Dispatch (``ops/cudalib.py``): a CPU tensor takes the ``*_plain`` torch
 version, a CUDA tensor the kernel built for its dtype (float32: entry
@@ -35,12 +34,12 @@ version, a CUDA tensor the kernel built for its dtype (float32: entry
 mixing the two, raises: there is no fallback).
 :func:`use_plain` switches CUDA tensors to the plain versions too, for the
 comparisons in the tests and ``chip_smoke.py``.  Every kernel launch adds
-one to ``LAUNCHES[wrapper name]``, an fp64 one to ``LAUNCHES_F64`` too.
+one to ``LAUNCHES[wrapper name]`` (``gather``, ``segsum``,
+``schur_fused``, ...), an fp64 one to ``LAUNCHES_F64`` too.
 
-The host plans (:class:`TilePlan`, :class:`AccumWindowPlan`,
-:class:`SchurPlan` and their planners) are NumPy copies of ``cuba_tpu``'s:
-the planner keeps them so its paddings and its choice of wrapper match
-``cuba_tpu``'s exactly.
+The one host plan, :class:`SchurPlan` (:func:`plan_schur`, a NumPy copy of
+``cuba_tpu``'s), is a bound of the card too: ``schur_fused``'s chunks and
+their shared-memory window.
 """
 
 from __future__ import annotations
@@ -58,122 +57,9 @@ from cuba_tpu_torch.ops import cudalib
 from cuba_tpu_torch.ops.cudalib import (  # noqa: F401
     LAUNCHES, LAUNCHES_F64, build_kernels, reset_launches, use_plain)
 
-# ---------------------------------------------------------------------------
-# host plans (NumPy copies of cuba_tpu/ops/segmm.py's planners)
-# ---------------------------------------------------------------------------
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-@dataclasses.dataclass(frozen=True)
-class AccumWindowPlan:
-    """Per-chunk windows: the ids in chunk c all fall in [wb[c]*128,
-    wb[c]*128 + win)."""
-
-    chunk: int
-    win: int
-    num_chunks: int
-    wb: np.ndarray  # [num_chunks] int32 window base in 128-column units
-    out_pad: int
-    ok: bool
-
-
-def plan_accum_windows(ids: np.ndarray, num_out: int, *, chunk: int = 1024,
-                       max_win: int = 512) -> AccumWindowPlan:
-    ids = np.asarray(ids)
-    N = int(ids.size)
-    C = max(N // chunk, 1)
-    if N % chunk != 0 or num_out <= 0:
-        return AccumWindowPlan(chunk, 0, C, np.zeros(C, np.int32), 0, False)
-    nat = native.tile_minmax(ids, num_out, chunk, 1, C)
-    if nat is not None:
-        lo, hi = nat
-    else:
-        iv = ids.astype(np.int64).reshape(C, chunk)
-        valid = (iv >= 0) & (iv < num_out)
-        lo = np.where(valid, iv, np.int64(1) << 40).min(axis=1)
-        hi = np.where(valid, iv, -1).max(axis=1)
-    empty = hi < 0
-    lo[empty] = 0
-    hi[empty] = 0
-    wb = lo // 128
-    width = int((hi - wb * 128).max()) + 1
-    win = max(_round_up(width, 128), 128)
-    ok = win <= max_win
-    out_pad = max(_round_up(int(wb.max()) * 128 + win, 128), _round_up(num_out, 128))
-    return AccumWindowPlan(chunk, win, C, wb.astype(np.int32), out_pad, ok)
-
-
-@dataclasses.dataclass(frozen=True)
-class TilePlan:
-    """Per-tile input windows of tiled_segsum / tiled_gather: tile t's
-    inputs lie in blocks [base_block[t], base_block[t] + n_blocks)."""
-
-    tile: int
-    block: int
-    n_blocks: int
-    num_tiles: int
-    base_block: np.ndarray  # [num_tiles] int32, -1 for an empty tile
-    n_pad: int
-    ok: bool
-
-
-def plan_tiles(ids: np.ndarray, num_out: int, *, tile: int = 512, block: int = 1024,
-               max_blocks: int = 8) -> TilePlan:
-    """tiled_segsum plan: per output tile, the input range covering it."""
-    N = int(ids.size)
-    num_tiles = max((num_out + tile - 1) // tile, 1)
-    nat = native.tile_minmax(ids, num_out, tile, 0, num_tiles)
-    if nat is not None:
-        first, last = nat
-    else:
-        valid = (ids >= 0) & (ids < num_out)
-        idx = np.nonzero(valid)[0]
-        t_of = ids[idx] // tile
-        first = np.full(num_tiles, np.int64(1) << 62, dtype=np.int64)
-        last = np.full(num_tiles, -1, dtype=np.int64)
-        np.minimum.at(first, t_of, idx)
-        np.maximum.at(last, t_of, idx)
-    empty = last < 0
-    first[empty] = 0
-    last[empty] = 0
-    base_block = first // block
-    end_block = last // block + 1
-    base_block[empty] = -1
-    n_blocks = max(int(np.max(end_block - base_block)) if num_tiles else 1, 1)
-    ok = n_blocks <= max_blocks
-    n_pad = int(np.max(base_block) + n_blocks) * block if ok else _round_up(N, block)
-    n_pad = max(n_pad, block)
-    return TilePlan(tile, block, n_blocks, num_tiles, base_block.astype(np.int32), n_pad, ok)
-
-
-def plan_gather_tiles(ids: np.ndarray, num_src: int, *, tile: int = 512, block: int = 1024,
-                      max_blocks: int = 8) -> TilePlan:
-    """tiled_gather plan: per output tile, the source-column window."""
-    N = int(ids.size)
-    num_tiles = max((N + tile - 1) // tile, 1)
-    nat = native.tile_minmax(ids, num_src, tile, 1, num_tiles)
-    if nat is not None:
-        lo, hi = nat
-        any_valid = hi >= 0
-        lo[~any_valid] = 0
-        hi[~any_valid] = 0
-    else:
-        pad = num_tiles * tile - N
-        idp = np.concatenate([ids, np.full(pad, -1, np.int32)]).reshape(num_tiles, tile)
-        valid = (idp >= 0) & (idp < num_src)
-        any_valid = valid.any(axis=1)
-        lo = np.where(any_valid, np.where(valid, idp, num_src).min(axis=1), 0)
-        hi = np.where(any_valid, np.where(valid, idp, -1).max(axis=1), 0)
-    base_block = lo // block
-    n_blocks = max(int(np.max(hi // block + 1 - base_block)) if num_tiles else 1, 1)
-    base_block[~any_valid] = -1
-    ok = n_blocks <= max_blocks
-    n_pad = int(np.max(base_block) + n_blocks) * block if ok else _round_up(num_src, block)
-    n_pad = max(n_pad, block)
-    return TilePlan(tile, block, n_blocks, num_tiles, base_block.astype(np.int32), n_pad, ok)
 
 
 # (chunk, slot_block, max_kwin) of the fused Schur plan, the geometry the
@@ -520,24 +406,23 @@ def _entry(name: str, dtype: torch.dtype):
     return getattr(_kernel_lib(), cudalib.symbol(name, dtype))
 
 
-def _launch_gather(name: str, src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _launch_gather(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     dt = cudalib.float_dtype(src)
     cudalib.check(src, "src", dt, 2)
     cudalib.check(ids, "ids", torch.int32, 1)
     D, S = src.shape
     N = ids.shape[0]
-    cudalib.check_int32(name, D * S, D * N)
+    cudalib.check_int32("gather_cols", D * S, D * N)
     out = torch.empty((D, N), dtype=dt, device=src.device)
     if D * N == 0:
         return out
-    cudalib.call(name, src, _entry("cuba_gather_cols", dt),
+    cudalib.call("gather_cols", src, _entry("cuba_gather_cols", dt),
                  src.data_ptr(), ids.data_ptr(), out.data_ptr(), D, S, N)
-    cudalib.count(name, dt)
+    cudalib.count("gather", dt)
     return out
 
 
-def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
-                   csr: SegmentCSR) -> torch.Tensor:
+def _launch_segsum(vals: torch.Tensor, num_out: int, csr: SegmentCSR) -> torch.Tensor:
     dt = cudalib.float_dtype(vals)
     cudalib.check(vals, "vals", dt, 2)
     cudalib.check(csr.order, "csr.order", torch.int32, 1)
@@ -550,116 +435,65 @@ def _launch_segsum(name: str, vals: torch.Tensor, num_out: int,
         if t is not None and t.device != vals.device:
             raise ValueError("csr tensors must be on the device of vals")
     D, N = vals.shape
-    cudalib.check_int32(name, D * N, D * num_out, num_out * MAX_GROUP)
+    cudalib.check_int32("segsum_csr", D * N, D * num_out, num_out * MAX_GROUP)
     out = torch.empty((D, num_out), dtype=dt, device=vals.device)
     if D * num_out == 0:
         return out
     live, num_live = (None, 0) if csr.live is None else (csr.live.data_ptr(), csr.live.numel())
-    cudalib.call(name, vals, _entry("cuba_segsum_csr", dt),
+    cudalib.call("segsum_csr", vals, _entry("cuba_segsum_csr", dt),
                  vals.data_ptr(), csr.order.data_ptr(), csr.offs.data_ptr(), live, num_live,
                  out.data_ptr(), D, N, num_out, csr.group, row_chunk(D, N, csr.group))
-    cudalib.count(name, dt)
+    cudalib.count("segsum", dt)
     return out
 
 
-def _gather_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# the gather and the segment sum, and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def gather_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     valid = (ids >= 0) & (ids < src.shape[1])
     safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
     return torch.where(valid[None, :], src[:, safe], torch.zeros((), dtype=src.dtype,
                                                                    device=src.device))
 
 
-def _segsum_plain(vals: torch.Tensor, ids: torch.Tensor, num_out: int) -> torch.Tensor:
+def gather(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Column gather, src [D, S] by ids [N] -> [D, N]: ``out[:, n] =
+    src[:, ids[n]]``, 0 where ``ids[n] < 0`` or ``>= S``.  Every gather of
+    the port (the call sites of cuba_tpu's ``resident_gather``,
+    ``windowed_gather`` and ``tiled_gather``); on the card one
+    ``gather_cols`` launch, exact."""
+    with trace.span("k.gather_cols"):
+        if cudalib.use_kernel(src, ids):
+            return _launch_gather(src, ids)
+        return gather_plain(src, ids)
+
+
+def segsum_plain(vals: torch.Tensor, ids: torch.Tensor, num_out: int) -> torch.Tensor:
+    """:func:`segsum` in torch, in ``index_add_``'s order."""
     valid = (ids >= 0) & (ids < num_out)
     out = torch.zeros((vals.shape[0], num_out), dtype=vals.dtype, device=vals.device)
     return out.index_add_(1, ids[valid].long(), vals[:, valid])
 
 
-def _gather(name, src, ids):
-    with trace.span("k.gather_cols"):
-        if cudalib.use_kernel(src, ids):
-            return _launch_gather(name, src, ids)
-        return _gather_plain(src, ids)
-
-
-def _segsum(name, vals, ids, num_out, csr):
+def segsum(vals: torch.Tensor, ids: torch.Tensor, num_out: int,
+           csr: Optional[SegmentCSR] = None) -> torch.Tensor:
+    """Segment sum, vals [D, N] by ids [N] -> [D, num_out]: ``out[:, s] =
+    sum of vals[:, n] over ids[n] == s`` for ``0 <= s < num_out``; other ids
+    are dropped.  Every segment sum of the port (the call sites of
+    cuba_tpu's ``accum_segsum``, ``accum_segsum_windowed`` and
+    ``tiled_segsum``); on the card one ``segsum_csr`` launch in the fixed
+    order of ``csr`` (:func:`segment_csr` of ``ids``, built once per
+    structure by the planner; built here where it is missing, which only
+    tests do)."""
     with trace.span("k.segsum_csr"):
         if cudalib.use_kernel(vals, ids):
             if csr is None:
                 csr = segment_csr(ids, num_out, vals.device)
-            return _launch_segsum(name, vals, num_out, csr)
-        return _segsum_plain(vals, ids, num_out)
-
-
-# ---------------------------------------------------------------------------
-# the six wrappers and their plain versions
-# ---------------------------------------------------------------------------
-
-
-def resident_gather(src, ids, *, chunk: int = 1024):
-    """Per-edge pose gather, src [D, S] by ids [N] -> [D, N]
-    (cuba_tpu segmm.resident_gather; ``chunk`` is ignored)."""
-    return _gather("resident_gather", src, ids)
-
-
-def resident_gather_plain(src, ids, *, chunk: int = 1024):
-    return _gather_plain(src, ids)
-
-
-def windowed_gather(src, ids, plan: AccumWindowPlan, wb):
-    """resident_gather over rank-ordered ids (cuba_tpu
-    segmm.windowed_gather; the window plan is ignored)."""
-    return _gather("windowed_gather", src, ids)
-
-
-def windowed_gather_plain(src, ids, plan: AccumWindowPlan, wb):
-    return _gather_plain(src, ids)
-
-
-def tiled_gather(src, ids, plan: TilePlan, base_block, *, num_out: Optional[int] = None):
-    """src [D, S] by ids [N] -> [D, N], or its first ``num_out`` columns
-    (cuba_tpu segmm.tiled_gather; the tile plan is ignored)."""
-    if num_out is not None:
-        ids = ids[:num_out]
-    return _gather("tiled_gather", src, ids)
-
-
-def tiled_gather_plain(src, ids, plan: TilePlan, base_block, *, num_out: Optional[int] = None):
-    return _gather_plain(src, ids if num_out is None else ids[:num_out])
-
-
-def accum_segsum(vals, ids, num_out: int, *, chunk: int = 1024,
-                 csr: Optional[SegmentCSR] = None):
-    """vals [D, N] summed by ids [N] -> [D, num_out] (cuba_tpu
-    segmm.accum_segsum; ``chunk`` is ignored)."""
-    return _segsum("accum_segsum", vals, ids, num_out, csr)
-
-
-def accum_segsum_plain(vals, ids, num_out: int, *, chunk: int = 1024, csr=None):
-    return _segsum_plain(vals, ids, num_out)
-
-
-def accum_segsum_windowed(vals, ids, num_out: int, plan: AccumWindowPlan, wb, *,
-                          csr: Optional[SegmentCSR] = None):
-    """accum_segsum over locally banded ids (cuba_tpu
-    segmm.accum_segsum_windowed; the window plan is ignored)."""
-    return _segsum("accum_segsum_windowed", vals, ids, num_out, csr)
-
-
-def accum_segsum_windowed_plain(vals, ids, num_out: int, plan: AccumWindowPlan, wb, *,
-                                csr=None):
-    return _segsum_plain(vals, ids, num_out)
-
-
-def tiled_segsum(vals, ids, num_out: int, plan: TilePlan, base_block, *,
-                 csr: Optional[SegmentCSR] = None):
-    """accum_segsum over locally sorted ids (cuba_tpu segmm.tiled_segsum;
-    the tile plan is ignored)."""
-    return _segsum("tiled_segsum", vals, ids, num_out, csr)
-
-
-def tiled_segsum_plain(vals, ids, num_out: int, plan: TilePlan, base_block, *, csr=None):
-    return _segsum_plain(vals, ids, num_out)
+            return _launch_segsum(vals, num_out, csr)
+        return segsum_plain(vals, ids, num_out)
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +501,7 @@ def tiled_segsum_plain(vals, ids, num_out: int, plan: TilePlan, base_block, *, c
 # ---------------------------------------------------------------------------
 
 
-def schur_fused_plain(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr=None):
+def schur_fused_plain(W, G, plan: SchurPlan, sb, li, lj, lk):
     """Plain torch schur_fused: every chunk's pair products, gathered from
     its slot window and summed into its output lanes."""
     C, R, KW, SB = plan.num_chunks, plan.chunk, plan.kwin, plan.slot_block
@@ -767,7 +601,7 @@ def schur_fused(W, G, plan: SchurPlan, sb, li, lj, lk, *, csr: Optional[SegmentC
         return out
 
 
-def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *, table=None):
+def compact_to_band_plain(gT, iru, icu, dbT, occ_band, PB: int, Wg: int):
     """Plain torch compact_to_band: uppers, transposed mirrors and the
     damped diagonal placed into [M, 64, 6, 2, 64, 6] = tile (k, e) element
     (pose row, i, pose col, j), then zeroed on unoccupied tiles."""
@@ -843,7 +677,7 @@ def compact_to_band(gT, iru, icu, dbT, occ_band, PB: int, Wg: int, *,
 DENSE_TILE_P, DENSE_TILE_Q = 64, 128  # compact_to_dense's occupancy tiles, pose blocks
 
 
-def compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB: int, Wg: int, *, table=None):
+def compact_to_dense_plain(gT, iru, icu, dbT, occ2, PB: int, Wg: int):
     """Plain torch compact_to_dense: uppers, transposed mirrors and the
     damped diagonal placed into [PB, 6, PB, 6] = element (pose row, i, pose
     col, j), then zeroed on unoccupied 64x128-block tiles."""

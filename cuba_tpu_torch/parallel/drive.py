@@ -53,16 +53,11 @@ def _np(t) -> np.ndarray:
 
 def route_facts(eng) -> dict:
     """The route and solver of an engine, as the facts that decide which
-    kernels its LM loop launches: the path and solver, the pad, dtype and
-    refinement steps of the dense solve, and on the rows front end the
-    pose gather's kind and each pose accumulate's window plan."""
-    plan = eng.plan
+    kernels its LM loop launches: the path and solver, and the pad, dtype
+    and refinement steps of the dense solve."""
     return dict(solver=eng.solver, path=eng.path, band_m=eng.band_m,
                 pad_blocks=eng.pad_blocks, dtype=str(eng.dtype).removeprefix("torch."),
-                refine=eng.config.refinement_steps,
-                windowed=plan is not None and plan.rg_m is not None,
-                paw_ok=[] if plan is None else [bool(p.ok) for p in (plan.paw_m, plan.paw_s,
-                                                                       plan.paw_b)])
+                refine=eng.config.refinement_steps)
 
 
 def _facts(eng) -> dict:

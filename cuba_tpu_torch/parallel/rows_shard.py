@@ -7,7 +7,7 @@
    stays a global block id, so the Schur tables of all shards sum into one
    key space), and the shard's own landmarks, edges, Hpl slots and
    triplets.  The landmark partition is contiguous, so each shard keeps
-   the global locality order and its window plans stay narrow.  Both
+   the global locality order.  Both
    routes run on these shards: the rows route plans them, the AoS body
    (``cuba_tpu``'s XLA body, which cuts padded tables of its own) takes
    them as they are.  :func:`shard_structures` is ``cuba_tpu``'s cut, with
@@ -147,8 +147,10 @@ def plan_sharded(s: BAStructure, group, device, dtype, solver: str, pad_blocks: 
     """This rank's shard and its rows plan: (shard structure, RowPlan,
     RowConsts), or None on every rank where any shard does not take the
     rows route (its shard structures or its plan fail, or, for a solver
-    other than ``pcg``, the plan lacks the v2 band-major tables: the v1
-    formation stays single-device, as in ``cuba_tpu``).  The plan is
+    other than ``pcg`` on more than one shard, the plan lacks the v2
+    band-major tables: the v1 formation is not all-reduced, as in
+    ``cuba_tpu``; one shard takes it, as the single-device engine does).
+    The plan is
     ``BlockSolverEngine``'s for the same solver: no Schur formation for
     ``pcg``, the dense placement table for ``dense_cholesky``, the loop
     plan ``lr`` for ``band_lr``."""
@@ -159,7 +161,7 @@ def plan_sharded(s: BAStructure, group, device, dtype, solver: str, pad_blocks: 
         plan, rc = rows.plan_rows(local, device, dtype,
                                   pad_blocks=0 if solver == "pcg" else pad_blocks,
                                   dense=solver == "dense_cholesky", lr=lr)
-    ok = plan is not None and (solver == "pcg" or plan.v2)
+    ok = plan is not None and (solver == "pcg" or plan.v2 or comm.size(group) == 1)
     if not comm.agree(ok, group, device):
         return None
     return local, plan, rc

@@ -76,8 +76,8 @@ class MultiChipEngine(engine.BlockSolverEngine):
     (:func:`engine.resolve_solver`: ``pcg`` stays sharded, ``band_cr`` where
     certified, the same ``auto`` gates), and the route follows plan
     feasibility in both dtypes: the rows route where every shard's rows
-    plan holds (the v2 formation for the reduced solvers), else the AoS
-    body.  ``band_lr`` runs on the rows route only; on the AoS body it is
+    plan holds (the v2 formation for the reduced solvers, or v1 on one
+    shard), else the AoS body.  ``band_lr`` runs on the rows route only; on the AoS body it is
     an explicit ``dense_cholesky`` (``cuba_tpu``'s honest fallback).
     ``aos=True`` takes the AoS body without planning (the drivers' way to
     run it on a graph whose shards plan)."""

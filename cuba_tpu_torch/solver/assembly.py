@@ -2,14 +2,14 @@
 quadratic form over edge-batched (array-of-structs) tensors (port of
 ``cuba_tpu/solver/assembly.py``).
 
-This is the path ``cuba_tpu`` takes where its window plans fail
-(``plan_mxu``'s ``ok`` is False: scattered covisibility, plans that do not
-hold, pose-only and landmark-only problems).  Gathers are tensor indexing;
-every segment sum is :func:`segment_sum`, the CSR segment-sum kernel of
-``ops/segmm.py`` with the summation order fixed once per structure, so a
-run gives the same bits every time (no atomics).  Contributions of fixed
-vertices carry ids past the active range and are dropped, as
-``cuba_tpu``'s clamp row drops them.
+This is the path the engine takes where the rows planner finds no plan:
+pose-only and landmark-only problems, structures without Hpl slots, and a
+``schur_fused`` chunk plan that does not hold.  Gathers are tensor
+indexing; every segment sum is :func:`segment_sum`, ``segmm.segsum`` (the
+CSR segment-sum kernel on the card) with the summation order fixed once
+per structure, so a run gives the same bits every time (no atomics).
+Contributions of fixed vertices carry ids past the active range and are
+dropped, as ``cuba_tpu``'s clamp row drops them.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num: int,
     over the [D, N] transpose, in the CSR's fixed order."""
     tail = data.shape[1:]
     vals = data.reshape(data.shape[0], math.prod(tail)).T.contiguous()
-    return segmm.accum_segsum(vals, ids, num, csr=csr).T.reshape((num,) + tail)
+    return segmm.segsum(vals, ids, num, csr).T.reshape((num,) + tail)
 
 
 def edge_residuals(qs, ts, cams, Xws, ec: EdgeConsts, mdim: int):

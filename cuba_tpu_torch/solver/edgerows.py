@@ -35,7 +35,7 @@ def rotmat_rows(q4: torch.Tensor) -> torch.Tensor:
 
 def residual_rows(g12: torch.Tensor, xw: torch.Tensor, measT: torch.Tensor,
                   valid: torch.Tensor, mdim: int):
-    """err [mdim, E], Xc [3, E], R [3, 3, E], inv_z [E].
+    """err [mdim, E], Xc [3, E], inv_z [E].
 
     g12 [12, E]: gathered pose rows q(4), t(3), cam(5); xw [3, E]: gathered
     landmark rows; measT [mdim, E]; valid [E] (False on padding lanes).
@@ -55,7 +55,7 @@ def residual_rows(g12: torch.Tensor, xw: torch.Tensor, measT: torch.Tensor,
         ur = u - cam[4] * inv_z
         err = torch.stack([u - measT[0], v - measT[1], ur - measT[2]])
     err = torch.where(valid[None, :], err, zero)
-    return err, Xc, R, inv_z
+    return err, Xc, inv_z
 
 
 def chi_per_edge(err: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,13 @@
 solver and both of ``cuba_tpu``'s front ends (port of
 ``cuba_tpu/solver/engine.py``).
 
-Where ``cuba_tpu``'s window plans hold (``plan_mxu``'s ``ok``), the engine
-runs the rows front end (``solver/rows.py``) and the matrix-free PCG, the
-band (cyclic-reduction), the band + Woodbury loop-closure or the dense
-(Cholesky) reduced solve on the v2 or the v1 Schur formation.  Where they do
-not (scattered covisibility, pose-only and landmark-only problems, plans
-that fail), it runs the AoS path (``solver/assembly.py``, ``schur.py``,
+Where the rows planner takes the structure (``rows.plan_rows``: poses,
+landmarks and Hpl slots, and a ``schur_fused`` chunk plan that holds), the
+engine runs the rows front end (``solver/rows.py``) and the matrix-free
+PCG, the band (cyclic-reduction), the band + Woodbury loop-closure or the
+dense (Cholesky) reduced solve on the v2 or the v1 Schur formation.
+Elsewhere (pose-only and landmark-only problems, no Hpl slot, a chunk plan
+that fails) it runs the AoS path (``solver/assembly.py``, ``schur.py``,
 ``pcg.py``) with the same four solvers, or the diagonal pose-only and
 landmark-only solves.  The route is the planner's decision, never a
 fallback from a kernel that failed.
@@ -262,7 +263,7 @@ class BlockSolverEngine:
         self.kernels = tuple((int(k[0]), float(k[1])) for k in kernels)
         self.num_p, self.num_l = s.num_p, s.num_l
         self.plan, self.rc = plan, rc
-        # the rows front end where cuba_tpu's plans hold, else the AoS path
+        # the rows front end where the planner takes the structure, else the AoS path
         self.use_rows = self.plan is not None
         # band_lr's host Woodbury plan and its loop columns (ob_i, ob_j,
         # jrows) on the device, for every formation
@@ -306,7 +307,7 @@ class BlockSolverEngine:
         if self.use_rows:
             pack_m, pack_s, chi = rows.edge_rows(
                 state.qs, state.ts, state.Xws, self.cams, self.kernels, self.chi_dtype,
-                (s.mono.count, s.stereo.count), self.plan, self.rc,
+                (s.mono.count, s.stereo.count), self.rc,
             )
             return pack_m, pack_s, comm.all_reduce_sum(chi, self.group)
         chi = torch.zeros((), dtype=self.chi_dtype, device=self.device)
@@ -381,13 +382,12 @@ class BlockSolverEngine:
             return self._solve_aos(sys, lam, begin)
         HppT, HllT, HplT = sys
         plan, rc, P = self.plan, self.rc, self.num_p
-        iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P,
-                                                 self.num_l, plan, rc, group=self.group)
+        iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, P, rc, group=self.group)
         if self.solver == "pcg":
             begin(_DECOMP)
             xT, ok, k = rows.pcg_solve_rows(
-                HppT, HplT, W, lam, bscT, P, self.num_l, plan, rc,
-                self.config.pcg_max_iterations, self.config.pcg_tol, group=self.group,
+                HppT, HplT, W, lam, bscT, P, self.num_l, rc, self.config.pcg_max_iterations,
+                self.config.pcg_tol, group=self.group,
             )
             xp, reads = xT.T, self._pcg_reads(k)
         else:
@@ -430,7 +430,7 @@ class BlockSolverEngine:
                 x, ok, reads = dense_cholesky.cholesky_solve(Dm, rhs, refine,
                                                              use_kernels=use_ts)
             xp, k = x[:6 * P].reshape(P, 6), 0
-        xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, plan, rc)
+        xl = rows.back_substitute(iv9, HllT, HplT, g12, xp, self.num_l, rc)
         begin(_UPDATE)
         return xp, xl, ok, k, reads
 

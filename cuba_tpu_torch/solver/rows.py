@@ -3,7 +3,8 @@ Schur formations (port of ``cuba_tpu/solver/mxu.py``), over transposed
 ``[D, N]`` tensors.
 
 Every index-driven step goes through the wrappers of ``ops/segmm.py``
-(hand-written CUDA kernels on the card).  The Schur factors of
+(hand-written CUDA kernels on the card): each gather is ``segmm.gather``,
+each segment sum ``segmm.segsum``.  The Schur factors of
 :func:`prepare_factors` are two more on the card (``ops/factors.py``: the
 landmarks' damped fp64 3x3 inverses, and each slot's W = Hpl Hll^-1 and W
 bl), dispatched by :func:`hll_inverse_rows` and :func:`slot_factors_rows`;
@@ -13,11 +14,10 @@ Function by function:
 =========================  ==================================
 this module                ``cuba_tpu/solver/mxu.py``
 =========================  ==================================
-``plan_rows``              ``plan_mxu(wire_pack=False)`` (688-1116),
-                           ``plan_schur_for`` (306) and ``pose_ranks`` (325)
-``plan_row_tables``        ``plan_mxu``'s host half and its ``ok`` gate
+``plan_rows``              ``plan_mxu(wire_pack=False)`` (688-1116) and
+                           ``plan_schur_for`` (306)
+``plan_row_tables``        ``plan_mxu``'s host half
 ``edge_rows``              ``edge_rows_mxu`` (1428)
-``_pose_accum``            ``_pose_accum`` (1478)
 ``build_system_rows``      ``build_system_rows`` (1488)
 ``_sym3x3_inv_rows``       ``_sym3x3_inv_rows`` (1548)
 ``hll_inverse_rows``       ``prepare_factors_mxu``'s damped inverse
@@ -36,11 +36,16 @@ this module                ``cuba_tpu/solver/mxu.py``
 ``max_diagonal_T``         ``max_diagonal_T`` (1904)
 =========================  ==================================
 
-The planner routes a structure as ``plan_mxu`` does: the v2 band-major
-formation where it plans, else the v1 formation (two combines into the
-dense block table [36, PB*PB] and ``band_transpose``) where its tile plans
-hold, else no plan at all, where ``cuba_tpu``'s ``plans.ok`` is False and
-the engine takes the AoS path (``solver/assembly.py``).
+The planner plans for the card.  It takes every structure with poses,
+landmarks and Hpl slots whose ``schur_fused`` chunk plan holds where a Schur
+formation is needed (that plan is the kernel's shared-memory window): the
+v2 band-major formation where the structure has Hsc blocks and its fullest
+64-row band holds at most ``_WG_MAX`` of them, else the v1 formation (two
+combines into the dense block table [36, PB*PB] and ``band_transpose``).
+Elsewhere (pose-only and landmark-only structures, no Hpl slot, a chunk
+plan that fails) it finds no plan and the engine takes the AoS path
+(``solver/assembly.py``).  The paddings are the card's: each per-edge and
+per-slot table to a multiple of 1024.
 
 Table layouts: HppT [42, P] (Hpp row-major 36, then bp 6), HllT [12, L]
 (Hll 9, then bl 3), HplT [18, hpl_pad] (Hpl row-major i*3+k per slot),
@@ -59,7 +64,7 @@ import torch
 
 from cuba_tpu_torch import trace
 from cuba_tpu_torch.ops import cudalib, factors, segmm
-from cuba_tpu_torch.ops.segmm import AccumWindowPlan, SegmentCSR, TilePlan
+from cuba_tpu_torch.ops.segmm import SegmentCSR
 from cuba_tpu_torch.solver import comm, edgerows
 from cuba_tpu_torch.solver.structure import BAStructure
 
@@ -68,12 +73,10 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# band-major lanes per 64-row band at most (cuba_tpu mxu._WG_MAX); above
-# it the v2 formation does not plan.  Read at call time, as plan_mxu does.
+# band-major lanes per 64-row band at most (cuba_tpu mxu._WG_MAX, the TPU's
+# VMEM bound, kept here to choose between v2 and v1); above it the v2
+# formation does not plan.  Read at call time, as plan_mxu does.
 _WG_MAX = 2048
-# total grid steps of the v2 combine's tile plan (cuba_tpu
-# mxu._COMBINE_STEPS_MAX), which sets that plan's block cap
-_COMBINE_STEPS_MAX = 65536
 # perm36[i*6+j] = j*6+i: row (i, j) of a mirrored block is row (j, i) of its
 # upper block
 _PERM36 = np.arange(36).reshape(6, 6).T.reshape(-1)
@@ -87,54 +90,18 @@ def _pad_ids(ids, n, valid_mask=None):
     return out
 
 
-def pose_ranks(s: BAStructure) -> np.ndarray:
-    """Rank every pose (active and fixed) by its first observation in the
-    locality-ordered edge stream: the rank-ordered gather's column order."""
-    total_p = int(s.qs.shape[0])
-    allp = np.concatenate([np.asarray(s.mono.pose_idx, np.int64),
-                           np.asarray(s.stereo.pose_idx, np.int64)])
-    first = np.full(total_p, np.int64(1) << 60)
-    # reversed assignment: the last write (= first position) wins
-    first[allp[::-1]] = np.arange(allp.size - 1, -1, -1, dtype=np.int64)
-    rorder = np.argsort(first, kind="stable")
-    prank = np.empty(total_p, np.int64)
-    prank[rorder] = np.arange(total_p)
-    return prank
-
-
 @dataclasses.dataclass
 class RowPlan:
-    """Host plan of one structure: paddings and the TPU window plans, kept
-    so that paddings and the choice of wrapper match ``cuba_tpu``'s."""
+    """Host plan of one structure: its paddings and its Schur formation."""
 
-    e_pad_m: int
+    e_pad_m: int  # per-edge tables: max(round_up(E, 1024), 1024)
     e_pad_s: int
-    hpl_pad: int
-    p_src_pad: int
-    p_res_pad: int
-    hll_m: TilePlan
-    hll_s: TilePlan
-    hpl_m: TilePlan
-    hpl_s: TilePlan
-    ivs: TilePlan  # gather [invHll; bl] rows by hpl_col
-    xpg: TilePlan  # gather pose rows by hpl_row
-    cl: TilePlan  # segment-sum slot rows by hpl_col
-    xwg_m: TilePlan
-    xwg_s: TilePlan
-    paw_m: AccumWindowPlan
-    paw_s: AccumWindowPlan
-    paw_b: AccumWindowPlan
-    rg_m: Optional[AccumWindowPlan]  # None: the rank-ordered pose gather is off
-    rg_s: Optional[AccumWindowPlan]
+    hpl_pad: int  # per-slot tables: round_up(n_hpl, 1024), at least schur_fused's window
     # the Schur formations (None / 0 without need_dense)
     pad_blocks: int = 0  # PB: the reduced system in pose blocks
     schur: Optional[segmm.SchurPlan] = None
     v2: bool = False  # the band-major formation; else v1 (with need_dense)
     wg: int = 0  # v2: band-major lanes per 64-row band
-    up2: Optional[TilePlan] = None  # v2: the combine's tile plan over gkey_up2
-    up: Optional[TilePlan] = None  # v1: the combines' tile plans over gkey_up / gkey_lo
-    lo: Optional[TilePlan] = None
-    wpad: int = 0  # padded width of schur_fused's output and of the combine keys
     lr_k: int = 0  # v2 band + low rank: loop-column pose blocks |J|
     lr_nob: int = 0  # and out-of-band blocks
 
@@ -159,9 +126,6 @@ class RowConsts:
     e2h_s: torch.Tensor
     hpl_row: torch.Tensor  # [hpl_pad]
     hpl_col: torch.Tensor
-    pose_gidr_m: Optional[torch.Tensor]  # rank-ordered pose ids (rg plans)
-    pose_gidr_s: Optional[torch.Tensor]
-    res_perm: Optional[torch.Tensor]  # [p_res_pad] source column order (rg plans)
     # the fixed summation order of every segment-sum call site
     csr_pose_m: SegmentCSR
     csr_pose_s: SegmentCSR
@@ -176,7 +140,7 @@ class RowConsts:
     sc_li: Optional[torch.Tensor] = None  # [C*chunk] local ids
     sc_lj: Optional[torch.Tensor] = None
     sc_lk: Optional[torch.Tensor] = None
-    gkey_up2: Optional[torch.Tensor] = None  # [wpad] band slot per output lane
+    gkey_up2: Optional[torch.Tensor] = None  # [C*kwin] band slot per output lane
     iru: Optional[torch.Tensor] = None  # [M*Wg] block row / col per band slot
     icu: Optional[torch.Tensor] = None
     band_occ: Optional[torch.Tensor] = None  # [2M] tile (k, e) occupancy
@@ -189,8 +153,8 @@ class RowConsts:
     # columns are the engine's, from band_cr.loop_plan)
     ob_rkey: Optional[torch.Tensor] = None  # [n_ob] band slot per out-of-band block
     # v1 formation: dense block keys of the upper and the mirrored blocks
-    gkey_up: Optional[torch.Tensor] = None  # [wpad] r*PB + c per window lane
-    gkey_lo: Optional[torch.Tensor] = None  # [wpad] c*PB + r off the diagonal
+    gkey_up: Optional[torch.Tensor] = None  # [C*kwin] r*PB + c per window lane
+    gkey_lo: Optional[torch.Tensor] = None  # [C*kwin] c*PB + r off the diagonal
     occ: Optional[torch.Tensor] = None  # [PB/64 * PB/128] band_transpose's tiles
     csr_up: Optional[SegmentCSR] = None
     csr_lo: Optional[SegmentCSR] = None
@@ -215,10 +179,10 @@ def plan_schur_for(s: BAStructure) -> segmm.SchurPlan:
 
 def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int, lr=None):
     """The v2 band-major tables of ``plan_mxu``'s need_dense branch: (wg,
-    up2, {gkey_up2, iru, icu, occ2, band_occ} and, with the loop plan ``lr``
-    of a band with loop closures, the out-of-band blocks' band slots
-    {ob_rkey}), or None where cuba_tpu takes the v1 formation (Wg over
-    _WG_MAX, no Hsc block or the combine plan fails)."""
+    {gkey_up2, iru, icu, occ2, band_occ} and, with the loop plan ``lr`` of a
+    band with loop closures, the out-of-band blocks' band slots
+    {ob_rkey}), or None where the v1 formation takes the structure (Wg over
+    _WG_MAX or no Hsc block)."""
     i32 = np.int32
     n_hsc = s.n_hsc
     gid = sc.gid.astype(np.int64)
@@ -234,11 +198,6 @@ def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int, lr=None):
     np.cumsum(bandcnt, out=bandstart[1:])
     bslot = (hr // 64) * wg + (np.arange(n_hsc, dtype=np.int64) - bandstart[hr // 64])
     gkey_up2 = np.where(gid >= 0, bslot[np.maximum(gid, 0)], -1).astype(i32)
-    n_t_up2 = max((M * wg + 127) // 128, 1)
-    up2 = segmm.plan_tiles(gkey_up2, M * wg, tile=128, block=512,
-                           max_blocks=max(32, _COMBINE_STEPS_MAX // n_t_up2))
-    if not up2.ok:
-        return None
     iru = np.full(M * wg, -1, i32)
     icu = np.full(M * wg, -1, i32)
     iru[bslot] = hr
@@ -261,13 +220,12 @@ def _band_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int, lr=None):
                   band_occ=band_occ)
     if lr is not None:
         tables["ob_rkey"] = bslot[lr["ob_idx"]].astype(i32)
-    return wg, up2, tables
+    return wg, tables
 
 
 def _v1_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
-    """The v1 dense-key tables of ``plan_mxu``'s ``if not v2`` branch: (up,
-    lo, {gkey_up, gkey_lo, occ}), or None where either combine's tile plan
-    fails (cuba_tpu then takes its XLA path)."""
+    """The v1 dense-key tables of ``plan_mxu``'s ``if not v2`` branch:
+    {gkey_up, gkey_lo, occ}."""
     i32 = np.int32
     gid = sc.gid.astype(np.int64)
     hr = np.asarray(s.hsc_row, np.int64)
@@ -276,10 +234,6 @@ def _v1_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     c = np.where(gid >= 0, hc[np.maximum(gid, 0)], 0)
     gkey_up = np.where(gid >= 0, r * PB + c, -1).astype(i32)
     gkey_lo = np.where((gid >= 0) & (r != c), c * PB + r, -1).astype(i32)
-    up = segmm.plan_tiles(gkey_up, PB * PB, block=128, max_blocks=64)
-    lo = segmm.plan_tiles(gkey_lo, PB * PB, block=128, max_blocks=64)
-    if not (up.ok and lo.ok):
-        return None
     # 64x128-block tiles holding any dense block (uppers, mirrors, and the
     # diagonal including the padding poses)
     occ = np.zeros((PB // 64, PB // 128), i32)
@@ -288,18 +242,18 @@ def _v1_tables(s: BAStructure, sc: segmm.SchurPlan, PB: int):
     occ[c[v] // 64, r[v] // 128] = 1
     dd = np.arange(PB)
     occ[dd // 64, dd // 128] = 1
-    return up, lo, dict(gkey_up=gkey_up, gkey_lo=gkey_lo, occ=occ.reshape(-1))
+    return dict(gkey_up=gkey_up, gkey_lo=gkey_lo, occ=occ.reshape(-1))
 
 
 def plan_row_tables(s: BAStructure, pad_blocks: int = 0, lr=None):
     """The host half of :func:`plan_rows`: (RowPlan, {name: np.ndarray}),
-    or (None, None) where ``cuba_tpu``'s ``plan_mxu(s, pad_blocks,
-    need_dense=pad_blocks > 0, wire_pack=False)`` returns ``ok`` False
-    (pose-only or landmark-only structures, a tile or chunk plan that does
-    not hold, or neither Schur formation planning).  Paddings, plans and
-    tables equal ``plan_mxu``'s; with ``pad_blocks`` the Schur formation's
-    (v2 where it plans, else v1) come too, and with the structure's loop
-    plan ``lr`` (``band_cr.loop_plan``) v2's out-of-band tables."""
+    or (None, None) where the rows front end does not take the structure
+    (no pose, landmark or Hpl slot, or with ``pad_blocks`` a ``schur_fused``
+    chunk plan that does not hold).  The id tables are ``plan_mxu``'s on
+    their valid prefix and -1 beyond it; with ``pad_blocks`` the Schur
+    formation's tables come too (v2 where it plans, else v1), and with the
+    structure's loop plan ``lr`` (``band_cr.loop_plan``) v2's out-of-band
+    tables."""
     num_p, num_l, n_hpl = s.num_p, s.num_l, s.n_hpl
     if num_p == 0 or num_l == 0 or n_hpl == 0:
         return None, None
@@ -309,101 +263,40 @@ def plan_row_tables(s: BAStructure, pad_blocks: int = 0, lr=None):
         if pad_blocks % 128 != 0:
             raise ValueError(f"pad_blocks must be a positive multiple of 128, got {pad_blocks}")
         sc = plan_schur_for(s)
+        if not sc.ok:
+            return None, None
     Em, Es = s.mono.count, s.stereo.count
     e_pad_m = max(_round_up(Em, 1024), 1024)
     e_pad_s = max(_round_up(Es, 1024), 1024)
     # schur_fused reads W/Hpl windows up to the plan's padded slot count
     hpl_pad = max(_round_up(n_hpl, 1024), sc.n_slot_pad if sc else 1024)
-    p_src_pad = max(_round_up(num_p + 1, 1024), 1024)
-    # paddings and plan windows depend on each other: iterate to a fixpoint
-    for _ in range(4):
-        lm_m = _pad_ids(s.mono.lm_idx, e_pad_m, s.mono.lm_idx < num_l)
-        lm_s = _pad_ids(s.stereo.lm_idx, e_pad_s, s.stereo.lm_idx < num_l)
-        e2h_m = _pad_ids(s.edge2hpl[:Em], e_pad_m, s.edge2hpl[:Em] < n_hpl)
-        e2h_s = _pad_ids(s.edge2hpl[Em:], e_pad_s, s.edge2hpl[Em:] < n_hpl)
-        hcol = _pad_ids(s.hpl_col, hpl_pad)
-        hrow = _pad_ids(s.hpl_row, hpl_pad)
-        hll_m = segmm.plan_tiles(lm_m, num_l)
-        hll_s = segmm.plan_tiles(lm_s, num_l)
-        hpl_m = segmm.plan_tiles(e2h_m, hpl_pad)
-        hpl_s = segmm.plan_tiles(e2h_s, hpl_pad)
-        ivs = segmm.plan_gather_tiles(hcol, num_l)
-        xpg = segmm.plan_gather_tiles(hrow, num_p, block=p_src_pad, max_blocks=1)
-        cl = segmm.plan_tiles(hcol, num_l)
-        need_em = max(e_pad_m, _round_up(max(hll_m.n_pad, hpl_m.n_pad), 1024))
-        need_es = max(e_pad_s, _round_up(max(hll_s.n_pad, hpl_s.n_pad), 1024))
-        need_hpl = max(hpl_pad, _round_up(max(
-            ivs.num_tiles * ivs.tile, xpg.num_tiles * xpg.tile, cl.n_pad), 1024))
-        if (need_em, need_es, need_hpl) == (e_pad_m, e_pad_s, hpl_pad):
-            break
-        e_pad_m, e_pad_s, hpl_pad = need_em, need_es, need_hpl
-    ok = (all(p.ok for p in (hll_m, hll_s, hpl_m, hpl_s, ivs, xpg, cl))
-          and ivs.num_tiles * ivs.tile == hpl_pad == xpg.num_tiles * xpg.tile)
-    if not ok or (need_dense and not sc.ok):
-        return None, None
-
-    total_p = int(s.qs.shape[0])
-    total_l = int(s.Xws.shape[0])
-    p_res_pad = _round_up(max(total_p, 1), 128)
-    pose_gid_m = _pad_ids(s.mono.pose_idx, e_pad_m)
-    pose_gid_s = _pad_ids(s.stereo.pose_idx, e_pad_s)
-    lm_gid_m = _pad_ids(s.mono.lm_idx, e_pad_m)
-    lm_gid_s = _pad_ids(s.stereo.lm_idx, e_pad_s)
-    xwg_m = segmm.plan_gather_tiles(lm_gid_m, total_l)
-    xwg_s = segmm.plan_gather_tiles(lm_gid_s, total_l)
-
-    prank = pose_ranks(s)
-    rorder = np.empty(total_p, np.int64)
-    rorder[prank] = np.arange(total_p)
-    pose_gidr_m = _pad_ids(prank[np.asarray(s.mono.pose_idx, np.int64)], e_pad_m)
-    pose_gidr_s = _pad_ids(prank[np.asarray(s.stereo.pose_idx, np.int64)], e_pad_s)
-    rg_m = segmm.plan_accum_windows(pose_gidr_m, total_p, max_win=1024)
-    rg_s = segmm.plan_accum_windows(pose_gidr_s, total_p, max_win=1024)
-    tables = {}
-    if rg_m.ok and rg_s.ok:
-        p_res_pad = max(p_res_pad, rg_m.out_pad, rg_s.out_pad)
-        res_perm = np.full(p_res_pad, total_p, np.int32)
-        res_perm[:total_p] = rorder
-        tables.update(pose_gidr_m=pose_gidr_m, pose_gidr_s=pose_gidr_s, res_perm=res_perm)
+    tables = dict(
+        pose_gid_m=_pad_ids(s.mono.pose_idx, e_pad_m),
+        pose_gid_s=_pad_ids(s.stereo.pose_idx, e_pad_s),
+        lm_gid_m=_pad_ids(s.mono.lm_idx, e_pad_m),
+        lm_gid_s=_pad_ids(s.stereo.lm_idx, e_pad_s),
+        pose_acc_m=_pad_ids(s.mono.pose_idx, e_pad_m, s.mono.pose_idx < num_p),
+        pose_acc_s=_pad_ids(s.stereo.pose_idx, e_pad_s, s.stereo.pose_idx < num_p),
+        lm_acc_m=_pad_ids(s.mono.lm_idx, e_pad_m, s.mono.lm_idx < num_l),
+        lm_acc_s=_pad_ids(s.stereo.lm_idx, e_pad_s, s.stereo.lm_idx < num_l),
+        e2h_m=_pad_ids(s.edge2hpl[:Em], e_pad_m, s.edge2hpl[:Em] < n_hpl),
+        e2h_s=_pad_ids(s.edge2hpl[Em:], e_pad_s, s.edge2hpl[Em:] < n_hpl),
+        hpl_row=_pad_ids(s.hpl_row, hpl_pad),
+        hpl_col=_pad_ids(s.hpl_col, hpl_pad),
+    )
+    plan = RowPlan(e_pad_m, e_pad_s, hpl_pad)
+    if not need_dense:
+        return plan, tables
+    v2 = _band_tables(s, sc, pad_blocks, lr)
+    if v2 is not None:
+        plan.v2, (plan.wg, form) = True, v2
+        if lr is not None:
+            plan.lr_k, plan.lr_nob = lr["jrows"].size // 6, lr["ob_idx"].size
     else:
-        rg_m = rg_s = None
-
-    band = {}
-    if need_dense:
-        n_win = sc.num_chunks * sc.kwin
-        v2 = _band_tables(s, sc, pad_blocks, lr)
-        if v2 is not None:
-            wg, up2, form = v2
-            band = dict(v2=True, wg=wg, up2=up2, wpad=_round_up(max(up2.n_pad, n_win), 1024))
-            if lr is not None:
-                band.update(lr_k=lr["jrows"].size // 6, lr_nob=lr["ob_idx"].size)
-        else:
-            v1 = _v1_tables(s, sc, pad_blocks)
-            if v1 is None:
-                return None, None
-            up, lo, form = v1
-            band = dict(v2=False, up=up, lo=lo,
-                        wpad=_round_up(max(up.n_pad, lo.n_pad, n_win), 1024))
-        tables.update(form, sc_sb=np.asarray(sc.sb, np.int32),
-                      sc_li=np.asarray(sc.li, np.int32), sc_lj=np.asarray(sc.lj, np.int32),
-                      sc_lk=np.asarray(sc.lk, np.int32))
-        band.update(pad_blocks=pad_blocks, schur=sc)
-
-    pacc_m = _pad_ids(s.mono.pose_idx, e_pad_m, s.mono.pose_idx < num_p)
-    pacc_s = _pad_ids(s.stereo.pose_idx, e_pad_s, s.stereo.pose_idx < num_p)
-    plan = RowPlan(
-        e_pad_m, e_pad_s, hpl_pad, p_src_pad, p_res_pad,
-        hll_m, hll_s, hpl_m, hpl_s, ivs, xpg, cl, xwg_m, xwg_s,
-        segmm.plan_accum_windows(pacc_m, num_p),
-        segmm.plan_accum_windows(pacc_s, num_p),
-        segmm.plan_accum_windows(_pad_ids(s.hpl_row, hpl_pad), num_p),
-        rg_m, rg_s, **band,
-    )
-    tables.update(
-        pose_gid_m=pose_gid_m, pose_gid_s=pose_gid_s, lm_gid_m=lm_gid_m, lm_gid_s=lm_gid_s,
-        pose_acc_m=pacc_m, pose_acc_s=pacc_s, lm_acc_m=lm_m, lm_acc_s=lm_s,
-        e2h_m=e2h_m, e2h_s=e2h_s, hpl_row=hrow, hpl_col=hcol,
-    )
+        form = _v1_tables(s, sc, pad_blocks)
+    tables.update(form, sc_sb=np.asarray(sc.sb, np.int32), sc_li=np.asarray(sc.li, np.int32),
+                  sc_lj=np.asarray(sc.lj, np.int32), sc_lk=np.asarray(sc.lk, np.int32))
+    plan.pad_blocks, plan.schur = pad_blocks, sc
     return plan, tables
 
 
@@ -448,8 +341,7 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
         **{name: ints(name) for name in (
             "pose_gid_m", "pose_gid_s", "lm_gid_m", "lm_gid_s",
             "pose_acc_m", "pose_acc_s", "lm_acc_m", "lm_acc_s",
-            "e2h_m", "e2h_s", "hpl_row", "hpl_col",
-            "pose_gidr_m", "pose_gidr_s", "res_perm")},
+            "e2h_m", "e2h_s", "hpl_row", "hpl_col")},
         csr_pose_m=csr("pose_acc_m", s.num_p), csr_pose_s=csr("pose_acc_s", s.num_p),
         csr_lm_m=csr("lm_acc_m", s.num_l), csr_lm_s=csr("lm_acc_s", s.num_l),
         csr_e2h_m=csr("e2h_m", plan.hpl_pad), csr_e2h_s=csr("e2h_s", plan.hpl_pad),
@@ -464,24 +356,18 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
         consts, **{name: ints(name) for name in ("sc_sb", "sc_li", "sc_lj", "sc_lk")},
         csr_sc=csr_sc)
     if plan.v2:
-        gkey = _pad_ids(t["gkey_up2"], plan.wpad)
         consts = dataclasses.replace(
             consts, **{name: ints(name) for name in (
-                "iru", "icu", "band_occ", "occ2", "ob_rkey")},
-            gkey_up2=up(gkey),
+                "gkey_up2", "iru", "icu", "band_occ", "occ2", "ob_rkey")},
             band_table=up(segmm.band_table(t["iru"], t["icu"], PB)),
-            csr_up2=segmm.segment_csr(gkey, PB // 64 * plan.wg, device),
+            csr_up2=csr("gkey_up2", PB // 64 * plan.wg),
         )
         if dense:
             consts.dense_table = up(segmm.dense_table(t["iru"], t["icu"], PB))
         return plan, consts
-    keys = {name: _pad_ids(t[name], plan.wpad) for name in ("gkey_up", "gkey_lo")}
     consts = dataclasses.replace(
-        consts, occ=ints("occ"),
-        gkey_up=up(keys["gkey_up"]),
-        gkey_lo=up(keys["gkey_lo"]),
-        csr_up=segmm.segment_csr(keys["gkey_up"], PB * PB, device),
-        csr_lo=segmm.segment_csr(keys["gkey_lo"], PB * PB, device),
+        consts, **{name: ints(name) for name in ("gkey_up", "gkey_lo", "occ")},
+        csr_up=csr("gkey_up", PB * PB), csr_lo=csr("gkey_lo", PB * PB),
     )
     return plan, consts
 
@@ -491,65 +377,47 @@ def plan_rows(s: BAStructure, device, dtype, pad_blocks: int = 0, dense: bool = 
 # ---------------------------------------------------------------------------
 
 
-def edge_rows(qs, ts, Xws, cams, kernels, chi_dtype, counts, plan: RowPlan, rc: RowConsts):
+def edge_rows(qs, ts, Xws, cams, kernels, chi_dtype, counts, rc: RowConsts):
     """Residual front end.  Returns (pack_m, pack_s, chi); pack = (g12
     [12, E], err [mdim, E], Xc [3, E], inv_z [E]), or None for an absent
     edge type."""
-    total_p = qs.shape[0]
-    psrc = torch.zeros((12, plan.p_res_pad), dtype=qs.dtype, device=qs.device)
-    psrc[:, :total_p] = torch.cat([qs, ts, cams], dim=1).T
-    if plan.rg_m is not None:
-        # first-observation column order: each edge chunk reads a narrow band
-        psrc = psrc.index_select(1, rc.res_perm)
+    psrc = torch.cat([qs, ts, cams], dim=1).T.contiguous()  # [12, total_p]
     XwT = Xws.T.contiguous()
     chi = torch.zeros((), dtype=chi_dtype, device=qs.device)
     packs = []
-    for count, pgid, lgid, xwg, measT, omegaT, mdim, kern, rgp, rgid in (
-        (counts[0], rc.pose_gid_m, rc.lm_gid_m, plan.xwg_m, rc.measT_m, rc.omegaT_m, 2,
-         kernels[0], plan.rg_m, rc.pose_gidr_m),
-        (counts[1], rc.pose_gid_s, rc.lm_gid_s, plan.xwg_s, rc.measT_s, rc.omegaT_s, 3,
-         kernels[1], plan.rg_s, rc.pose_gidr_s),
+    for count, pgid, lgid, measT, omegaT, mdim, kern in (
+        (counts[0], rc.pose_gid_m, rc.lm_gid_m, rc.measT_m, rc.omegaT_m, 2, kernels[0]),
+        (counts[1], rc.pose_gid_s, rc.lm_gid_s, rc.measT_s, rc.omegaT_s, 3, kernels[1]),
     ):
         if count == 0:
             packs.append(None)
             continue
-        if rgp is not None:
-            g12 = segmm.windowed_gather(psrc, rgid, rgp, rgp.wb)
-        else:
-            g12 = segmm.resident_gather(psrc, pgid)
-        xw = segmm.tiled_gather(XwT, lgid, xwg, xwg.base_block)
+        g12 = segmm.gather(psrc, pgid)
+        xw = segmm.gather(XwT, lgid)
         with trace.span("rows.edge_residuals"):
-            err, Xc, _R, inv_z = edgerows.residual_rows(g12, xw, measT, pgid >= 0, mdim)
+            err, Xc, inv_z = edgerows.residual_rows(g12, xw, measT, pgid >= 0, mdim)
             chi = chi + edgerows.chi_rows(err, omegaT, kern, chi_dtype)
         packs.append((g12, err, Xc, inv_z))
     return packs[0], packs[1], chi
 
 
-def _pose_accum(v, pose_ids, num_p, paw: AccumWindowPlan, csr: SegmentCSR):
-    """Pose-side accumulate: the windowed wrapper where cuba_tpu's window
-    plan holds, the full-width one otherwise."""
-    if paw.ok:
-        return segmm.accum_segsum_windowed(v, pose_ids, num_p, paw, paw.wb, csr=csr)
-    return segmm.accum_segsum(v, pose_ids, num_p, csr=csr)
-
-
 def build_system_rows(pack_m, pack_s, kernels, num_p, num_l, plan: RowPlan, rc: RowConsts):
     """Quadratic-form assembly from the residual packs: (HppT, HllT, HplT)."""
     outs = []
-    for pack, omegaT, mdim, kern, pose_ids, lm_ids, e2h, hll_p, hpl_p, paw, c_p, c_l, c_h in (
+    for pack, omegaT, mdim, kern, pose_ids, lm_ids, e2h, c_p, c_l, c_h in (
         (pack_m, rc.omegaT_m, 2, kernels[0], rc.pose_acc_m, rc.lm_acc_m, rc.e2h_m,
-         plan.hll_m, plan.hpl_m, plan.paw_m, rc.csr_pose_m, rc.csr_lm_m, rc.csr_e2h_m),
+         rc.csr_pose_m, rc.csr_lm_m, rc.csr_e2h_m),
         (pack_s, rc.omegaT_s, 3, kernels[1], rc.pose_acc_s, rc.lm_acc_s, rc.e2h_s,
-         plan.hll_s, plan.hpl_s, plan.paw_s, rc.csr_pose_s, rc.csr_lm_s, rc.csr_e2h_s),
+         rc.csr_pose_s, rc.csr_lm_s, rc.csr_e2h_s),
     ):
         if pack is None:
             continue
         g12, err, Xc, inv_z = pack
         with trace.span("rows.edge_terms"):
             v42, v12, v18 = edgerows.term_rows(g12, err, Xc, inv_z, omegaT, kern, mdim)
-        HppT = _pose_accum(v42, pose_ids, num_p, paw, c_p)
-        HllT = segmm.tiled_segsum(v12, lm_ids, num_l, hll_p, hll_p.base_block, csr=c_l)
-        HplT = segmm.tiled_segsum(v18, e2h, plan.hpl_pad, hpl_p, hpl_p.base_block, csr=c_h)
+        HppT = segmm.segsum(v42, pose_ids, num_p, c_p)
+        HllT = segmm.segsum(v12, lm_ids, num_l, c_l)
+        HplT = segmm.segsum(v18, e2h, plan.hpl_pad, c_h)
         outs.append((HppT, HllT, HplT))
     if len(outs) == 1:
         return outs[0]
@@ -627,8 +495,7 @@ def slot_factors_scale(HplT, g12):
     return slot_factors_plain(HplT.abs(), g12.abs())
 
 
-def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowConsts,
-                    group=None):
+def prepare_factors(HppT, HllT, HplT, lam, num_p, rc: RowConsts, group=None):
     """Damped inverse Hll, W = Hpl Hll^-1 and bsc = bp - W bl, transposed.
 
     Returns (iv9 [9, L], W [18, hpl_pad], bscT [6, P], g12 [12, hpl_pad]).
@@ -637,23 +504,20 @@ def prepare_factors(HppT, HllT, HplT, lam, num_p, num_l, plan: RowPlan, rc: RowC
     are the shard's)."""
     with trace.span("rows.prepare_factors"):
         src12 = hll_inverse_rows(HllT, lam)
-        g12 = segmm.tiled_gather(src12, rc.hpl_col, plan.ivs, plan.ivs.base_block)
+        g12 = segmm.gather(src12, rc.hpl_col)
         W, wbl = slot_factors_rows(HplT, g12)
-        bsc_sub = _pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        bsc_sub = segmm.segsum(wbl, rc.hpl_row, num_p, rc.csr_hpl_row)
         return src12[:9], W, HppT[36:42] - comm.all_reduce_sum(bsc_sub, group), g12
 
 
 def schur_compact(W, HplT, plan: RowPlan, rc: RowConsts):
     """The band-major compact table gT [36, M*Wg] = + sum of W Hpl^T over
-    every Hsc block: schur_fused's per-chunk windows, padded to ``wpad``,
-    combined by gkey_up2."""
+    every Hsc block: schur_fused's per-chunk windows combined by gkey_up2."""
     sc = plan.schur
     win = segmm.schur_fused(W.contiguous(), HplT, sc, rc.sc_sb, rc.sc_li, rc.sc_lj,
                             rc.sc_lk, csr=rc.csr_sc)
-    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
     M = plan.pad_blocks // 64
-    return segmm.tiled_segsum(win, rc.gkey_up2, M * plan.wg, plan.up2,
-                              plan.up2.base_block, csr=rc.csr_up2)
+    return segmm.segsum(win, rc.gkey_up2, M * plan.wg, rc.csr_up2)
 
 
 def damped_diagonal_T(HppT, lam, num_p: int, PB: int) -> torch.Tensor:
@@ -712,11 +576,8 @@ def dense_block_table(W, HplT, plan: RowPlan, rc: RowConsts):
     PB = plan.pad_blocks
     win = segmm.schur_fused(W.contiguous(), HplT, plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj,
                             rc.sc_lk, csr=rc.csr_sc)
-    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
-    m4 = segmm.tiled_segsum(win, rc.gkey_up, PB * PB, plan.up, plan.up.base_block,
-                            csr=rc.csr_up)
-    lo = segmm.tiled_segsum(win, rc.gkey_lo, PB * PB, plan.lo, plan.lo.base_block,
-                            csr=rc.csr_lo)
+    m4 = segmm.segsum(win, rc.gkey_up, PB * PB, rc.csr_up)
+    lo = segmm.segsum(win, rc.gkey_lo, PB * PB, rc.csr_lo)
     del win
     # in place, row by row: each [36, PB*PB] table is 285 MB at PB = 1408
     for k, pk in enumerate(_PERM36.tolist()):
@@ -736,14 +597,13 @@ def schur_dense_v1(HppT, W, HplT, lam, num_p, plan: RowPlan, rc: RowConsts):
     return segmm.band_transpose(m4, rc.occ, PB)
 
 
-def back_substitute(iv9, HllT, HplT, g12, xp, num_l, plan: RowPlan, rc: RowConsts):
+def back_substitute(iv9, HllT, HplT, g12, xp, num_l, rc: RowConsts):
     """xl = Hll^-1 (bl - Hpl^T xp) in transposed layout.  Returns [L, 3]."""
     with trace.span("rows.back_substitute"):
-        xpg = segmm.tiled_gather(xp.T.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
+        xpg = segmm.gather(xp.T.contiguous(), rc.hpl_row)
         H = xpg.shape[1]
         contrib = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xpg).contiguous()
-        red = segmm.tiled_segsum(contrib, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
-                                 csr=rc.csr_hpl_col)
+        red = segmm.segsum(contrib, rc.hpl_col, num_l, rc.csr_hpl_col)
         clT = HllT[9:12] - red
         return torch.einsum("mje,je->me", iv9.view(3, 3, -1), clT).T
 
@@ -753,33 +613,30 @@ def _hpp_matvec_rows(HppT, lam, xT):
     return torch.einsum("ije,je->ie", HppT[:36].view(6, 6, -1), xT) + lam * xT
 
 
-def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, plan: RowPlan, rc: RowConsts,
-                      group=None):
+def schur_matvec_rows(HppT, HplT, W, lam, xT, num_p, num_l, rc: RowConsts, group=None):
     """Matrix-free Schur matvec Hsc x = (Hpp + lam I) x - W (Hpl^T x): a slot
     gather of x, a per-landmark segment sum, a gather back to the slots and
     a pose-side accumulate, all-reduced over ``group``'s landmark shards (x
     is the same on every rank)."""
     with trace.span("rows.schur_matvec"):
-        xg = segmm.tiled_gather(xT.contiguous(), rc.hpl_row, plan.xpg, plan.xpg.base_block)
+        xg = segmm.gather(xT.contiguous(), rc.hpl_row)
         H = xg.shape[1]
         a3 = torch.einsum("ike,ie->ke", HplT.view(6, 3, H), xg).contiguous()
-        aL = segmm.tiled_segsum(a3, rc.hpl_col, num_l, plan.cl, plan.cl.base_block,
-                                csr=rc.csr_hpl_col)
-        ag = segmm.tiled_gather(aL, rc.hpl_col, plan.ivs, plan.ivs.base_block)
+        aL = segmm.segsum(a3, rc.hpl_col, num_l, rc.csr_hpl_col)
+        ag = segmm.gather(aL, rc.hpl_col)
         y6 = torch.einsum("ike,ke->ie", W.view(6, 3, H), ag).contiguous()
-        ysub = _pose_accum(y6, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        ysub = segmm.segsum(y6, rc.hpl_row, num_p, rc.csr_hpl_row)
         return _hpp_matvec_rows(HppT, lam, xT) - comm.all_reduce_sum(ysub, group)
 
 
-def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts,
-                         group=None):
+def schur_block_diag_inv(HppT, HplT, W, lam, num_p, rc: RowConsts, group=None):
     """Inverted exact 6x6 block diagonal of the damped Schur complement,
     [6, 6, P]: the block-Jacobi preconditioner (its slot sum all-reduced
     over ``group``'s landmark shards)."""
     with trace.span("rows.block_diag_inv"):
         H = HplT.shape[1]
         d36 = torch.einsum("ike,jke->ije", W.view(6, 3, H), HplT.view(6, 3, H)).reshape(36, H)
-        corr = _pose_accum(d36.contiguous(), rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+        corr = segmm.segsum(d36.contiguous(), rc.hpl_row, num_p, rc.csr_hpl_row)
         M = (HppT[:36] - comm.all_reduce_sum(corr, group)).T.reshape(num_p, 6, 6)
         M = M + lam * torch.eye(6, dtype=M.dtype, device=M.device)
         # inv_ex: a singular block gives non-finite values (and a rejected step)
@@ -788,8 +645,8 @@ def schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan: RowPlan, rc: RowConsts
         return Minv.reshape(num_p, 36).T.reshape(6, 6, num_p)
 
 
-def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowConsts,
-                   max_iterations: int, tol: float, group=None):
+def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, rc: RowConsts, max_iterations: int,
+                   tol: float, group=None):
     """Block-Jacobi preconditioned CG on the matrix-free Schur operator.
     Returns (xT [6, P], ok, k): ok is False on non-convergence (and x is
     then 0), k is the number of CG steps.  The recurrence residual is kept
@@ -797,7 +654,7 @@ def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowC
     once per step.  ``group``: the landmark shards' process group of the
     matvec's and the preconditioner's pose sums; every other quantity is
     in pose space, the same on every rank."""
-    Minv = schur_block_diag_inv(HppT, HplT, W, lam, num_p, plan, rc, group)
+    Minv = schur_block_diag_inv(HppT, HplT, W, lam, num_p, rc, group)
 
     def apply_M(rT):
         return torch.einsum("ije,je->ie", Minv, rT)
@@ -818,7 +675,7 @@ def pcg_solve_rows(HppT, HplT, W, lam, bT, num_p, num_l, plan: RowPlan, rc: RowC
         with trace.span("read.cg_stop"):
             if not bool(rr > tol2):
                 break
-        Ap = schur_matvec_rows(HppT, HplT, W, lam, p, num_p, num_l, plan, rc, group)
+        Ap = schur_matvec_rows(HppT, HplT, W, lam, p, num_p, num_l, rc, group)
         pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, one, pAp)
         x = x + alpha * p

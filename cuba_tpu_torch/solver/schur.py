@@ -75,8 +75,8 @@ def schur_blocks(W, Hpl, sc: SchurConsts) -> torch.Tensor:
     each Hsc block's triplets (:func:`triplet_products`), by the CSR kernel;
     triplets with ``mul_k`` out of range drop out."""
     n_hsc = sc.hsc_row.shape[0]
-    return segmm.accum_segsum(triplet_products(W, Hpl, sc), sc.mul_k, n_hsc,
-                              csr=sc.csr_mul).T.reshape(n_hsc, 6, 6)
+    return segmm.segsum(triplet_products(W, Hpl, sc), sc.mul_k, n_hsc,
+                        sc.csr_mul).T.reshape(n_hsc, 6, 6)
 
 
 def assemble_dense(Hpp_d, W, Hpl, sc: SchurConsts, num_p: int, pad_blocks: int):

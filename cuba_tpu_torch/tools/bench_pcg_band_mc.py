@@ -56,7 +56,7 @@ def pcg(engine, HppT, HplT, W, lam, tol):
     rows, as the JAX tool solves): (xT, ok, n_cg)."""
     cfg = engine.config
     return rows.pcg_solve_rows(HppT, HplT, W, lam, HppT[36:42], engine.num_p, engine.num_l,
-                               engine.plan, engine.rc, cfg.pcg_max_iterations, tol)
+                               engine.rc, cfg.pcg_max_iterations, tol)
 
 
 def attempt_of(engine):

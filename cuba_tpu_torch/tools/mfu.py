@@ -9,9 +9,8 @@ The graph (the kitti00 loop by default, ``--stress`` for 1778 P / 1M L) is
 built through the public API and initialized; one counted ``optimize(10)``
 gives each kernel's launches per damped attempt.  The sites are
 ``roofline.engine_sites``, those of ``chip_smoke.py``'s kernel checks: on
-the engine's initial state the pose fetch (resident and windowed), the
-per-slot gather, the mono pose sums (windowed and resident) and Hpl-slot
-sums; on the first damped attempt ``schur_fused``, the combine and
+the engine's initial state the pose fetch, the per-slot gather, the mono
+pose sums and Hpl-slot sums; on the first damped attempt ``schur_fused``, the combine and
 ``compact_to_band`` or ``compact_to_dense``.  Work counts and the bound
 are ``roofline``'s, the smoke's ``bound_ms`` column; the device times are
 ``roofline.interleaved_times``' (median over 25 calls, warm: after an
@@ -42,7 +41,7 @@ def table(engine, launches, attempts):
     fp64 = engine.dtype == torch.float64
     peak = roofline.FP64_FLOPS_PER_MS if fp64 else roofline.FP32_FLOPS_PER_MS
     s = roofline.engine_sites(engine)
-    fns = {k: (lambda site=site: site.call(getattr(segmm, site.kernel))) for k, site in s.items()}
+    fns = {k: (lambda site=site: site.call(site.wrapper())) for k, site in s.items()}
     cuda = engine.device.type == "cuda"
     if cuda:
         warm = roofline.interleaved_times(fns)

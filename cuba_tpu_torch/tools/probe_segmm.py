@@ -11,8 +11,8 @@ the timing helpers and the graphs come from this checkout's
 (``tools/smoke_loader.py``: one yardstick for both trees).  It prints one
 ``probe`` JSON line per measurement:
 
-1. ``host_us``: microseconds of host time per call of ``resident_gather``,
-   ``tiled_segsum`` and ``trisolve.matvec`` on small inputs (so the card
+1. ``host_us``: microseconds of host time per call of ``gather``,
+   ``segsum`` and ``trisolve.matvec`` on small inputs (so the card
    keeps up with the host), and of ``index_select`` / ``index_add_`` on the
    same inputs: 1,000 calls timed with ``time.perf_counter``, then one
    synchronise; the median of 5 such runs.
@@ -20,7 +20,8 @@ the timing helpers and the graphs come from this checkout's
    (``chip_smoke.KITTI``, v2 band plan) and the two v1 combines of the
    odometry graph with the v2 gate closed, as ``roofline.engine_sites``
    lists them (the smoke's kernel checks' sites), and the AoS pose and
-   triplet sites of that graph with three loop chords: its CSR's shape, and the
+   triplet sites of that graph with three loop chords, the planner closed
+   (``chip_smoke.planner_closed``): its CSR's shape, and the
    device and event-timed call time (``chip_smoke.interleaved_times``) of
    the wrapper on seeded values of the site's width, beside ``index_add_``.
    Where DIR holds this design (``segmm.row_chunk``), also of the kernel at
@@ -92,8 +93,8 @@ def main():
     A, x = draw(256, 256), draw(256)
     idx = ids.long()
     calls = {
-        "resident_gather": lambda: segmm.resident_gather(src, ids),
-        "tiled_segsum": lambda: segmm.tiled_segsum(vals, ids, 1024, None, None, csr=csr),
+        "gather": lambda: segmm.gather(src, ids),
+        "segsum": lambda: segmm.segsum(vals, ids, 1024, csr),
         "matvec": lambda: trisolve.matvec(A, x),
         "index_select": lambda: src.index_select(1, idx),
         "index_add_": lambda: torch.zeros((18, 1024), device=dev).index_add_(1, idx, vals),
@@ -128,7 +129,8 @@ def main():
     finally:
         rows._WG_MAX = wg_max
     sites.update({k: v for k, v in segsum_sites(eng, "v1 ").items() if "combine" in k})
-    eng = engine(smoke.with_chords(oprob, 3))
+    with smoke.planner_closed():
+        eng = engine(smoke.with_chords(oprob, 3))
     sites["aos_pose"] = (eng.edges[0].pose_idx, eng.num_p, 42, eng.edges[0].csr_pose)
     sites["aos_triplets"] = (eng.sc.mul_k, eng.sc.hsc_row.shape[0], 36, eng.sc.csr_mul)
     del eng
@@ -150,8 +152,8 @@ def main():
         valid = (ids >= 0) & (ids < num_out)
         idx, v = ids[valid].long(), vals[:, valid].contiguous()
         lengths = np.diff(csr.offs.cpu().numpy())
-        fns = {"wrapper": lambda c=csr, ids=ids, vals=vals, num_out=num_out: segmm.tiled_segsum(
-            vals, ids, num_out, None, None, csr=c)}
+        fns = {"wrapper": lambda c=csr, ids=ids, vals=vals, num_out=num_out: segmm.segsum(
+            vals, ids, num_out, c)}
         rule = {}
         if sweep:
             rule = dict(group=csr.group, rows=segmm.row_chunk(D, vals.shape[1], csr.group),

@@ -12,6 +12,7 @@ run's data holds (a gather reads the source columns its ids name, a sum
 adds the values whose id is in range).
 """
 
+import functools
 import statistics
 import time
 from typing import NamedTuple
@@ -135,11 +136,13 @@ _WORK = {"edge_terms": edge_terms_work, "hll_inverse": hll_inverse_work,
 
 
 class Site(NamedTuple):
-    """A kernel wrapper's call at one of an engine's call sites: its name
-    in ``ops.segmm`` (the plain version, ``kernel + "_plain"``, takes the
-    same arguments), the arguments, and what its work is counted on:
-    ``kind`` "gather" (inputs: src, ids), "segsum" (vals, ids, num_out,
-    csr), "schur" (W, G, the plan's (plan, sb, li, lj, lk), csr), "band" or
+    """A kernel's call at one of an engine's call sites: the name of its
+    wrapper in ``ops.segmm``, under which ``LAUNCHES`` counts it, the
+    arguments that the wrapper and its plain version take, the tables that
+    only the kernel reads (``kwargs``: a CSR or a placement table, bound
+    into :meth:`wrapper`), and what its work is counted on: ``kind``
+    "gather" (inputs: src, ids), "segsum" (vals, ids, num_out, csr),
+    "schur" (W, G, the plan's (plan, sb, li, lj, lk), csr), "band" or
     "dense" (plan, rc, the values' element size), "edge_terms" (E, mdim,
     the values' element size; its wrapper is ``edgerows.term_rows``),
     "hll_inverse" (L, the element size; ``rows.hll_inverse_rows``) or
@@ -151,9 +154,18 @@ class Site(NamedTuple):
     kind: str
     inputs: tuple
 
+    def wrapper(self, module=segmm):
+        """The kernel's wrapper in ``module`` (``ops.segmm`` by default),
+        with the site's kernel tables bound."""
+        return functools.partial(getattr(module, self.kernel), **self.kwargs)
+
+    def plain(self, module=segmm):
+        """The wrapper's plain version in ``module``."""
+        return getattr(module, self.kernel + "_plain")
+
     def call(self, fn):
-        """``fn`` (the wrapper or its plain version) on the site's arguments."""
-        return fn(*self.args, **self.kwargs)
+        """``fn`` (:meth:`wrapper` or :meth:`plain`) on the site's arguments."""
+        return fn(*self.args)
 
     def work(self):
         """(bytes, flops) of the call on this run's data."""
@@ -173,53 +185,41 @@ def first_attempt(engine, lam=None):
     """The first damped attempt's (HppT, HplT, lam, W, bscT) on the
     engine's initial state: at the engine's own λ = τ·max diag, or at the
     fixed ``lam`` where one is given (the solve tools' LAM0)."""
-    plan, rc = engine.plan, engine.rc
     HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
     if lam is None:
         lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
     else:
         lam = torch.tensor(lam, dtype=HppT.dtype, device=HppT.device)
-    _iv9, W, bscT, _g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p,
-                                               engine.num_l, plan, rc)
+    _iv9, W, bscT, _g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.rc)
     return HppT, HplT, lam, W.contiguous(), bscT
 
 
 def row_sites(engine):
-    """{label: Site} of kernels 1-6 at the rows front end's call sites, on
-    the engine's initial state: the pose fetch (resident and windowed), the
-    per-slot gather of [Hll^-1; bl], the mono pose sums (windowed and
-    resident) and the mono Hpl-slot sums."""
-    plan, rc, st = engine.plan, engine.rc, engine.state
-    total_p = st.qs.shape[0]
-    psrc = torch.zeros((12, plan.p_res_pad), dtype=st.qs.dtype, device=st.qs.device)
-    psrc[:, :total_p] = torch.cat([st.qs, st.ts, engine.cams], dim=1).T
+    """{label: Site} of the gather and the segment sum at the rows front
+    end's call sites, on the engine's initial state: the pose fetch
+    (``gather:pose``), the per-slot gather of [Hll^-1; bl]
+    (``gather:slot``), the mono pose sums (``segsum:pose``) and
+    the mono Hpl-slot sums (``segsum:slot``)."""
+    rc, st = engine.rc, engine.state
+    psrc = torch.cat([st.qs, st.ts, engine.cams], dim=1).T.contiguous()
     pack_m, pack_s, _chi = engine._residuals_and_chi(st)
     g12, err, Xc, inv_z = pack_m
     v42, _v12, v18 = edgerows.term_rows(g12, err, Xc, inv_z, rc.omegaT_m, engine.kernels[0], 2)
     HllT = engine._build(pack_m, pack_s)[1]
     src12 = rows.hll_inverse_rows(HllT, torch.ones((), dtype=st.qs.dtype, device=st.qs.device))
-    if plan.rg_m is not None:
-        wsrc, wids = psrc.index_select(1, rc.res_perm), rc.pose_gidr_m
-    else:
-        wsrc, wids = psrc, rc.pose_gid_m
-    P = engine.num_p
 
-    def gather(kernel, src, ids, *rest):
-        return Site(kernel, (src, ids, *rest), {}, "gather", (src, ids))
+    def gather(src, ids):
+        return Site("gather", (src, ids), {}, "gather", (src, ids))
 
-    def segsum(kernel, vals, ids, num_out, *rest, csr):
-        return Site(kernel, (vals, ids, num_out, *rest), dict(csr=csr), "segsum",
+    def segsum(vals, ids, num_out, csr):
+        return Site("segsum", (vals, ids, num_out), dict(csr=csr), "segsum",
                     (vals, ids, num_out, csr))
 
     return {
-        "resident_gather": gather("resident_gather", psrc, rc.pose_gid_m),
-        "windowed_gather": gather("windowed_gather", wsrc, wids, plan.rg_m, None),
-        "tiled_gather": gather("tiled_gather", src12, rc.hpl_col, plan.ivs, None),
-        "accum_segsum_windowed": segsum("accum_segsum_windowed", v42, rc.pose_acc_m, P,
-                                        plan.paw_m, None, csr=rc.csr_pose_m),
-        "tiled_segsum": segsum("tiled_segsum", v18, rc.e2h_m, plan.hpl_pad, plan.hpl_m, None,
-                               csr=rc.csr_e2h_m),
-        "accum_segsum": segsum("accum_segsum", v42, rc.pose_acc_m, P, csr=rc.csr_pose_m),
+        "gather:pose": gather(psrc, rc.pose_gid_m),
+        "gather:slot": gather(src12, rc.hpl_col),
+        "segsum:pose": segsum(v42, rc.pose_acc_m, engine.num_p, rc.csr_pose_m),
+        "segsum:slot": segsum(v18, rc.e2h_m, engine.plan.hpl_pad, rc.csr_e2h_m),
     }
 
 
@@ -249,8 +249,7 @@ def factor_sites(engine):
     gathered [Hll^-1; bl]."""
     HppT, HllT, HplT = engine._build(*engine._residuals_and_chi(engine.state)[:2])
     lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
-    g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, engine.plan,
-                               engine.rc)[3]
+    g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.rc)[3]
     size = HllT.element_size()
     return {"hll_inverse": Site("hll_inverse", (HllT, lam), {}, "hll_inverse",
                                 (HllT.shape[1], size)),
@@ -259,8 +258,8 @@ def factor_sites(engine):
 
 
 def schur_sites(engine, HplT, W):
-    """{label: Site} of ``schur_fused`` on W and HplT and of ``tiled_segsum``
-    at the combine of the engine's formation on its output: v2's one
+    """{label: Site} of ``schur_fused`` on W and HplT and of the segment
+    sum at the combine of the engine's formation on its output: v2's one
     (``rows.schur_compact``) or v1's two (``rows.dense_block_table``)."""
     plan, rc = engine.plan, engine.rc
     sc = (plan.schur, rc.sc_sb, rc.sc_li, rc.sc_lj, rc.sc_lk)
@@ -269,16 +268,14 @@ def schur_sites(engine, HplT, W):
                                (W, HplT, sc, rc.csr_sc))}
     # the combine's input as the formation makes it
     win = segmm.schur_fused(W, HplT, *sc, csr=rc.csr_sc)
-    win = torch.nn.functional.pad(win, (0, plan.wpad - win.shape[1]))
     if plan.v2:
-        combines = {"combine": (rc.gkey_up2, PB // 64 * plan.wg, plan.up2, rc.csr_up2)}
+        combines = {"combine": (rc.gkey_up2, PB // 64 * plan.wg, rc.csr_up2)}
     else:
-        combines = {"combine_up": (rc.gkey_up, PB * PB, plan.up, rc.csr_up),
-                    "combine_lo": (rc.gkey_lo, PB * PB, plan.lo, rc.csr_lo)}
-    for site, (keys, num_out, tplan, csr) in combines.items():
-        out[f"tiled_segsum:{site}"] = Site(
-            "tiled_segsum", (win, keys, num_out, tplan, tplan.base_block), dict(csr=csr),
-            "segsum", (win, keys, num_out, csr))
+        combines = {"combine_up": (rc.gkey_up, PB * PB, rc.csr_up),
+                    "combine_lo": (rc.gkey_lo, PB * PB, rc.csr_lo)}
+    for site, (keys, num_out, csr) in combines.items():
+        out[f"segsum:{site}"] = Site("segsum", (win, keys, num_out), dict(csr=csr),
+                                         "segsum", (win, keys, num_out, csr))
     return out
 
 
@@ -306,7 +303,7 @@ def placement_library(site):
     the values' own positions.  Returns the call (the negation, the
     concatenation and the values' gather included); it is timed beside
     the kernel and used nowhere in the port."""
-    plain = getattr(segmm, site.kernel + "_plain")
+    plain = site.plain()
     gT, dbT = site.args[0], site.args[3]
     f64 = dict(dtype=torch.float64, device=gT.device)
     dsts, srcs, base = [], [], 0
@@ -315,7 +312,7 @@ def placement_library(site):
         args[0], args[3] = torch.zeros(gT.shape, **f64), torch.zeros(dbT.shape, **f64)
         src = args[which]
         src.copy_(torch.arange(1, src.numel() + 1, **f64).reshape(src.shape))
-        out = plain(*args, **site.kwargs)
+        out = plain(*args)
         shape, flat = out.shape, out.reshape(-1)
         hit = torch.nonzero(flat).flatten()
         dsts.append(hit)
@@ -332,10 +329,10 @@ def placement_library(site):
 
 
 def engine_sites(engine):
-    """{label: Site} of every kernel site of a rows-route engine: kernels
-    1-6 on its initial state, and where it forms the Schur complement
-    ``schur_fused`` and the combine on the first damped attempt and the
-    placement its solver runs (v2: ``compact_to_band`` or
+    """{label: Site} of every kernel site of a rows-route engine: the
+    gather and the segment sum on its initial state, and where it forms the
+    Schur complement ``schur_fused`` and the combine on the first damped
+    attempt and the placement its solver runs (v2: ``compact_to_band`` or
     ``compact_to_dense``)."""
     out = row_sites(engine)
     plan, rc = engine.plan, engine.rc

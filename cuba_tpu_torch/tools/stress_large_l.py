@@ -71,7 +71,7 @@ def plan_facts(engine) -> dict:
                  pad_blocks=engine.pad_blocks)
     if plan is not None:
         facts.update(wg=plan.wg, e_pad_m=plan.e_pad_m, e_pad_s=plan.e_pad_s,
-                     hpl_pad=plan.hpl_pad, wpad=plan.wpad)
+                     hpl_pad=plan.hpl_pad)
         if plan.schur is not None:
             facts.update(schur_chunks=plan.schur.num_chunks, kwin=plan.schur.kwin)
     return facts
@@ -116,8 +116,7 @@ def memory_plan(engine):
     out.append((f"HplT {_shape(HplT)}", _nbytes(HplT)))
     out.append((f"HllT {_shape(HllT)} + HppT {_shape(HppT)}", _nbytes((HllT, HppT))))
     lam = engine.config.tau * rows.max_diagonal_T(HppT, HllT)
-    iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l,
-                                             plan, rc)
+    iv9, W, bscT, g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, rc)
     W = W.contiguous()
     out.append((f"W {_shape(W)}", _nbytes(W)))
     out.append((f"landmark factors iv9 {_shape(iv9)} + g12", _nbytes((iv9, g12))))

@@ -1,8 +1,9 @@
 """The AoS path (cuba_tpu's non-MXU branch) against cuba_tpu, on the CPU.
 
-The engine takes it where cuba_tpu's window plans fail: scattered
-covisibility, pose-only and landmark-only problems, and plans that do not
-hold.  Here:
+The engine takes it where the rows planner finds no plan: pose-only and
+landmark-only problems, structures without Hpl slots and Schur chunk plans
+that do not hold.  cuba_tpu also takes it where its TPU window plans fail
+(scattered covisibility).  Here:
 
 - the math ops (projection, Jacobians, fixed-size solves) against
   cuba_tpu's in fp64 (1e-12) and the Jacobians against ``torch.func.jacfwd``
@@ -10,10 +11,10 @@ hold.  Here:
 - the assembly, ``assemble_dense`` and the PCG against cuba_tpu's in fp64
   (1e-10: the same sums in other orders);
 - LM trajectories on the AoS path against cuba_tpu's XLA path: each solver
-  in fp64 (1e-6, the bar of tests/test_parity.py) with the planner made to
-  find no plan, the scattered graph (which the planner routes there itself)
-  in fp32 (5e-3), and pose-only and landmark-only problems in fp64 (1e-6),
-  which must descend.
+  in fp64 (1e-6, the bar of tests/test_parity.py) and the scattered graph
+  in fp32 (5e-3), each with the planner made to find no plan, and
+  pose-only and landmark-only problems in fp64 (1e-6), which must
+  descend.
 """
 
 import jax.numpy as jnp
@@ -264,10 +265,12 @@ def test_fp64_aos_trajectory_matches_xla_path(solver, monkeypatch):
                                    atol=1e-9)
 
 
-def test_fp32_scattered_graph_takes_the_aos_path():
+def test_fp32_scattered_graph_takes_the_aos_path(monkeypatch):
     """tests/test_band_cr.py's scattered covisibility (an unordered photo
-    collection: each landmark seen from four random poses) defeats the
-    planner, and both packages take their AoS path."""
+    collection: each landmark seen from four random poses) defeats
+    cuba_tpu's window plans, and its AoS path runs it; the port's, with the
+    planner made to find no plan, gives its trajectory."""
+    monkeypatch.setattr(rows, "plan_row_tables", lambda s, pad_blocks=0, lr=None: (None, None))
     rng = np.random.default_rng(0)
     num_p, num_l = 200, 1600
     mp = np.concatenate([rng.choice(num_p, size=4, replace=False) for _ in range(num_l)])

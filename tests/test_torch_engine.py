@@ -242,10 +242,11 @@ def test_auto_resolves_as_cuba_tpu(case):
     eng = engine.BlockSolverEngine(port_s, KERNELS, cuba_tpu_torch.BAConfig(device="cpu"))
     assert eng.solver == solver and eng.band_m == ref.band_m
     if case == "unbanded":
-        # scattered covisibility: neither the v2 nor the v1 formation plans
-        # (cuba_tpu's plan_mxu gives ok False), so both take the AoS path
+        # scattered covisibility: cuba_tpu's window plans fail (plan_mxu
+        # gives ok False: its AoS path); the port's bands are over _WG_MAX,
+        # so it forms the dense matrix by v1
         plans, _ = mxu.plan_mxu(ref_s, pad_blocks, need_dense=True, wire_pack=False)
-        assert not plans.ok and eng.path == "aos" and eng.rc is None
+        assert not plans.ok and eng.path == "v1" and eng.rc.dense_table is None
         return
     if solver == "band_cr":
         assert eng.band_m >= 8 and eng.rc.dense_table is None

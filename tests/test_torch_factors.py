@@ -48,26 +48,25 @@ def _attempt(engine):
     return HppT, HllT, HplT, engine.config.tau * rows.max_diagonal_T(HppT, HllT)
 
 
-def _old_prepare_factors(HppT, HllT, HplT, lam, num_p, plan, rc):
+def _old_prepare_factors(HppT, HllT, HplT, lam, num_p, rc):
     """``prepare_factors`` as the port computed it before the kernels."""
     hll_d = HllT[:9].clone()
     hll_d[0::4] += lam
     iv9 = rows._sym3x3_inv_rows(hll_d.double()).to(hll_d.dtype)
     src12 = torch.cat([iv9, HllT[9:12]])
-    g12 = rows.segmm.tiled_gather(src12, rc.hpl_col, plan.ivs, plan.ivs.base_block)
+    g12 = rows.segmm.gather(src12, rc.hpl_col)
     H = g12.shape[1]
     W = torch.einsum("ike,kme->ime", HplT.view(6, 3, H), g12[:9].view(3, 3, H))
     wbl = torch.einsum("ime,me->ie", W, g12[9:12]).contiguous()
-    bsc_sub = rows._pose_accum(wbl, rc.hpl_row, num_p, plan.paw_b, rc.csr_hpl_row)
+    bsc_sub = rows.segmm.segsum(wbl, rc.hpl_row, num_p, rc.csr_hpl_row)
     return iv9, W.reshape(18, H), HppT[36:42] - comm.all_reduce_sum(bsc_sub, None), g12
 
 
 def test_prepare_factors_on_cpu_is_the_old_computation(engine):
     HppT, HllT, HplT, lam = _attempt(engine)
     cudalib.reset_launches()
-    got = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, engine.plan,
-                               engine.rc)
-    want = _old_prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.plan, engine.rc)
+    got = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.rc)
+    want = _old_prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.rc)
     for name, a, b in zip(("iv9", "W", "bscT", "g12"), got, want):
         assert a.dtype == engine.dtype and torch.equal(a, b), name
     assert got[0].is_contiguous() and got[1].shape == (18, engine.plan.hpl_pad)
@@ -89,8 +88,7 @@ def test_factor_plain_versions(engine):
     exact = torch.linalg.inv(hll_d.double().T.reshape(-1, 3, 3))
     scale = exact.abs().amax(dim=(1, 2), keepdim=True)
     assert bool(((inv - exact).abs() <= 1e-6 * scale).all())
-    g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.num_l, engine.plan,
-                               engine.rc)[3]
+    g12 = rows.prepare_factors(HppT, HllT, HplT, lam, engine.num_p, engine.rc)[3]
     W, wbl = rows.slot_factors_rows(HplT, g12)
     H = HplT.shape[1]
     want = HplT.double().T.reshape(H, 6, 3) @ g12[:9].double().T.reshape(H, 3, 3)

@@ -1,26 +1,32 @@
 """The v1 Schur formation, kernel 10 (``band_transpose``) and the planner's
 route, against cuba_tpu on the CPU.
 
-cuba_tpu forms the dense Schur matrix with its v1 formation (two combines
-into the dense block table [36, PB*PB], then ``band_transpose``) only where
-the v2 band-major formation does not plan.  No graph the repo generates gets
-there on its own, so these tests close the v2 gate on both sides with
-``monkeypatch`` (``_WG_MAX = 0`` in ``cuba_tpu.solver.mxu`` and in
-``cuba_tpu_torch.solver.rows``), as the chip check does.
+Both packages form the dense Schur matrix with their v1 formation (two
+combines into the dense block table [36, PB*PB], then ``band_transpose``)
+only where the v2 band-major formation does not plan: where a 64-row band
+holds more than ``_WG_MAX`` Hsc blocks.  Of the graphs the repo generates
+only the scattered and wide ones below get there on their own, and only in
+the port (cuba_tpu's window plans send them to its XLA path), so these
+tests close the v2 gate on both sides with ``monkeypatch`` (``_WG_MAX = 0``
+in ``cuba_tpu.solver.mxu`` and in ``cuba_tpu_torch.solver.rows``), as the
+chip check does.
 
 - ``band_transpose``'s plain twin against the Pallas kernel in interpret mode:
   a copy, so bit for bit.  The Pallas kernel splits the values into bf16
   parts, which is exact for normal floats; the inputs are standard normal
   draws, with no subnormals.
-- The v1 plans and tables against ``plan_mxu``'s, bit for bit.
+- The v1 tables against ``plan_mxu``'s, bit for bit.
 - The v1 dense matrix against ``schur_dense_mxu`` in interpret mode (1e-5:
   fp32 sums in other orders) and against the port's own v2 matrix (bit for
   bit: the same window lanes are summed in the same order).
 - LM trajectories through v1: fp32 against cuba_tpu's interpret path (5e-3,
   the path-against-path bar of tests/test_mxu_path.py) and fp64 against its
   XLA path (1e-6, the bar of tests/test_parity.py).
-- The route (v2, v1 or none: the AoS path) equal to cuba_tpu's on
-  scattered, wide-band, loop-chord, pose-only and landmark-only graphs.
+- The route (v2, v1 or none: the AoS path) on scattered, wide-band,
+  loop-chord, pose-only and landmark-only graphs: the port's own rule,
+  cuba_tpu's route wherever the TPU's window plans hold, and on the
+  scattered and wide graphs (v1 in the port, the XLA path in cuba_tpu) the
+  fp64 trajectory within 1e-6 of cuba_tpu's.
 """
 
 import jax
@@ -119,16 +125,13 @@ def v1_plan(request, v2_gate_closed):
 def test_v1_plans_match_plan_mxu(v1_plan):
     s, PB, plans, consts, plan, rc = v1_plan
     _, tables = rows.plan_row_tables(structure_from_numpy(s), PB)
-    for name in ("up", "lo"):
-        a, b = getattr(plan, name), getattr(plans, name)
-        for field in ("tile", "block", "n_blocks", "num_tiles", "n_pad", "ok"):
-            assert getattr(a, field) == getattr(b, field), (name, field)
-        np.testing.assert_array_equal(a.base_block, b.base_block)
     for name in ("gkey_up", "gkey_lo", "occ"):
         np.testing.assert_array_equal(tables[name], getattr(consts, name), err_msg=name)
-    wpad = max(plans.up.n_pad, plans.lo.n_pad, plans.schur.num_chunks * plans.schur.kwin)
-    assert plan.wpad == -(-wpad // 1024) * 1024
-    assert tuple(rc.gkey_up.shape) == (plan.wpad,) and rc.csr_up.offs.shape[0] == PB * PB + 1
+    # the combines' keys: one a schur_fused output lane, no padding
+    n_win = plans.schur.num_chunks * plans.schur.kwin
+    assert plan.schur.num_chunks * plan.schur.kwin == n_win
+    for keys, csr in ((rc.gkey_up, rc.csr_up), (rc.gkey_lo, rc.csr_lo)):
+        assert tuple(keys.shape) == (n_win,) and csr.offs.shape[0] == PB * PB + 1
 
 
 def _formation_inputs(plan, num_p):
@@ -252,6 +255,21 @@ def _graph(kind):
 @pytest.mark.parametrize("kind", ["scattered", "wide", "chords2", "chords3", "pose_only",
                                   "landmark_only"])
 def test_route_matches_cuba_tpu(kind, gate, monkeypatch):
+    """The port's rule: the rows front end for every structure with poses,
+    landmarks and Hpl slots whose Schur chunk plan holds, v2 where its
+    fullest band fits ``_WG_MAX``, else v1; the AoS path elsewhere.  It is
+    cuba_tpu's route wherever the TPU's window plans hold.  The scattered
+    and wide graphs, whose bands are over ``_WG_MAX`` and which only those
+    plans sent to cuba_tpu's XLA path, take v1 with the gate open or
+    closed.  There fp64 optimize(10) is held to cuba_tpu's trajectory a
+    step at a fixed limit: 1e-6 on the wide graph (the bar of
+    tests/test_parity.py; read: 7.7e-10 at most), 2e-5 on the scattered
+    graph, whose scale is free, so roundoff grows on its last steps (read:
+    4.6e-6, 9.1e-6, 1.15e-5 on steps 8-10, under 4e-8 before; the port's
+    AoS path lands as far).  It is also held within 1e-6 a step of the
+    port's own AoS path, the route these graphs took before.  The gate
+    changes neither side's route there, so the open gate's run checks the
+    trajectories."""
     if gate == "closed":
         monkeypatch.setattr(mxu, "_WG_MAX", 0)
         monkeypatch.setattr(rows, "_WG_MAX", 0)
@@ -265,12 +283,27 @@ def test_route_matches_cuba_tpu(kind, gate, monkeypatch):
     assert (eng.solver, eng.band_m, eng.pad_blocks) == (ref.solver, ref.band_m, ref.pad_blocks)
     plans, _ = mxu.plan_mxu(ref_s, ref.pad_blocks, need_dense=ref.solver != "pcg",
                             wire_pack=False)
-    want = "aos" if not plans.ok else ("v2" if plans.v2 else "v1")
-    assert eng.path == want
-    if want == "v2":
+    tpu_path = "aos" if not plans.ok else ("v2" if plans.v2 else "v1")
+    if kind in ("scattered", "wide"):
+        assert tpu_path == "aos" and eng.path == "v1" and eng.solver != "pcg"
+        if gate == "open":
+            got = np.asarray(eng.optimize(None, 10).chis)
+            r = ref.optimize(None, 10)
+            want = np.asarray(r.chis)[:int(r.niters)]
+            monkeypatch.setattr(rows, "plan_row_tables",
+                                lambda s, pad_blocks=0, lr=None: (None, None))
+            aos = engine.BlockSolverEngine(port_s, ((1, MONO_DELTA), (1, MONO_DELTA)), cfg)
+            assert aos.path == "aos"
+            aos = np.asarray(aos.optimize(None, 10).chis)
+            assert len(got) == len(want) == len(aos) >= 4 and got[-1] < got[0]
+            np.testing.assert_allclose(got, want, rtol={"wide": 1e-6, "scattered": 2e-5}[kind])
+            np.testing.assert_allclose(got, aos, rtol=1e-6)
+    else:
+        assert eng.path == tpu_path
+    if tpu_path == "v2":
         assert eng.plan.lr_nob == plans.lr_nob and eng.plan.lr_k == plans.lr_k
-    if kind in ("scattered", "pose_only", "landmark_only"):
-        assert want == "aos"
+    if kind in ("pose_only", "landmark_only"):
+        assert eng.path == "aos"
     if kind == "chords2":
         assert eng.solver == "dense_cholesky" and (eng.lr is None)
         assert engine.resolve_solver(port_s, cfg)[3] is not None

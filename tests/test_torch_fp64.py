@@ -32,9 +32,8 @@ SEGMM_CU = os.path.join(ROOT, "cuba_tpu_torch", "csrc", "segmm.cu")
 _spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
-WRAPPERS = ("resident_gather", "windowed_gather", "tiled_gather", "accum_segsum",
-            "accum_segsum_windowed", "tiled_segsum", "schur_fused", "compact_to_band",
-            "compact_to_dense", "band_transpose")
+WRAPPERS = ("gather", "segsum", "schur_fused", "compact_to_band", "compact_to_dense",
+            "band_transpose")
 
 
 def _entries():
@@ -146,9 +145,9 @@ def test_fp64_launch_counts():
     cudalib.reset_launches()
     cudalib.count("schur_fused", torch.float32)
     cudalib.count("schur_fused", torch.float64)
-    cudalib.count("tiled_segsum", torch.float64)
+    cudalib.count("segsum", torch.float64)
     assert cudalib.LAUNCHES["schur_fused"] == 2 and cudalib.LAUNCHES_F64["schur_fused"] == 1
-    assert cudalib.LAUNCHES["tiled_segsum"] == cudalib.LAUNCHES_F64["tiled_segsum"] == 1
+    assert cudalib.LAUNCHES["segsum"] == cudalib.LAUNCHES_F64["segsum"] == 1
     assert set(cudalib.LAUNCHES_F64) == set(cudalib.LAUNCHES)
     cudalib.reset_launches()
     assert not any(cudalib.LAUNCHES.values()) and not any(cudalib.LAUNCHES_F64.values())
@@ -176,8 +175,8 @@ def test_segsum_walk_in_fp64_is_an_fp64_sum():
     got = walks.segsum_walk(vals, csr)
     assert got.dtype == np.float64
     vt, it = torch.from_numpy(vals), torch.from_numpy(ids)
-    want = segmm.accum_segsum_plain(vt, it, 50).numpy()
-    bound = segmm.accum_segsum_plain(vt.abs(), it, 50).numpy()
+    want = segmm.segsum_plain(vt, it, 50).numpy()
+    bound = segmm.segsum_plain(vt.abs(), it, 50).numpy()
     assert np.all(np.abs(got - want) <= 1e-13 * bound)
     one = walks.segsum_walk(vals, csr, group=1)
     order, offs = csr.order.numpy(), csr.offs.numpy()
@@ -200,7 +199,7 @@ def test_phase16_records_are_the_repos():
 
 
 def _watch_wrappers(monkeypatch):
-    """Record the float dtypes of every call to the ten segmm wrappers."""
+    """Record the float dtypes of every call to the six segmm wrappers."""
     seen = {}
     for name in WRAPPERS:
         fn = getattr(segmm, name)
@@ -231,14 +230,14 @@ def _fp64_run(prob, solver, niters=2, edit=None):
 _ROUTES = {
     # route: (graph, solver, the wrappers it must reach)
     "v2-band": (dict(num_poses=150, num_landmarks=1400, seed=2), "band_cr",
-                {"tiled_gather", "tiled_segsum", "schur_fused", "compact_to_band"}),
+                {"gather", "segsum", "schur_fused", "compact_to_band"}),
     "v2-dense": (dict(num_poses=10, num_landmarks=90, seed=7), "dense_cholesky",
-                 {"tiled_segsum", "schur_fused", "compact_to_dense"}),
+                 {"segsum", "schur_fused", "compact_to_dense"}),
     "v1": (dict(num_poses=150, num_landmarks=1400, seed=2), "band_cr",
-           {"schur_fused", "tiled_segsum", "band_transpose"}),
+           {"schur_fused", "segsum", "band_transpose"}),
     "rows-pcg": (dict(num_poses=40, num_landmarks=600, seed=4), "pcg",
-                 {"tiled_gather", "tiled_segsum"}),
-    "aos": (dict(num_poses=40, num_landmarks=600, seed=4), "band_lr", {"accum_segsum"}),
+                 {"gather", "segsum"}),
+    "aos": (dict(num_poses=40, num_landmarks=600, seed=4), "band_lr", {"segsum"}),
 }
 
 

@@ -35,18 +35,15 @@ def _ids(rng, n, num):
 
 
 @pytest.mark.parametrize("D", [1, 3, 12])
-@pytest.mark.parametrize("name", ["resident_gather", "windowed_gather", "tiled_gather"])
-def test_gather_kernel_matches_plain(cuda, name, D):
+def test_gather_kernel_matches_plain(cuda, D):
     rng = np.random.default_rng(D)
     src = torch.from_numpy(rng.standard_normal((D, 5000)).astype(np.float32)).to(cuda)
     ids = torch.from_numpy(_ids(rng, 70001, 5000)).to(cuda)  # N odd: no vector width divides it
-    args = {"resident_gather": (), "windowed_gather": (None, None),
-            "tiled_gather": (None, None)}[name]
-    before = segmm.LAUNCHES[name]
-    got = getattr(segmm, name)(src, ids, *args)
-    want = getattr(segmm, name + "_plain")(src, ids, *args)
+    before = segmm.LAUNCHES["gather"]
+    got = segmm.gather(src, ids)
+    want = segmm.gather_plain(src, ids)
     torch.cuda.synchronize()
-    assert segmm.LAUNCHES[name] == before + 1
+    assert segmm.LAUNCHES["gather"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -73,28 +70,25 @@ def _segment_ids(rng, regime):
 @pytest.mark.parametrize("D", [1, 3, 9, 18, 36, 42])
 @pytest.mark.parametrize("regime", ["empty", "sparse", "length1", "mean12", "mean400",
                                     "one100k"])
-@pytest.mark.parametrize("name", ["accum_segsum", "accum_segsum_windowed", "tiled_segsum"])
-def test_segsum_kernel_matches_plain(cuda, name, regime, D):
+def test_segsum_kernel_matches_plain(cuda, regime, D):
     rng = np.random.default_rng(1)
     ids_np, num_out = _segment_ids(rng, regime)
     vals_np = rng.standard_normal((D, ids_np.size)).astype(np.float32)
     vals, ids = torch.from_numpy(vals_np).to(cuda), torch.from_numpy(ids_np).to(cuda)
     csr = segmm.segment_csr(ids, num_out, cuda)
     assert (csr.live is not None) == (regime == "sparse")
-    args = {"accum_segsum": (), "accum_segsum_windowed": (None, None),
-            "tiled_segsum": (None, None)}[name]
-    before = segmm.LAUNCHES[name]
-    got = getattr(segmm, name)(vals, ids, num_out, *args, csr=csr)
-    want = getattr(segmm, name + "_plain")(vals, ids, num_out, *args)
+    before = segmm.LAUNCHES["segsum"]
+    got = segmm.segsum(vals, ids, num_out, csr)
+    want = segmm.segsum_plain(vals, ids, num_out)
     torch.cuda.synchronize()
-    assert segmm.LAUNCHES[name] == before + 1
-    bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+    assert segmm.LAUNCHES["segsum"] == before + 1
+    bound = segmm.segsum_plain(vals.abs(), ids, num_out)
     assert bool(((got - want).abs() <= 1e-5 * bound).all())
     # the kernel's own summation order, walked in NumPy: the same bits
     walk = walks.segsum_walk(vals_np, csr)
     assert np.array_equal(got.cpu().numpy().view(np.int32), walk.view(np.int32))
     # deterministic: a second launch gives the same bits
-    assert torch.equal(got, getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
+    assert torch.equal(got, segmm.segsum(vals, ids, num_out, csr))
 
 
 def test_kernel_wrappers_reject_bad_input(cuda):
@@ -103,7 +97,7 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     src = torch.zeros((3, 10), dtype=torch.float16, device=cuda)
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        segmm.resident_gather(src, ids)
+        segmm.gather(src, ids)
     gT = torch.zeros((36, 64), device=cuda)
     dbT = torch.zeros((36, 64), dtype=torch.float64, device=cuda)
     occ = torch.ones(2, dtype=torch.int32, device=cuda)
@@ -112,9 +106,9 @@ def test_kernel_wrappers_reject_bad_input(cuda):
     with pytest.raises(TypeError):
         segmm.compact_to_band(gT, iru, iru, dbT, occ, 64, 64, table=table)
     with pytest.raises(ValueError):
-        segmm.resident_gather(torch.zeros((10, 3), device=cuda).T, ids)
+        segmm.gather(torch.zeros((10, 3), device=cuda).T, ids)
     with pytest.raises(ValueError):
-        segmm.resident_gather(torch.zeros((3, 10)), ids)
+        segmm.gather(torch.zeros((3, 10)), ids)
 
 
 def _edge_lanes(rng, E, mdim, dtype, device):
@@ -199,7 +193,7 @@ def test_slice_on_card_matches_plain(cuda):
 
     segmm.reset_launches()
     got = run()
-    assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum", "edge_terms"))
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("gather", "segsum", "edge_terms"))
     with segmm.use_plain():
         want = run()
     n = min(len(got), len(want))
@@ -375,7 +369,7 @@ def test_band_slice_on_card_matches_plain(cuda):
 
     segmm.reset_launches()
     got = run()
-    assert all(segmm.LAUNCHES[n] > 0 for n in ("schur_fused", "compact_to_band", "tiled_segsum"))
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("schur_fused", "compact_to_band", "segsum"))
     with segmm.use_plain():
         want = run()
     n = min(len(got), len(want))
@@ -750,7 +744,7 @@ def test_v1_slice_on_card_matches_plain(cuda, monkeypatch):
     monkeypatch.setattr(rows, "_WG_MAX", 0)  # close the v2 gate
     _against_plain(synthetic.generate(num_poses=150, num_landmarks=1400, seed=2),
                    BAConfig(dtype=torch.float32, solver="band_cr", device="cuda"), "v1",
-                   ("schur_fused", "tiled_segsum", "band_transpose"))
+                   ("schur_fused", "segsum", "band_transpose"))
 
 
 def _add_chords(ba):
@@ -783,7 +777,7 @@ def test_aos_slice_on_card_matches_plain(cuda, monkeypatch, fix):
                 ba.landmark_vertex(j).fixed = True
 
     _against_plain(synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
-                   BAConfig(dtype=torch.float32, device="cuda"), "aos", ("accum_segsum",),
+                   BAConfig(dtype=torch.float32, device="cuda"), "aos", ("segsum",),
                    edit=edit)
 
 
@@ -806,7 +800,7 @@ def test_profiled_run_on_card_matches_plain(cuda):
     ba = _api_graph(BAConfig(dtype=torch.float32, device="cuda"))
     ba.initialize()
     ba.optimize(6, profile=True)
-    assert all(segmm.LAUNCHES[n] > 0 for n in ("tiled_gather", "tiled_segsum", "schur_fused"))
+    assert all(segmm.LAUNCHES[n] > 0 for n in ("gather", "segsum", "schur_fused"))
     got = np.array([s.chi2 for s in ba.batch_statistics()])
     want = np.array([s.chi2 for s in plain.batch_statistics()])
     np.testing.assert_allclose(got, want, rtol=5e-3)
@@ -877,23 +871,19 @@ def _f64_counted(name, call):
 
 
 @pytest.mark.parametrize("D", [1, 3, 12])
-@pytest.mark.parametrize("name", ["resident_gather", "windowed_gather", "tiled_gather"])
-def test_gather_kernel_matches_plain_fp64(cuda, name, D):
+def test_gather_kernel_matches_plain_fp64(cuda, D):
     rng = np.random.default_rng(D)
     src = torch.from_numpy(rng.standard_normal((D, 5000))).to(cuda)
     ids = torch.from_numpy(_ids(rng, 70001, 5000)).to(cuda)
-    args = {"resident_gather": (), "windowed_gather": (None, None),
-            "tiled_gather": (None, None)}[name]
-    got = _f64_counted(name, lambda: getattr(segmm, name)(src, ids, *args))
-    assert torch.equal(got, getattr(segmm, name + "_plain")(src, ids, *args))
-    assert torch.equal(got, getattr(segmm, name)(src, ids, *args))
+    got = _f64_counted("gather", lambda: segmm.gather(src, ids))
+    assert torch.equal(got, segmm.gather_plain(src, ids))
+    assert torch.equal(got, segmm.gather(src, ids))
 
 
 @pytest.mark.parametrize("D", [3, 42])
 @pytest.mark.parametrize("regime", ["empty", "sparse", "length1", "mean12", "mean400",
                                     "one100k"])
-@pytest.mark.parametrize("name", ["accum_segsum", "accum_segsum_windowed", "tiled_segsum"])
-def test_segsum_kernel_matches_plain_fp64(cuda, name, regime, D):
+def test_segsum_kernel_matches_plain_fp64(cuda, regime, D):
     """Within 1e-13 of each output's sum of |vals| of the plain version,
     bit for bit the fp64 walk of its order, and the same bits twice."""
     rng = np.random.default_rng(1)
@@ -901,15 +891,13 @@ def test_segsum_kernel_matches_plain_fp64(cuda, name, regime, D):
     vals_np = rng.standard_normal((D, ids_np.size))
     vals, ids = torch.from_numpy(vals_np).to(cuda), torch.from_numpy(ids_np).to(cuda)
     csr = segmm.segment_csr(ids, num_out, cuda)
-    args = {"accum_segsum": (), "accum_segsum_windowed": (None, None),
-            "tiled_segsum": (None, None)}[name]
-    got = _f64_counted(name, lambda: getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
-    want = getattr(segmm, name + "_plain")(vals, ids, num_out, *args)
-    bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+    got = _f64_counted("segsum", lambda: segmm.segsum(vals, ids, num_out, csr))
+    want = segmm.segsum_plain(vals, ids, num_out)
+    bound = segmm.segsum_plain(vals.abs(), ids, num_out)
     assert bool(((got - want).abs() <= 1e-13 * bound).all())
     walk = walks.segsum_walk(vals_np, csr)
     assert np.array_equal(got.cpu().numpy().view(np.int64), walk.view(np.int64))
-    assert torch.equal(got, getattr(segmm, name)(vals, ids, num_out, *args, csr=csr))
+    assert torch.equal(got, segmm.segsum(vals, ids, num_out, csr))
 
 
 def _f64(plan_tuple):
@@ -995,7 +983,7 @@ def test_v2_band_fp64_on_card_matches_plain(cuda):
     launched = _fp64_against_plain(
         synthetic.generate(num_poses=150, num_landmarks=1400, seed=2),
         BAConfig(dtype=torch.float64, solver="band_cr", device="cuda"), "v2")
-    assert {"schur_fused", "compact_to_band", "tiled_segsum", "tiled_gather"} <= launched
+    assert {"schur_fused", "compact_to_band", "segsum", "gather"} <= launched
 
 
 def test_v2_dense_fp64_on_card_matches_plain(cuda):
@@ -1020,7 +1008,7 @@ def test_pcg_fp64_on_card_matches_plain(cuda):
     launched = _fp64_against_plain(
         synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
         BAConfig(dtype=torch.float64, solver="pcg", device="cuda"), "rows")
-    assert {"tiled_gather", "tiled_segsum"} <= launched
+    assert {"gather", "segsum"} <= launched
 
 
 def test_aos_fp64_on_card_matches_plain(cuda, monkeypatch):
@@ -1028,7 +1016,7 @@ def test_aos_fp64_on_card_matches_plain(cuda, monkeypatch):
     launched = _fp64_against_plain(
         synthetic.generate(num_poses=40, num_landmarks=600, seed=4),
         BAConfig(dtype=torch.float64, device="cuda"), "aos")
-    assert launched == {"accum_segsum"}
+    assert launched == {"segsum"}
 
 
 # ---------------------------------------------------------------------------
@@ -1138,7 +1126,7 @@ def test_mesh_aos_body_with_an_empty_shard_on_one_card(cuda):
         for k in ("chis", "Xws", "qs"):
             assert np.array_equal(r[f"e.{k}"], res[0][f"e.{k}"]), k
         launched = dict(zip(drive.LAUNCH_NAMES, r["e.launches_f64"]))
-        assert launched["accum_segsum"] > 0
+        assert launched["segsum"] > 0
     np.testing.assert_allclose(res[0]["e.chis"], want, rtol=1e-6)
 
 
@@ -1209,23 +1197,19 @@ def test_stress_shaped_gathers_and_sums_match_plain(cuda, dtype):
     lm_ids, pose_ids = torch.from_numpy(lm).to(cuda), torch.from_numpy(pose).to(cuda)
     xw = torch.randn((3, _STRESS_L), dtype=dtype, device=cuda)
     psrc = torch.randn((12, 2048), dtype=dtype, device=cuda)
-    for got, want in ((segmm.tiled_gather(xw, lm_ids, None, None),
-                       segmm.tiled_gather_plain(xw, lm_ids, None, None)),
-                      (segmm.resident_gather(psrc, pose_ids),
-                       segmm.resident_gather_plain(psrc, pose_ids))):
-        assert torch.equal(got, want)
+    for src, ids in ((xw, lm_ids), (psrc, pose_ids)):
+        assert torch.equal(segmm.gather(src, ids), segmm.gather_plain(src, ids))
     rtol = 1e-13 if dtype == torch.float64 else 1e-5
-    for D, ids, num_out, name in ((18, lm_ids, _STRESS_L, "tiled_segsum"),
-                                  (42, pose_ids, _STRESS_P, "accum_segsum")):
+    for D, ids, num_out, name in ((18, lm_ids, _STRESS_L, "landmark sums"),
+                                  (42, pose_ids, _STRESS_P, "pose sums")):
         vals = torch.randn((D, N), dtype=dtype, device=cuda)
         csr = segmm.segment_csr(ids, num_out, cuda)
-        extra = (None, None) if name == "tiled_segsum" else ()
-        before = segmm.LAUNCHES[name]
-        got = getattr(segmm, name)(vals, ids, num_out, *extra, csr=csr)
+        before = segmm.LAUNCHES["segsum"]
+        got = segmm.segsum(vals, ids, num_out, csr)
         torch.cuda.synchronize()
-        assert segmm.LAUNCHES[name] == before + 1
-        want = segmm.accum_segsum_plain(vals, ids, num_out)
-        bound = segmm.accum_segsum_plain(vals.abs(), ids, num_out)
+        assert segmm.LAUNCHES["segsum"] == before + 1
+        want = segmm.segsum_plain(vals, ids, num_out)
+        bound = segmm.segsum_plain(vals.abs(), ids, num_out)
         assert bool(((got - want).abs() <= rtol * bound).all()), name
         del vals, got, want, bound
 

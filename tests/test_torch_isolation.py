@@ -234,7 +234,7 @@ def test_cuda_only_calls_raise_on_cpu():
         ba.initialize()
     meta = torch.empty((3, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        segmm.tiled_gather(meta, torch.zeros(8, dtype=torch.int32, device="meta"), None, None)
+        segmm.gather(meta, torch.zeros(8, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="no kernel"):
         trisolve.matvec(torch.empty((8, 8), device="meta"), torch.empty(8, device="meta"))
 

@@ -46,8 +46,10 @@ F64 = torch.float64
 
 def _scattered(num_p=150, num_l=1200, seed=0):
     """Scattered covisibility (each landmark seen from four random poses,
-    tests/test_torch_aos.py's kind): the single-device planner finds no
-    plan, and every shard's plan lacks the v2 tables."""
+    tests/test_torch_aos.py's kind): its bands are over ``rows._WG_MAX``, so
+    the single-device planner and a one-shard mesh take it to the v1
+    formation, which is not sharded: at S = 4 every shard's plan lacks the
+    v2 tables."""
     rng = np.random.default_rng(seed)
     mp = np.concatenate([rng.choice(num_p, size=4, replace=False) for _ in range(num_l)])
     e = np.zeros((0,), np.int32)
@@ -336,12 +338,17 @@ def _chip_smoke():
     ("g140", "band_cr", {"compact_to_band"}),
     ("g8", "pcg", set()),
     ("scattered", "auto", None),
+    ("scattered", "dense_cholesky", {"band_transpose"}),
 ])
-def test_route_facts_name_the_kernels_of_the_route(graph, solver, want):
+def test_route_facts_name_the_kernels_of_the_route(graph, solver, want, monkeypatch):
     """The smoke's launch gate reads a rank's route facts
     (``drive.route_facts``) and names the route's kernels itself
     (``chip_smoke.expected_kernels``); the facts of an engine in this
-    process give the kernels its route runs."""
+    process give the kernels its route runs (``want`` None: the AoS path,
+    the planner closed; the scattered graph's own route is v1)."""
+    if want is None:
+        monkeypatch.setattr(rows, "plan_row_tables",
+                            lambda s, pad_blocks=0, lr=None: (None, None))
     s, kernels = _graph(graph)
     eng = engine.BlockSolverEngine(structure_from_numpy(s), kernels,
                                    cuba_tpu_torch.BAConfig(dtype=F64, solver=solver,
@@ -349,13 +356,10 @@ def test_route_facts_name_the_kernels_of_the_route(graph, solver, want):
     facts = drive.route_facts(eng)
     got = _chip_smoke().expected_kernels({k: np.array(v) for k, v in facts.items()})
     if want is None:
-        assert facts["path"] == "aos" and got == {"accum_segsum"}
+        assert facts["path"] == "aos" and got == {"segsum"}
         return
-    plan = eng.plan
-    front = {"tiled_gather", "tiled_segsum", "edge_terms", "hll_inverse", "slot_factors",
-             "windowed_gather" if plan.rg_m is not None else "resident_gather"}
-    front |= {"accum_segsum_windowed" if p.ok else "accum_segsum"
-              for p in (plan.paw_m, plan.paw_s, plan.paw_b)}
+    assert facts["path"] == ("v1" if "band_transpose" in want else "v2" if want else "rows")
+    front = {"gather", "segsum", "edge_terms", "hll_inverse", "slot_factors"}
     schur = {"schur_fused"} if want else set()
     assert got == front | schur | want  # no trisolve kernels in fp64
 
@@ -468,7 +472,7 @@ def test_one_shard_equals_the_single_device_engine_bit_for_bit(ranks4, name):
     for k in ("chis", "Xws", "qs", "ts", "final_lambda", "nattempts"):
         assert np.array_equal(r[f"{name}.{k}"], single[k]), (name, k)
     assert f"{name}.chis" not in res[1]  # rank 0 alone
-    want = "aos" if "aos" in name or "scattered" in name else None
+    want = "aos" if "aos" in name else "v1" if "scattered" in name else None
     if want:
         assert str(r[f"{name}.path"]) == want
 

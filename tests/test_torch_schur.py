@@ -85,10 +85,10 @@ def test_schur_fused_plain_matches_pallas_and_xla(band_problem, pallas_schur):
     # per Hsc block (the lanes combined by their global block ids) against
     # the XLA reference over the unsorted triplets
     gid = torch.from_numpy(np.asarray(plan.schur.gid, np.int32))
-    per_block = segmm.tiled_segsum_plain(_t(got), gid, s.n_hsc, None, None).numpy()
+    per_block = segmm.segsum_plain(_t(got), gid, s.n_hsc).numpy()
     xla = np.asarray(tpu_segmm.schur_fused_xla(jnp.asarray(W), jnp.asarray(G),
                                                s.mul_i, s.mul_j, s.mul_k, s.n_hsc))
-    bound_b = segmm.tiled_segsum_plain(_t(bound), gid, s.n_hsc, None, None).numpy()
+    bound_b = segmm.segsum_plain(_t(bound), gid, s.n_hsc).numpy()
     assert np.all(np.abs(per_block - xla) <= bound_b + 1e-30)
 
 

@@ -1,9 +1,11 @@
-"""cuba_tpu_torch.ops.segmm's six wrappers against cuba_tpu's Pallas kernels.
+"""cuba_tpu_torch.ops.segmm's gather and segment sum against each of
+cuba_tpu's three Pallas gathers and three Pallas segment sums.
 
-On the CPU each wrapper runs its plain torch version.  fp32: the same
-inputs, made with numpy from a seed, go through cuba_tpu's kernel in
-interpret mode (with a real plan from ``segmm.plan_*``) and through the
-port.  Gathers must agree bit for bit (the kernels' bf16x3 split is exact);
+On the CPU the port's two wrappers run their plain torch versions.  fp32:
+the same inputs, made with numpy from a seed, go through cuba_tpu's kernel
+in interpret mode (with a real plan from cuba_tpu's ``segmm.plan_*``) and
+through the port's ``segmm.gather`` or ``segmm.segsum``, which need no
+plan.  Gathers must agree bit for bit (the kernels' bf16x3 split is exact);
 segment sums within 1e-5 of each output's sum of |vals| (the one-hot matmul
 sums in another order).  fp64: the port against the ``_xla`` twins, within
 1e-12 of the same bound.  Ids include -1, ids past the end and empty
@@ -48,7 +50,7 @@ def _gather_case(name, rng, D=12):
         ids = _ids(rng, N, S)
         return (
             lambda s: tpu.resident_gather(s, jnp.asarray(ids), interpret=True),
-            lambda s: segmm.resident_gather(s, torch.from_numpy(ids)),
+            lambda s: segmm.gather(s, torch.from_numpy(ids)),
             lambda s: tpu.resident_gather_xla(s, jnp.asarray(ids)),
             src,
         )
@@ -65,7 +67,7 @@ def _gather_case(name, rng, D=12):
         return (
             lambda s: tpu.windowed_gather(s, jnp.asarray(ids), plan, jnp.asarray(plan.wb),
                                           interpret=True),
-            lambda s: segmm.windowed_gather(s, torch.from_numpy(ids), plan, plan.wb),
+            lambda s: segmm.gather(s, torch.from_numpy(ids)),
             lambda s: tpu.resident_gather_xla(s, jnp.asarray(ids)),
             src,
         )
@@ -81,8 +83,7 @@ def _gather_case(name, rng, D=12):
     return (
         lambda s: tpu.tiled_gather(s, jnp.asarray(idp), plan, jnp.asarray(plan.base_block),
                                    num_out=N, interpret=True),
-        lambda s: segmm.tiled_gather(s, torch.from_numpy(idp), plan, plan.base_block,
-                                     num_out=N),
+        lambda s: segmm.gather(s, torch.from_numpy(idp[:N])),
         lambda s: tpu.tiled_gather_xla(s, jnp.asarray(idp), num_out=N),
         src,
     )
@@ -96,7 +97,7 @@ def _segsum_case(name, rng, D=7):
         vals = rng.standard_normal((D, N))
         return (
             lambda v: tpu.accum_segsum(v, jnp.asarray(ids), S, chunk=512, interpret=True),
-            lambda v: segmm.accum_segsum(v, torch.from_numpy(ids), S, chunk=512),
+            lambda v: segmm.segsum(v, torch.from_numpy(ids), S),
             ids, S, vals,
         )
     if name == "accum_segsum_windowed":
@@ -108,7 +109,7 @@ def _segsum_case(name, rng, D=7):
         return (
             lambda v: tpu.accum_segsum_windowed(v, jnp.asarray(ids), S, plan,
                                                 jnp.asarray(plan.wb), interpret=True),
-            lambda v: segmm.accum_segsum_windowed(v, torch.from_numpy(ids), S, plan, plan.wb),
+            lambda v: segmm.segsum(v, torch.from_numpy(ids), S),
             ids, S, vals,
         )
     S, N = 1000, 4096
@@ -121,7 +122,7 @@ def _segsum_case(name, rng, D=7):
     return (
         lambda v: tpu.tiled_segsum(v, jnp.asarray(idp), S, plan, jnp.asarray(plan.base_block),
                                    interpret=True),
-        lambda v: segmm.tiled_segsum(v, torch.from_numpy(idp), S, plan, plan.base_block),
+        lambda v: segmm.segsum(v, torch.from_numpy(idp), S),
         idp, S, vals,
     )
 

@@ -152,7 +152,7 @@ def skewed():
 def test_segsum_walk_matches_plain_and_pallas(skewed, group):
     ids, S, vals, pallas, bound = skewed
     walk = walks.segsum_walk(vals, segmm.segment_csr(ids, S, "cpu"), group)
-    plain = segmm.accum_segsum_plain(torch.from_numpy(vals), torch.from_numpy(ids), S).numpy()
+    plain = segmm.segsum_plain(torch.from_numpy(vals), torch.from_numpy(ids), S).numpy()
     assert walk.dtype == np.float32 and walk.shape == (7, S)
     for want in (plain, pallas):
         assert np.all(np.abs(walk.astype(np.float64) - want) <= SUM_RTOL * bound)

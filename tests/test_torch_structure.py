@@ -5,9 +5,12 @@ JAX, which the card does not have).  These tests hold the copies to the
 originals: the structure of ``build_structure_from_arrays`` and
 ``build_structure`` (the Schur pattern, triplets and the C++ pass's fused
 Schur plan included), ``plan_schur`` through the C++ and the NumPy paths,
-and the paddings, window plans, padded id tables and ``res_perm`` of
-``plan_mxu(..., wire_pack=False)``, with and without the v2 band and dense
+and the id tables of ``plan_mxu(..., wire_pack=False)`` on their valid
+prefix, with and without the Schur plan, ``wg`` and the v2 band and dense
 tables (``need_dense``), and the placement table of ``compact_to_dense``.
+The port pads for the card (each per-edge and per-slot table to a multiple
+of 1024, and -1 beyond the valid prefix), not for the TPU's window and
+tile plans, which it does not carry.
 """
 
 import dataclasses
@@ -116,14 +119,27 @@ def test_object_graph_structure_matches():
     assert [v.iL for v in ba._landmarks.values()] == [v.iL for v in tba._landmarks.values()]
 
 
-def _assert_plan_equal(a, b, name):
-    assert (a is None) == (b is None), name
-    if a is None:
-        return
-    for f in dataclasses.fields(a):
-        np.testing.assert_array_equal(np.asarray(getattr(a, f.name)),
-                                      np.asarray(getattr(b, f.name)),
-                                      err_msg=f"{name}.{f.name}")
+def _pad(n: int) -> int:
+    return max(-(-n // 1024) * 1024, 1024)
+
+
+def _assert_paddings(plan, s, schur=None):
+    """The card's paddings: each edge type's and the slots' count rounded
+    up to 1024 (at least 1024), the slots' at least schur_fused's window."""
+    assert plan.e_pad_m == _pad(s.mono.count) and plan.e_pad_s == _pad(s.stereo.count)
+    assert plan.hpl_pad == max(_pad(s.n_hpl), schur.n_slot_pad if schur else 0)
+
+
+def _assert_tables_match(tables, consts):
+    """Every table equal to plan_mxu's on the valid prefix and -1 beyond
+    it: the prefix is the shorter table (cuba_tpu's tile plans may pad
+    further than the card, and every valid entry lies within both)."""
+    for f, t in tables.items():
+        ref = np.asarray(getattr(consts, f))
+        assert t.dtype == np.int32, f
+        n = min(t.size, ref.size)
+        np.testing.assert_array_equal(t[:n], ref[:n], err_msg=f)
+        assert np.all(t[n:] == -1) and np.all(ref[n:] == -1), f
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
@@ -131,19 +147,23 @@ def test_row_plan_matches_plan_mxu(name):
     s = tpu_structure.build_structure_from_arrays(*_arrays(*PROBLEMS[name]))
     plans, consts = mxu.plan_mxu(s, need_dense=False, wire_pack=False)
     assert plans.ok and consts is not None
-    plan, tables = rows.plan_row_tables(structure_from_numpy(s))
-    for f in ("e_pad_m", "e_pad_s", "hpl_pad", "p_src_pad", "p_res_pad"):
-        assert getattr(plan, f) == getattr(plans, f), f
-    for f in ("hll_m", "hll_s", "hpl_m", "hpl_s", "ivs", "xpg", "cl", "xwg_m", "xwg_s",
-              "paw_m", "paw_s", "paw_b", "rg_m", "rg_s"):
-        _assert_plan_equal(getattr(plan, f), getattr(plans, f), f)
-    assert set(tables) >= {"hpl_row", "hpl_col", "e2h_m", "pose_acc_m", "lm_gid_s"}
+    port_s = structure_from_numpy(s)
+    plan, tables = rows.plan_row_tables(port_s)
+    _assert_paddings(plan, port_s)
+    assert plan.schur is None and not plan.v2
+    assert set(tables) == {"pose_gid_m", "pose_gid_s", "lm_gid_m", "lm_gid_s", "pose_acc_m",
+                           "pose_acc_s", "lm_acc_m", "lm_acc_s", "e2h_m", "e2h_s", "hpl_row",
+                           "hpl_col"}
     for f, t in tables.items():
-        assert t.dtype == np.int32, f
-        np.testing.assert_array_equal(t, np.asarray(getattr(consts, f)), err_msg=f)
-    _, rc = rows.plan_rows(structure_from_numpy(s), "cpu", torch.float32)
-    for f in ("measT_m", "measT_s", "omegaT_m", "omegaT_s"):
-        np.testing.assert_array_equal(getattr(rc, f).numpy(), getattr(consts, f), err_msg=f)
+        assert t.size == (plan.hpl_pad if f.startswith("hpl") else
+                          plan.e_pad_m if f.endswith("_m") else plan.e_pad_s), f
+    _assert_tables_match(tables, consts)
+    _, rc = rows.plan_rows(port_s, "cpu", torch.float32)
+    for f, E in (("measT_m", s.mono.count), ("measT_s", s.stereo.count),
+                 ("omegaT_m", s.mono.count), ("omegaT_s", s.stereo.count)):
+        got, want = getattr(rc, f).numpy(), np.asarray(getattr(consts, f))
+        np.testing.assert_array_equal(got[..., :E], want[..., :E], err_msg=f)
+        assert not got[..., E:].any() and not want[..., E:].any(), f
 
 
 def _assert_schur_plans_equal(a, b, name):
@@ -180,22 +200,21 @@ def test_band_plan_matches_plan_mxu(name):
     assert rows.pad_blocks_of(s.num_p) == PB
     plans, consts = mxu.plan_mxu(s, PB, need_dense=True, wire_pack=False)
     assert plans.ok and plans.v2 and consts is not None
-    plan, tables = rows.plan_row_tables(structure_from_numpy(s), PB)
-    for f in ("e_pad_m", "e_pad_s", "hpl_pad", "p_src_pad", "p_res_pad", "wg"):
-        assert getattr(plan, f) == getattr(plans, f), f
-    assert plan.hpl_pad >= plan.schur.n_slot_pad
-    for f in ("hll_m", "hll_s", "hpl_m", "hpl_s", "ivs", "xpg", "cl", "up2", "paw_b"):
-        _assert_plan_equal(getattr(plan, f), getattr(plans, f), f)
+    port_s = structure_from_numpy(s)
+    plan, tables = rows.plan_row_tables(port_s, PB)
+    assert plan.v2 and plan.wg == plans.wg and plan.pad_blocks == PB
     _assert_schur_plans_equal(plan.schur, plans.schur, name)
+    _assert_paddings(plan, port_s, plan.schur)
     assert set(tables) >= {"gkey_up2", "iru", "icu", "occ2", "band_occ", "sc_sb", "sc_li",
                            "sc_lj", "sc_lk", "hpl_row", "e2h_m"}
-    for f, t in tables.items():
-        assert t.dtype == np.int32, f
-        np.testing.assert_array_equal(t, np.asarray(getattr(consts, f)), err_msg=f)
-    _, rc = rows.plan_rows(structure_from_numpy(s), "cpu", torch.float32, pad_blocks=PB)
-    assert rc.gkey_up2.shape[0] == plan.wpad >= max(plan.up2.n_pad, tables["gkey_up2"].size)
-    np.testing.assert_array_equal(rc.gkey_up2[:tables["gkey_up2"].size].numpy(),
-                                  tables["gkey_up2"])
+    for f in ("gkey_up2", "iru", "icu", "occ2", "band_occ", "sc_sb", "sc_li", "sc_lj",
+              "sc_lk"):  # the Schur formation's tables come whole
+        assert tables[f].size == np.asarray(getattr(consts, f)).size, f
+    _assert_tables_match(tables, consts)
+    _, rc = rows.plan_rows(port_s, "cpu", torch.float32, pad_blocks=PB)
+    # the combine's keys: one a schur_fused output lane, no padding
+    assert rc.gkey_up2.shape[0] == plan.schur.num_chunks * plan.schur.kwin
+    np.testing.assert_array_equal(rc.gkey_up2.numpy(), tables["gkey_up2"])
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))

@@ -280,7 +280,7 @@ def test_roofline_formation_work_counts():
 def test_mfu_sites_are_the_smokes(monkeypatch):
     """The roofline table's sites (``roofline.engine_sites``) are the
     smoke's kernel checks, each calling its kernel on the smoke case's
-    arguments: kernels 1-6 on the initial state, schur_fused and the
+    arguments: the gather and the segment sum on the initial state, schur_fused and the
     combine on the first attempt, and compact_to_band on its compact
     table."""
     monkeypatch.setattr(segmm, "kernel_attributes", lambda *a, **k: {})
@@ -296,8 +296,7 @@ def test_mfu_sites_are_the_smokes(monkeypatch):
     cases["compact_to_band"] = chip_smoke.band_case(gT, dbT, eng, segmm, torch)
     assert set(sites) == set(cases)
     for label, site in sites.items():
-        assert torch.equal(site.call(getattr(segmm, site.kernel)), cases[label][1](
-            getattr(segmm, site.kernel))), label
+        assert torch.equal(site.call(site.wrapper()), cases[label][1](site.wrapper())), label
 
 
 @pytest.mark.parametrize("solver, params", [
@@ -315,7 +314,7 @@ def test_placement_library_call_is_the_plain_placement(solver, params):
     gT = rows.schur_compact(W, HplT, eng.plan, eng.rc)
     dbT = rows.damped_diagonal_T(HppT, lam, eng.num_p, eng.plan.pad_blocks)
     site = roofline.placement_site(eng, gT, dbT, dense=solver == "dense_cholesky")
-    want = site.call(getattr(segmm, site.kernel + "_plain"))
+    want = site.call(site.plain())
     assert torch.equal(roofline.placement_library(site)(), want)
     assert int((want != 0).sum()) > 0
 

@@ -197,6 +197,10 @@ def test_pcg_band_mc_measures_at_the_jax_tools_lambda(monkeypatch):
     tpu = TpuEngine(s, KERNELS, TpuConfig(dtype=jnp.float32, mxu="interpret", solver="band_cr"))
     assert tpu.use_rows and (port.solver, tpu.solver) == ("band_cr", "band_cr")
     HppT, HplT, lam, W, _bsc = bench_pcg_band_mc.attempt_of(port)
+    # the port pads its slot tables for the card, cuba_tpu for its tile
+    # plans: the extra slots are zero on both sides
+    H = tpu.mxu_plans.hpl_pad
+    HplT, W = (torch.nn.functional.pad(t, (0, H - t.shape[1])) for t in (HplT, W))
     _x, want_ok, want_k = mxu.pcg_solve_rows(
         *(jnp.asarray(t.numpy()) for t in (HppT, HplT, W, lam, HppT[36:42])), tpu.num_p,
         tpu.num_l, tpu.mxu_plans, tpu.consts.mxu, port.config.pcg_max_iterations, PCG_TOL,
